@@ -1,0 +1,12 @@
+"""PyTorch + CUDA port of the latent-diffusion-for-shape-SDFs framework.
+
+The JAX package `latent_diffusion_models_for_shape_sdfs_tpu` beside it is
+the reference; this package keeps its module names so each counterpart is
+easy to find, and imports neither JAX nor that package. Entry points run
+on `cuda` unless the caller passes `device="cpu"`.
+
+Ported so far (the serving path): `config`, `models.decoder`,
+`utils.checkpoint`, `ops.fused_decoder`, `ops.cuda_kernels` (the fused
+decoder-eval CUDA kernel, `csrc/fused_eval.cu`), `ops.grid_eval`,
+`ops.isosurface`, `evaluation`, `utils.meshio` and `serve`.
+"""

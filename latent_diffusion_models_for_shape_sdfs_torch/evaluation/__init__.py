@@ -1,0 +1,6 @@
+from latent_diffusion_models_for_shape_sdfs_torch.evaluation.chamfer import (  # noqa: F401
+    chamfer_l2,
+)
+from latent_diffusion_models_for_shape_sdfs_torch.evaluation.mesh_sample import (  # noqa: F401
+    sample_mesh_surface,
+)

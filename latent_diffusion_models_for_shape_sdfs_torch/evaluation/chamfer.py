@@ -1,0 +1,21 @@
+"""Chamfer-L2 metric (lineage evaluation contract, BASELINE.json:5).
+
+The lineage evaluates reconstructions as the symmetric mean of squared
+nearest-neighbour distances between 30k points sampled on the predicted
+mesh and the ground-truth surface samples (KD-tree on host). We keep that
+definition exactly: chamfer = mean_sq(pred->gt) + mean_sq(gt->pred).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+from scipy.spatial import cKDTree
+
+
+def chamfer_l2(pred_pts: np.ndarray, gt_pts: np.ndarray) -> float:
+    """Symmetric mean-of-squared-NN-distances. Lower is better."""
+    pred = np.asarray(pred_pts, np.float64)
+    gt = np.asarray(gt_pts, np.float64)
+    d_pg, _ = cKDTree(gt).query(pred, k=1)
+    d_gp, _ = cKDTree(pred).query(gt, k=1)
+    return float(np.mean(d_pg ** 2) + np.mean(d_gp ** 2))

@@ -1,0 +1,134 @@
+"""DeepSDF-style auto-decoder MLP (eval forward), torch `weight_norm` layout.
+
+Counterpart of the JAX package's `models/decoder.py`, with the same layer
+plan: `num_layers` hidden layers of width `hidden_dim` plus a final scalar
+layer (9 linear layers lin0..lin8 for the canonical 8x512 net). Layers in
+`latent_in` re-concatenate the full (z, xyz) input, and the layer before
+shrinks its output by the input width so the concat lands back on
+`hidden_dim` (512 = 253 + 259 for the defaults).
+
+Weights are kept in torch's `nn.Linear` layout, `v [out, in]`, with the
+`weight_norm(dim=0)` reparameterisation: each output unit o has its own
+scale, W[o, :] = g[o] * v[o, :] / max(||v[o, :]||_2, 1e-12). The JAX tree
+stores `v [in, out]`; `utils.checkpoint.params_from_jax` converts.
+
+Only the eval forward exists so far (fp32, or bf16 operands with fp32
+accumulation when `compute_dtype="bfloat16"`); training dropout comes with
+the training slice, so `forward` refuses to run in training mode when the
+config asks for dropout.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from latent_diffusion_models_for_shape_sdfs_torch.config import DecoderConfig
+
+
+def effective_weight(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """W[o, :] = g[o] * v[o, :] / max(||v[o, :]||_2, 1e-12) for v [out, in]
+    (torch weight_norm, dim=0)."""
+    norm = torch.sqrt(torch.sum(v * v, dim=1, keepdim=True))
+    return v * (g[:, None] / torch.clamp(norm, min=1e-12))
+
+
+class WNLinear(nn.Module):
+    """Linear layer with torch-`weight_norm(dim=0)` reparameterisation.
+
+    Parameters `v [out, in]`, `g [out]`, `b [out]`; init matches torch's
+    nn.Linear (U(-1/sqrt(in), 1/sqrt(in))) with g = ||v[o, :]|| so the
+    initial effective weight equals the raw init."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 use_weight_norm: bool = True):
+        super().__init__()
+        self.use_weight_norm = use_weight_norm
+        self.v = nn.Parameter(torch.empty(out_features, in_features))
+        self.b = nn.Parameter(torch.empty(out_features))
+        if use_weight_norm:
+            self.g = nn.Parameter(torch.empty(out_features))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        k = 1.0 / math.sqrt(self.v.shape[1])
+        nn.init.uniform_(self.v, -k, k)
+        nn.init.uniform_(self.b, -k, k)
+        if self.use_weight_norm:
+            self.g.copy_(torch.sqrt(torch.sum(self.v * self.v, dim=1)))
+
+    def weight(self) -> torch.Tensor:
+        return (effective_weight(self.v, self.g) if self.use_weight_norm
+                else self.v)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """fp32 in: fp32 product. bf16 in: bf16 operands, fp32 accumulation
+        and fp32 bias (the JAX `preferred_element_type=float32` form)."""
+        w = self.weight()
+        if x.dtype == torch.bfloat16:
+            w = w.to(torch.bfloat16).float()
+            return F.linear(x.float(), w) + self.b.float()
+        return F.linear(x, w.to(x.dtype), self.b.to(x.dtype))
+
+
+class SdfDecoder(nn.Module):
+    """f(z, xyz) -> sdf. See the module docstring for the layer plan."""
+
+    def __init__(self, cfg: DecoderConfig = DecoderConfig()):
+        super().__init__()
+        self.cfg = cfg
+        for layer, (d_in, out, _) in enumerate(self.layer_dims()):
+            self.add_module(f"lin{layer}",
+                            WNLinear(d_in, out, cfg.weight_norm))
+
+    def layer_dims(self) -> Sequence[tuple]:
+        """[(in_dim, out_dim, takes_skip), ...] for each linear layer.
+
+        A layer feeding a `latent_in` layer shrinks its output by the full
+        input width; with `xyz_in_all`, every non-final layer shrinks by 3
+        and layers > 0 (that are not latent_in) re-concat xyz."""
+        c = self.cfg
+        d_in = c.latent_size + 3
+        dims = [d_in] + [c.hidden_dim] * c.num_layers + [1]
+        n_lin = len(dims) - 1
+        plan = []
+        for layer in range(n_lin):
+            out = dims[layer + 1]
+            if (layer + 1) in c.latent_in:
+                out = dims[layer + 1] - dims[0]
+            elif c.xyz_in_all and layer != n_lin - 1:
+                out -= 3
+            takes_skip = layer in c.latent_in
+            plan.append((dims[layer], out, takes_skip))
+        return plan
+
+    def forward(self, z: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
+        """z [..., L], xyz [..., 3] -> sdf [...] (fp32), eval semantics."""
+        c = self.cfg
+        if self.training and ((c.use_dropout and c.dropout_prob > 0)
+                              or c.latent_dropout):
+            raise NotImplementedError(
+                "training-mode dropout is not ported yet; call .eval()")
+        dtype = getattr(torch, c.compute_dtype)
+        z = z.to(dtype)
+        xyz = xyz.to(dtype)
+        inp = torch.cat([z, xyz], dim=-1)
+        x = inp
+        plan = self.layer_dims()
+        n_lin = len(plan)
+        for layer, (_, _, takes_skip) in enumerate(plan):
+            if takes_skip:
+                x = torch.cat([x, inp], dim=-1)
+            elif c.xyz_in_all and layer != 0:
+                x = torch.cat([x, xyz], dim=-1)
+            x = getattr(self, f"lin{layer}")(x)
+            if layer < n_lin - 1:
+                x = torch.relu(x).to(dtype)
+        if c.use_tanh:
+            x = torch.tanh(x)
+        return x[..., 0].float()

@@ -1,0 +1,414 @@
+"""SDF grid decoding on the device: dense and three-level hierarchical.
+
+Counterpart of the subset of the JAX package's `ops/grid_eval.py` that the
+serving path runs. Query coordinates are made on the device from flat
+indices (no coordinate array is uploaded), and every level of the
+hierarchical decode evaluates its static, capacity-sized rows, so a decode
+enqueues its work without waiting on the device: the active counts come
+back as device scalars, read only when the caller asks
+(`check_overflow=True`).
+
+Grid convention: res points per axis spanning [-1,1], spacing 2/(res-1),
+flat index = (x*res + y)*res + z, matching ops/isosurface.py.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import numpy as np
+import torch
+
+ApplyFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+"""(z [L], xyz [N,3]) -> sdf [N]: a *single* latent against a point set, so
+implementations can hoist per-shape latent projections
+(ops.fused_decoder, ops.cuda_kernels)."""
+
+
+def make_grid_points(res: int, lo: float = -1.0, hi: float = 1.0) -> np.ndarray:
+    """Host-side [res^3, 3] lattice (tests / tiny grids only)."""
+    axis = np.linspace(lo, hi, res, dtype=np.float32)
+    x, y, z = np.meshgrid(axis, axis, axis, indexing="ij")
+    return np.stack([x, y, z], axis=-1).reshape(-1, 3)
+
+
+def _flat_to_xyz(flat: torch.Tensor, res: int) -> torch.Tensor:
+    """Flat indices -> [-1,1]^3 coordinates, on the indices' device."""
+    zc = flat % res
+    yc = (flat // res) % res
+    xc = flat // (res * res)
+    ijk = torch.stack([xc, yc, zc], dim=-1).to(torch.float32)
+    return ijk * (2.0 / (res - 1)) - 1.0
+
+
+def decode_grid(apply_fn: ApplyFn, z: torch.Tensor, res: int,
+                chunk: int = 262_144) -> torch.Tensor:
+    """Dense [res,res,res] SDF of one latent, chunk by chunk on z's device
+    (the oracle the hierarchical decode is held against)."""
+    total = res ** 3
+    chunk = min(chunk, total)
+    nchunks = math.ceil(total / chunk)
+    out = torch.empty(nchunks * chunk, dtype=torch.float32, device=z.device)
+    ar = torch.arange(chunk, dtype=torch.int32, device=z.device)
+    for c in range(nchunks):
+        flat = torch.clamp(c * chunk + ar, max=total - 1)
+        out[c * chunk:(c + 1) * chunk] = apply_fn(z, _flat_to_xyz(flat, res))
+    return out[:total].reshape(res, res, res)
+
+
+# ------------------------------------------------------ hierarchical decode
+
+
+def _eval_block_centers(apply_fn: ApplyFn, z: torch.Tensor, res: int,
+                        block: int) -> torch.Tensor:
+    """SDF at the center of every block of `block`^3 fine voxels. [nb^3]."""
+    nb = res // block
+    flat = torch.arange(nb ** 3, dtype=torch.int32, device=z.device)
+    zc = flat % nb
+    yc = (flat // nb) % nb
+    xc = flat // (nb * nb)
+    ijk = torch.stack([xc, yc, zc], dim=-1).to(torch.float32)
+    # center of the block in fine-index space -> world coords
+    center_idx = ijk * block + (block - 1) / 2.0
+    xyz = center_idx * (2.0 / (res - 1)) - 1.0
+    return apply_fn(z, xyz)
+
+
+def _block_points(block_flat: torch.Tensor, res: int,
+                  block: int) -> torch.Tensor:
+    """World coords of every fine voxel in each block. [K, b^3, 3]."""
+    nb = res // block
+    zc = block_flat % nb
+    yc = (block_flat // nb) % nb
+    xc = block_flat // (nb * nb)
+    base = torch.stack([xc, yc, zc], dim=-1)[:, None, :] * block  # [K,1,3]
+    off = torch.arange(block ** 3, dtype=torch.int32,
+                       device=block_flat.device)
+    off3 = torch.stack([off // (block * block), (off // block) % block,
+                        off % block], dim=-1)[None, :, :]         # [1,b^3,3]
+    idx = (base + off3).to(torch.float32)
+    return idx * (2.0 / (res - 1)) - 1.0
+
+
+# Bound on the points of one apply_fn call inside block evaluation: keeps
+# the [points, hidden] activation slab of a plain apply ~<= 2 GB at width 512.
+_MAX_POINTS_PER_GROUP = 1 << 20
+
+
+def _eval_blocks(apply_fn: ApplyFn, z: torch.Tensor,
+                 block_flat: torch.Tensor, res: int, block: int,
+                 points_per_group: int = _MAX_POINTS_PER_GROUP
+                 ) -> torch.Tensor:
+    """Evaluate K blocks of block^3 fine voxels. block_flat [K] -> [K, b^3].
+
+    Groups are balanced rather than filled to points_per_group: with
+    K=136448 a greedy group of 131072 would make a second group that is
+    96% edge padding; ceil-dividing K over the minimal group count keeps
+    every group the same size and the padding below one group's
+    rounding."""
+    K = block_flat.shape[0]
+    b3 = block ** 3
+    if K == 0:
+        return torch.zeros((0, b3), dtype=torch.float32, device=z.device)
+    max_group = max(1, min(K, points_per_group // b3))
+    ngroups = math.ceil(K / max_group)
+    group = math.ceil(K / ngroups)
+    pad = ngroups * group - K
+    ids = torch.cat([block_flat, block_flat[-1:].expand(pad)])
+    ids = ids.reshape(ngroups, group)
+    out = torch.empty((ngroups, group, b3), dtype=torch.float32,
+                      device=z.device)
+    for g in range(ngroups):
+        xyz = _block_points(ids[g], res, block).reshape(group * b3, 3)
+        out[g] = apply_fn(z, xyz).reshape(group, b3)
+    return out.reshape(ngroups * group, b3)[:K]
+
+
+def _compact(mask: torch.Tensor, cap: int) -> tuple:
+    """Stream compaction into `cap` static slots, without a host sync.
+
+    Returns (ids [cap] int32: positions of the first `cap` set entries,
+    zero-filled; valid [cap] bool; n_active: int32 device scalar, which
+    may exceed cap; slot [n] int32: each set entry's rank, `cap` where
+    unset). Ranks >= cap are dropped by scattering them into one spare
+    slot past the end (JAX's `mode="drop"`); cumsum keeps int32."""
+    n = mask.shape[0]
+    npos = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    keep = torch.where(mask & (npos < cap), npos, cap)
+    ids = torch.zeros(cap + 1, dtype=torch.int32, device=mask.device)
+    ids.scatter_(0, keep.long(),
+                 torch.arange(n, dtype=torch.int32, device=mask.device))
+    n_active = npos[-1] + 1
+    valid = torch.arange(cap, device=mask.device) < n_active
+    return ids[:cap], valid, n_active, torch.where(mask, npos, cap)
+
+
+def _quantizers(out_dtype: str, tau2: float, b2: int) -> tuple:
+    """(conv, conv_vals): payload conversions of the cascade values and of
+    the fine rows. "int8" quantizes at tau2/127 with sign preservation
+    (the reconstructed sign pattern, hence the crossing set, is exactly
+    the f32 payload's); "int4" packs the fine rows to two's-complement
+    nibbles at clip tau2/2 (even index low, odd high); rounding is
+    half-to-even, as in JAX."""
+    if out_dtype in ("int8", "int4"):
+        def conv(v):
+            q = torch.clamp(torch.round(v * (127.0 / tau2)), -127.0, 127.0)
+            q = torch.where((q == 0.0) & (v != 0.0), torch.sign(v), q)
+            return q.to(torch.int8)
+    elif out_dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, out_dtype)
+
+        def conv(v):
+            return v.to(dt)
+    else:
+        raise ValueError(f"unsupported payload dtype {out_dtype!r}")
+    if out_dtype != "int4":
+        return conv, conv
+    if (b2 ** 3) % 2:
+        raise ValueError(
+            f"int4 payload packs fine-row values pairwise and needs an "
+            f"even row length b2**3; got b2={b2} (b2**3={b2 ** 3}). "
+            f"Use an even b2 or out_dtype='int8'.")
+
+    def conv_vals(v):
+        q = torch.clamp(torch.round(v * (14.0 / tau2)), -7.0, 7.0)
+        q = torch.where((q == 0.0) & (v != 0.0), torch.sign(v), q)
+        q = q.to(torch.int32)
+        lo = q[..., 0::2] & 0xF
+        hi = q[..., 1::2] & 0xF
+        return (lo | (hi << 4)).to(torch.uint8)
+
+    return conv, conv_vals
+
+
+def _decode_grid_hier3_impl(apply_fn: ApplyFn, z: torch.Tensor, res: int,
+                            b1: int, b2: int, b3: int,
+                            cap1: int, cap2: int, cap3: int,
+                            safety: float = 1.5, safety3: float = 0.0,
+                            points_per_group: int = _MAX_POINTS_PER_GROUP,
+                            out_dtype: str = "float32"):
+    """Three-level coarse->mid->sub->fine sparse decode (the JAX
+    package's `layout="sparse2"` program), returning the compact v2
+    payload and the active counts as device scalars.
+
+    L0 evaluates every b1-block center; parents with |sdf| <= tau1 are
+    compacted into cap1 rows and their b2 sub-centers evaluated (L1);
+    those within tau2 are compacted into cap2 rows and their b3
+    sub-centers evaluated (L2); those within tau3 are evaluated densely
+    (L3). Each tau = safety * (block diagonal)/2 in world units, so for a
+    <= safety-Lipschitz SDF an unrefined block holds no zero and its
+    uniform fill keeps every crossing. safety3 (0 = inherit safety)
+    widens only the finest selection margin.
+
+    Returns ((c1 [nb1^3], c2 [cap1, (b1/b2)^3], idx1 [cap1] int32,
+    vals2 [cap2, b2^3], ids2 [cap2] int32), n1, n2, n3)."""
+    r1 = b1 // b2
+    r2 = b2 // b3
+    nb1 = res // b1
+    nb2 = res // b2
+    nb3 = res // b3
+    h = 2.0 / (res - 1)
+    tau1 = safety * (b1 * h * math.sqrt(3.0) / 2.0)
+    tau2 = safety * (b2 * h * math.sqrt(3.0) / 2.0)
+    tau3 = (safety3 or safety) * (b3 * h * math.sqrt(3.0) / 2.0)
+    conv, conv_vals = _quantizers(out_dtype, tau2, b2)
+    dev = z.device
+
+    def arange(n):
+        return torch.arange(n, dtype=torch.int32, device=dev)
+
+    # ---- L0: b1-block centers
+    c1 = _eval_block_centers(apply_fn, z, res, b1)               # [nb1^3]
+    idx1, valid1, n1, _ = _compact(c1.abs() <= tau1, cap1)
+
+    # ---- L1: b2 sub-centers of selected parents
+    x1, y1, z1 = idx1 // (nb1 * nb1), (idx1 // nb1) % nb1, idx1 % nb1
+    off = arange(r1 ** 3)
+    ox, oy, oz = off // (r1 * r1), (off // r1) % r1, off % r1
+    sx = x1[:, None] * r1 + ox[None, :]
+    sy = y1[:, None] * r1 + oy[None, :]
+    sz = z1[:, None] * r1 + oz[None, :]
+    sub_ids = (sx * nb2 + sy) * nb2 + sz                        # [cap1,r1^3]
+    cidx = torch.stack([sx, sy, sz], -1).to(torch.float32) * b2 \
+        + (b2 - 1) / 2.0
+    c2 = apply_fn(z, (cidx * h - 1.0).reshape(cap1 * r1 ** 3, 3)
+                  ).reshape(cap1, r1 ** 3)
+    act2 = (c2.abs() <= tau2) & valid1[:, None]
+    sel2, valid2, n2, _ = _compact(act2.reshape(-1), cap2)
+    ids2 = sub_ids.reshape(-1)[sel2.long()]                     # b2-flat
+
+    # ---- L2: b3 sub-centers of selected b2 blocks
+    x2, y2, z2 = ids2 // (nb2 * nb2), (ids2 // nb2) % nb2, ids2 % nb2
+    off3 = arange(r2 ** 3)
+    px, py, pz = off3 // (r2 * r2), (off3 // r2) % r2, off3 % r2
+    tx = x2[:, None] * r2 + px[None, :]
+    ty = y2[:, None] * r2 + py[None, :]
+    tz = z2[:, None] * r2 + pz[None, :]
+    sub3_ids = (tx * nb3 + ty) * nb3 + tz                       # [cap2,r2^3]
+    c3idx = torch.stack([tx, ty, tz], -1).to(torch.float32) * b3 \
+        + (b3 - 1) / 2.0
+    c3 = apply_fn(z, (c3idx * h - 1.0).reshape(cap2 * r2 ** 3, 3)
+                  ).reshape(cap2, r2 ** 3)
+    act3 = (c3.abs() <= tau3) & valid2[:, None]
+    sel3, valid3, n3, slot_rank = _compact(act3.reshape(-1), cap3)
+    ids3 = sub3_ids.reshape(-1)[sel3.long()]                    # b3-flat
+
+    # ---- L3: fine voxels of selected b3 blocks
+    vals3 = _eval_blocks(apply_fn, z, ids3, res, b3,
+                         points_per_group)                      # [cap3,b3^3]
+
+    # ---- compose b2 rows: per (b2 block, sub-slot) the fine values if
+    # the slot was refined, else the slot's sub-center fill. slot_rank
+    # carries each slot's row in vals3 (>= cap3: not refined).
+    inv_slot = slot_rank.reshape(cap2, r2 ** 3)
+    vals3_pad = torch.cat([vals3, vals3.new_zeros((1, b3 ** 3))])
+    picked = vals3_pad[torch.clamp(inv_slot, max=cap3).long()]  # [cap2,r2^3,b3^3]
+    vals2 = torch.where((inv_slot < cap3)[..., None], picked,
+                        c3[..., None])
+    # reorder (sub-block, within-sub) -> x-major order of the b2 block
+    vals2 = vals2.reshape(cap2, r2, r2, r2, b3, b3, b3)
+    vals2 = vals2.permute(0, 1, 4, 2, 5, 3, 6).reshape(cap2, b2 ** 3)
+    return ((conv(c1), conv(c2), idx1, conv_vals(vals2), ids2),
+            n1, n2, n3)
+
+
+def hier3_int8_scale(res: int, b2: int = 4, safety: float = 1.2) -> float:
+    """Quantization scale of the int8 sparse payload: tau2 of the decode
+    program (payload value = round(sdf * 127 / scale), sign-preserved).
+    Must be called with the same (res, b2, safety) as the decode."""
+    h = 2.0 / (res - 1)
+    return float(safety * (b2 * h * math.sqrt(3.0) / 2.0))
+
+
+def decode_grid_hierarchical3_sparse2(apply_fn: ApplyFn, z: torch.Tensor,
+                                      res: int, b1: int = 16, b2: int = 4,
+                                      b3: int = 2, cap1: int = 3072,
+                                      cap2: int = 8192, cap3: int = 24576,
+                                      safety: float = 1.2,
+                                      safety3: float = 0.0,
+                                      check_overflow: bool = True,
+                                      out_dtype: str = "int8"):
+    """Three-level sparse decode, compact v2 payload for serving.
+
+    Returns ((c1 [nb1^3], c2 [cap1, (b1/b2)^3], idx1 [cap1],
+    vals2 [cap2, b2^3], ids2 [cap2]), stats), all on z's device: the
+    coarse fill cascade at its native granularity plus the near-surface
+    fine rows. Only the first stats['active_l1'] rows of c2/idx1 and
+    'active_l2' rows of vals2/ids2 are meaningful. out_dtype "int8"
+    (default) quantizes at tau2/127 with sign preservation (dequantize
+    scale: hier3_int8_scale); "int4" packs the fine rows to nibbles;
+    "bfloat16" and "float32" keep magnitudes. With check_overflow=False
+    the active counts stay device scalars and nothing waits on the
+    device. Reconstruct with sparse2_to_grid."""
+    if not (res % b1 == 0 and b1 % b2 == 0 and b2 % b3 == 0):
+        raise ValueError(f"need res % b1 == b1 % b2 == b2 % b3 == 0, got "
+                         f"res={res} b1={b1} b2={b2} b3={b3}")
+    cap1 = min(cap1, (res // b1) ** 3)
+    cap2 = min(cap2, cap1 * (b1 // b2) ** 3)
+    cap3 = min(cap3, cap2 * (b2 // b3) ** 3)
+    arrs, n1, n2, n3 = _decode_grid_hier3_impl(
+        apply_fn, z, res, b1, b2, b3, cap1, cap2, cap3, safety=safety,
+        safety3=safety3, out_dtype=out_dtype)
+    stats = {"layout": "sparse2", "cap1": cap1, "cap2": cap2,
+             "cap3": cap3, "active_l1": n1, "active_l2": n2,
+             "active_l3": n3,
+             "payload_bytes": int(sum(a.nbytes for a in arrs)),
+             "effective_voxels": res ** 3}
+    if out_dtype in ("int8", "int4"):
+        stats["quant_scale"] = hier3_int8_scale(res, b2, safety)
+    if check_overflow:
+        stats["active_l1"] = int(n1)
+        stats["active_l2"] = int(n2)
+        stats["active_l3"] = int(n3)
+        stats["capacity_exceeded"] = (stats["active_l1"] > cap1
+                                      or stats["active_l2"] > cap2
+                                      or stats["active_l3"] > cap3)
+    return arrs, stats
+
+
+# ------------------------------------------- host-side payload (numpy)
+
+
+def _sparse2_dequant(a, dequant_scale):
+    a = np.asarray(a)
+    if a.dtype == np.int8:
+        if dequant_scale is None:
+            raise ValueError(
+                "int8 payload needs dequant_scale (hier3_int8_scale)")
+        return a.astype(np.float32) * (dequant_scale / 127.0)
+    if a.dtype == np.uint8:
+        # packed int4 fine rows: two's-complement nibbles, even index
+        # low, odd index high; clip scale tau2/2
+        if dequant_scale is None:
+            raise ValueError(
+                "int4 payload needs dequant_scale (hier3_int8_scale)")
+        lo = (a & 0xF).astype(np.int8)
+        hi = ((a >> 4) & 0xF).astype(np.int8)
+        lo = np.where(lo > 7, lo - 16, lo)
+        hi = np.where(hi > 7, hi - 16, hi)
+        out = np.empty(a.shape[:-1] + (a.shape[-1] * 2,), np.float32)
+        out[..., 0::2] = lo
+        out[..., 1::2] = hi
+        return out * (dequant_scale / 14.0)
+    return a
+
+
+def sparse2_fill2(c1, c2, idx1, n1: int, res: int, b1: int, b2: int,
+                  dequant_scale: float = None,
+                  dtype=np.float32) -> np.ndarray:
+    """Rebuild the b2-granularity fill cascade [nb2^3] of the v2 payload:
+    c1 broadcast to b2 blocks, active-parent c2 rows scattered over their
+    sub-block ids (the host mirror of the decode's cascade). This array
+    plus the fine rows is everything the payload-direct mesher needs."""
+    r1 = b1 // b2
+    nb1, nb2 = res // b1, res // b2
+    bx = np.arange(nb2, dtype=np.int64) // r1
+    parent = (bx[:, None, None] * nb1 + bx[None, :, None]) * nb1 \
+        + bx[None, None, :]
+    fill2 = np.asarray(_sparse2_dequant(c1, dequant_scale),
+                       dtype)[parent.reshape(-1)].copy()
+    i1 = np.asarray(idx1[:n1]).astype(np.int64)
+    x1, y1, z1 = i1 // (nb1 * nb1), (i1 // nb1) % nb1, i1 % nb1
+    off = np.arange(r1 ** 3, dtype=np.int64)
+    ox, oy, oz = off // (r1 * r1), (off // r1) % r1, off % r1
+    sub = ((x1[:, None] * r1 + ox[None, :]) * nb2
+           + (y1[:, None] * r1 + oy[None, :])) * nb2 \
+        + (z1[:, None] * r1 + oz[None, :])
+    fill2[sub.reshape(-1)] = np.asarray(
+        _sparse2_dequant(c2[:n1], dequant_scale), dtype).reshape(-1)
+    return fill2
+
+
+def sparse2_to_grid(c1, c2, idx1, vals2, ids2, n1: int, n2: int,
+                    res: int, b1: int, b2: int,
+                    dequant_scale: float = None,
+                    dtype=np.float32) -> np.ndarray:
+    """Host-side reconstruction of the compact v2 payload (numpy arrays):
+    sparse2_fill2 cascade + sparse_to_grid. int8/int4 payloads require
+    `dequant_scale` (= hier3_int8_scale of the decode's (res, b2,
+    safety))."""
+    fill2 = sparse2_fill2(c1, c2, idx1, n1, res, b1, b2,
+                          dequant_scale, dtype)
+    return sparse_to_grid(fill2, _sparse2_dequant(vals2, dequant_scale),
+                          ids2, n2, res, b2, dtype)
+
+
+def sparse_to_grid(fill2: np.ndarray, vals2: np.ndarray, ids2: np.ndarray,
+                   n_active: int, res: int, b2: int,
+                   dtype=np.float32) -> np.ndarray:
+    """Host-side reconstruction of a sparse decode into an x-major grid,
+    built directly through a [nb,b2,nb,b2,nb,b2] view: every block starts
+    from its fill value and the n_active fine rows land via one mixed
+    fancy/slice assignment."""
+    nb = res // b2
+    g = np.empty((res, res, res), dtype)
+    gv = g.reshape(nb, b2, nb, b2, nb, b2)            # contiguous view
+    gv[:] = np.asarray(fill2, dtype).reshape(nb, nb, nb)[
+        :, None, :, None, :, None]
+    ids = np.asarray(ids2[:n_active], np.int64)
+    xs, ys, zs = ids // (nb * nb), (ids // nb) % nb, ids % nb
+    # advanced indices first, sliced dims after: target [n_active,b2^3]
+    gv[xs, :, ys, :, zs, :] = np.asarray(
+        vals2[:n_active], dtype).reshape(-1, b2, b2, b2)
+    return g

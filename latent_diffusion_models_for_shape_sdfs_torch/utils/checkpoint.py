@@ -1,0 +1,86 @@
+"""Reader for the `pack_tree_npz` stage-1 packs, and the JAX <-> torch
+parameter conversion.
+
+A pack is one compressed npz whose keys are `jax.tree_util.keystr` paths
+of a pytree, e.g. `['params']['lin0']['v']` or `['codes']` (written by the
+JAX package's `utils/checkpoint.py::pack_tree_npz`). Reading it needs no
+JAX: the keys parse back into nested dicts of numpy arrays.
+
+The JAX decoder stores each layer as `v [in, out]`, `g [out]`, `b [out]`;
+the port keeps torch's `nn.Linear` layout `v [out, in]`. `params_from_jax`
+and `params_to_jax` are the only code that converts between the two.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import re
+
+import numpy as np
+import torch
+
+_KEY_PART = re.compile(r"\['([^'\]]*)'\]|\[(\d+)\]")
+
+
+def _parse_keystr(key: str) -> list:
+    """"['params']['lin0']['v']" -> ['params', 'lin0', 'v']; integer
+    subscripts ("[3]") become ints. Raises on any other path syntax."""
+    parts, pos = [], 0
+    for m in _KEY_PART.finditer(key):
+        if m.start() != pos:
+            break
+        parts.append(m.group(1) if m.group(1) is not None
+                     else int(m.group(2)))
+        pos = m.end()
+    if pos != len(key) or not parts:
+        raise ValueError(f"unsupported pack key {key!r}")
+    return parts
+
+
+def load_tree_npz(path: str | pathlib.Path) -> dict:
+    """Pack -> nested dict of numpy arrays (saved dtypes kept)."""
+    tree: dict = {}
+    with np.load(str(path)) as z:
+        for key in z.files:
+            *head, leaf = _parse_keystr(key)
+            node = tree
+            for p in head:
+                node = node.setdefault(p, {})
+            if leaf in node:
+                raise ValueError(f"duplicate pack key {key!r}")
+            node[leaf] = z[key]
+    return tree
+
+
+def params_from_jax(tree: dict) -> dict:
+    """JAX decoder params {'lin0': {'v' [in,out], 'g', 'b'}, ...} (numpy)
+    -> the port's state dict {'lin0.v' [out,in], 'lin0.g', 'lin0.b', ...}
+    of float tensors. Bit-exact (a transpose and a copy)."""
+    sd = {}
+    for name, layer in tree.items():
+        for k, a in layer.items():
+            a = np.asarray(a)
+            if k == "v":
+                a = a.T
+            sd[f"{name}.{k}"] = torch.from_numpy(np.array(a, order="C"))
+    return sd
+
+
+def params_to_jax(state_dict: dict) -> dict:
+    """Inverse of params_from_jax: state dict -> nested numpy JAX tree."""
+    tree: dict = {}
+    for key, t in state_dict.items():
+        name, k = key.split(".")
+        a = t.detach().cpu().numpy()
+        if k == "v":
+            a = np.ascontiguousarray(a.T)
+        tree.setdefault(name, {})[k] = a
+    return tree
+
+
+def load_stage1_pack(path: str | pathlib.Path) -> tuple:
+    """Committed stage-1 pack -> (decoder state dict, codes np.float32
+    [n_scenes, L])."""
+    tree = load_tree_npz(path)
+    return params_from_jax(tree["params"]), np.asarray(tree["codes"],
+                                                       np.float32)
