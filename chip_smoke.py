@@ -1,19 +1,35 @@
-"""Smoke run of the PyTorch port on one CUDA card: build, check, serve.
+"""Smoke run of the PyTorch port on one CUDA card: build, check, serve, train.
 
     python3 chip_smoke.py [--details PATH]
 
-Builds the fused decoder-eval kernel (csrc/fused_eval.cu, nvcc for sm_90a)
-and the native mesher (native/, cmake or g++) from this checkout, then:
+Builds the port's CUDA kernels (csrc/fused_eval.cu, csrc/relu_dropout.cu,
+csrc/fused_train.cu: one nvcc each for sm_90a, all started together) and
+the native mesher (native/, cmake or g++) from this checkout, while it
+generates the training data (64 analytic chairs, a process pool started
+before CUDA is), then:
 
   1. prints the card (nvidia-smi name and power limit) and turns TF32 off;
-  2. holds the kernel against its plain version (bf16 fast_apply) on the
-     committed trained 8x512 decoder at the serving path's launch shapes
-     and at 2^20+131 points, and on a small tanh plan, and times both;
+  2. holds the decoder-eval kernel against its plain version (bf16
+     fast_apply) on the committed trained 8x512 decoder at the serving
+     path's launch shapes and at 2^20+131 points, and on a small tanh
+     plan, and times both;
   3. serves 8 trained chair latents at 256^3 through serve_meshes with the
      int8 payload and the payload-direct native mesher, counting kernel
      launches, and checks one mesh against the plain version's mesh;
+     traces a repeat under torch.profiler;
   4. runs the watch-folder daemon on two latent requests;
-  5. prints one JSON line per checked kernel and, last, the device line.
+  5. [dropout] holds the relu+dropout kernels (forward #3, backward #3b)
+     bit for bit against their plain versions (and #3b against autograd
+     of the plain forward) and times them;
+  6. [fused_train] holds the fused train kernel (#4) against its plain
+     version at 64 scenes x 16,384 points on the trained decoder, dropout
+     0 and 0.2, checks two passes are bit-identical, and times it;
+  7. [train] trains config 3's `ad` block (cut to 64 scenes, 20,000
+     samples per shape, 4 epochs of one step) from the committed pack
+     through both kernel routes (relu+dropout kernels; fused train
+     kernel), counting launches, then writes the trained pack, reloads it
+     and serves chair 0 at 256^3; traces one step of each route;
+  8. prints one JSON line per ported kernel and, last, the device line.
 
 Any failure raises and exits non-zero; without a card (or outside a
 checkout of the repository) it exits non-zero before printing a result.
@@ -36,6 +52,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3 bandwidth
 TOL = 5e-3                   # tests/test_pallas_kernels.py:34
+TRAIN_LOSS_RTOL = 1e-4       # fused train kernel vs plain: loss
+TRAIN_GRAD_TOL = 1e-2        # ... every gradient, relative to its max
+RATE = 0.2                   # config 3's dropout
+PACK = ("runs", "scale_chairs6k", "stage1_pack.npz")
+SRC = "latent_diffusion_models_for_shape_sdfs_torch/csrc/"
 
 
 def log(*a):
@@ -98,6 +119,53 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_profile(fn) -> tuple:
+    """Runs fn() once under torch.profiler; returns (wall s, device busy
+    ms as the union of device spans, [(name, ms, count)] by device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:         # kernels and copies
+            spans.append((e.time_range.start, e.time_range.end))
+            ms, cnt = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, cnt + 1)
+    busy_us, reach = 0.0, float("-inf")          # union of device spans
+    for start, end in sorted(spans):
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    top = sorted(((n, ms, c) for n, (ms, c) in by_name.items()),
+                 key=lambda r: -r[1])
+    return wall, busy_us / 1e3, top
+
+
+def log_profile(tag: str, what: str, wall: float, busy: float, top: list,
+                card: str) -> None:
+    if busy > 0:
+        log(f"[{tag}] {what}: wall {wall * 1e3:.1f} ms, device busy "
+            f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of wall) "
+            f"[{card}]")
+        for name, ms, cnt in top[:6]:
+            log(f"[{tag}]   {ms:9.3f} ms  x{cnt:<5d} {name[:80]}")
+    else:
+        log(f"[{tag}] {what}: torch.profiler recorded no device time: "
+            "not measured")
+
+
+def train_split():
+    """Chairs 0-63 of the split the committed pack was trained on
+    (tools/scale_run.py: make_synthetic_split("chair", 6145, seed=11))."""
+    from latent_diffusion_models_for_shape_sdfs_torch.data import analytic
+    return analytic.make_synthetic_split("chair", 6145, seed=11)[:64]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--details", type=pathlib.Path, default=None,
@@ -136,30 +204,45 @@ def main() -> int:
 
     details: dict = {}
 
-    # ---- build: kernel (nvcc) and mesher (cmake/g++) at the same time
+    # ---- build: one nvcc per kernel source and the mesher, all at once,
+    # while the training data is generated (a fork pool, before CUDA)
     t0 = time.perf_counter()
-    mesher_err: list = []
+    sources = ["fused_eval.cu", "relu_dropout.cu", "fused_train.cu"]
+    built: dict = {}
+    errors: list = []
 
-    def _mesher():
+    def _run(name, fn):
         try:
-            build_mesher()
+            built[name] = fn()
         except Exception as e:   # re-raised on the main thread below
-            mesher_err.append(e)
+            errors.append(e)
 
-    th = threading.Thread(target=_mesher)
-    th.start()
-    lib_path = _build.build("fused_eval.cu")
-    th.join()
-    if mesher_err:
-        raise mesher_err[0]
+    threads = [threading.Thread(target=_run, args=(src, lambda s=src:
+                                                   _build.build(s)))
+               for src in sources]
+    threads.append(threading.Thread(target=_run,
+                                    args=("mesher", build_mesher)))
+    for th in threads:
+        th.start()
+    from latent_diffusion_models_for_shape_sdfs_torch.data.sdf_dataset import (
+        SdfDataset)
+    dataset = SdfDataset.from_analytic(train_split(), 20_000, seed=0,
+                                       workers=8)
+    details["data_s"] = time.perf_counter() - t0
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
     reset_native_cache()
     details["build_s"] = time.perf_counter() - t0
-    ptxas = lib_path.with_suffix(".log").read_text() \
-        if lib_path.with_suffix(".log").exists() else ""
-    log(f"[build] {details['build_s']:.1f}s  {lib_path.name}")
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[ptxas] {line.strip()}")
+    log(f"[build] {details['build_s']:.1f}s (data {details['data_s']:.1f}s "
+        f"in the same time): " + ", ".join(built[s].name for s in sources))
+    for src in sources:
+        log_path = built[src].with_suffix(".log")
+        for line in (log_path.read_text() if log_path.exists()
+                     else "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[ptxas] {src}: {line.strip()}")
 
     # ---- phase 1: card
     smi = subprocess.run(
@@ -176,8 +259,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     # ---- phase 2: kernel vs plain version
-    sd, codes = load_stage1_pack(ROOT / "runs" / "scale_chairs6k"
-                                 / "stage1_pack.npz")
+    sd, codes = load_stage1_pack(ROOT.joinpath(*PACK))
     decoder = SdfDecoder(DecoderConfig())
     apply = make_kernel_apply(decoder, sd)
     macs = kernel_macs_per_point(decoder)
@@ -295,35 +377,10 @@ def main() -> int:
         chamfer_kernel_vs_plain=cd)
 
     # ---- where the serve time goes: one traced repeat of the same run
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        list(serve_meshes(apply, lat, res=res))
-        torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t0
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:         # kernels and copies
-            spans.append((e.time_range.start, e.time_range.end))
-            ms, cnt = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, cnt + 1)
-    busy_us, reach = 0.0, float("-inf")          # union of device spans
-    for start, end in sorted(spans):
-        busy_us += max(0.0, end - max(start, reach))
-        reach = max(reach, end)
-    top = sorted(((n, ms, c) for n, (ms, c) in by_name.items()),
-                 key=lambda r: -r[1])
-    busy = busy_us / 1e3
-    if busy > 0:
-        log(f"[trace] serve of {len(lat)} shapes: wall "
-            f"{traced_wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
-            f"({100 * busy / (traced_wall * 1e3):.1f}% of wall) [{card}]")
-        for name, ms, cnt in top[:6]:
-            log(f"[trace]   {ms:9.3f} ms  x{cnt:<5d} {name[:80]}")
-    else:
-        log("[trace] torch.profiler recorded no device time: not measured")
+    traced_wall, busy, top = device_profile(
+        lambda: list(serve_meshes(apply, lat, res=res)))
+    log_profile("trace", f"serve of {len(lat)} shapes", traced_wall, busy,
+                top, card)
     details["trace"] = dict(wall_s=traced_wall, device_busy_ms=busy,
                             top=top[:12])
 
@@ -361,7 +418,239 @@ def main() -> int:
     log(f"[daemon] served {served} requests, {d_launches} kernel launches")
     details["daemon"] = dict(served=served, launches=d_launches)
 
-    # ---- phase 5: summary
+    # ---- phase 5: [dropout] relu+dropout kernels #3/#3b vs plain versions
+    import dataclasses
+    import math
+    from torch.nn import functional as F
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        ExperimentConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        fused_train as ft, relu_dropout as rd)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
+        precompute_eval_weights)
+    from latent_diffusion_models_for_shape_sdfs_torch.train.auto_decoder import (
+        init_ad_state, make_ad_train_step, train_auto_decoder)
+    from latent_diffusion_models_for_shape_sdfs_torch.utils.checkpoint import (
+        save_stage1_pack)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for n_rows, n_cols, dt in [((1 << 20) + 131, 512, torch.bfloat16),
+                               (1 << 20, 253, torch.bfloat16),
+                               ((1 << 16) + 7, 512, torch.float32)]:
+        x = torch.randn(n_rows, n_cols, generator=gen, device=dev).to(dt)
+        g = torch.randn(n_rows, n_cols, generator=gen, device=dev).to(dt)
+        y = rd.relu_dropout_fwd(x, 1234, RATE)
+        dx = rd.relu_dropout_bwd(x, g, 1234, RATE)
+        xr = x.clone().requires_grad_(True)
+        y_p = rd.relu_dropout_reference(xr, 1234, RATE)
+        dx_auto, = torch.autograd.grad(y_p, xr, g)
+        dx_p = rd.relu_dropout_bwd_reference(x, g, 1234, RATE)
+        torch.cuda.synchronize()
+        pos = x.float() > 0
+        n_pos = int(pos.sum())
+        kept = int(((y != 0) & pos).sum()) / n_pos
+        sigma = math.sqrt(RATE * (1 - RATE) / n_pos)
+        same = (torch.equal(y, y_p.detach()) and torch.equal(dx, dx_p)
+                and torch.equal(dx, dx_auto)
+                and torch.equal(y != 0, y_p.detach() != 0))
+        log(f"[dropout] [{n_rows}, {n_cols}] {str(dt)[6:]}: outputs, masks "
+            f"and gradients bitwise equal to the plain version and to "
+            f"autograd of it: {same}; keep fraction {kept:.5f} vs "
+            f"{1 - RATE} ({(kept - (1 - RATE)) / sigma:+.2f} sigma)")
+        if not same:
+            raise RuntimeError("relu+dropout kernels differ from their "
+                               "plain versions")
+        if abs(kept - (1 - RATE)) > 5 * sigma:
+            raise RuntimeError(f"keep fraction {kept} off by > 5 sigma")
+        del x, g, y, dx, xr, y_p, dx_auto, dx_p, pos
+    drop_t = {}
+    for cols in (512, 253):
+        x = torch.randn(1 << 20, cols, generator=gen, device=dev).to(
+            torch.bfloat16)
+        g = torch.randn_like(x)
+        n_el = x.numel()
+        drop_t[cols] = dict(
+            fwd=time_ms(lambda: rd.relu_dropout_fwd(x, 1, RATE), 20),
+            bwd=time_ms(lambda: rd.relu_dropout_bwd(x, g, 1, RATE), 20),
+            plain_fwd=time_ms(lambda: rd.relu_dropout_reference(x, 1, RATE),
+                              2),
+            plain_bwd=time_ms(lambda: rd.relu_dropout_bwd_reference(
+                x, g, 1, RATE), 2),
+            library=time_ms(lambda: F.dropout(F.relu(x), RATE, True), 20),
+            bound_fwd=4.0 * n_el / PEAK_HBM_BYTES * 1e3,
+            bound_bwd=6.0 * n_el / PEAK_HBM_BYTES * 1e3)
+        t = drop_t[cols]
+        log(f"[dropout] [2^20, {cols}] bf16 per launch: #3 {t['fwd']:.3f} ms "
+            f"(bound {t['bound_fwd']:.3f}, bytes), #3b {t['bwd']:.3f} ms "
+            f"(bound {t['bound_bwd']:.3f}), plain {t['plain_fwd']:.3f} / "
+            f"{t['plain_bwd']:.3f} ms, library F.dropout(F.relu(x)) (two "
+            f"calls) {t['library']:.3f} ms [{card}]")
+        del x, g
+    details["dropout"] = drop_t
+
+    # ---- phase 6: [fused_train] kernel #4 vs its plain version
+    exp = ExperimentConfig.load(ROOT / "configs" / "config3_chairs_joint")
+    ad0 = exp.ad
+    S, P = ad0.scenes_per_batch, ad0.samples_per_scene
+    N = S * P
+    batch = next(dataset.epoch_batches(np.random.default_rng(0), S, P))
+    ids_t = torch.from_numpy(batch.scene_ids.astype(np.int64)).to(dev)
+    xyz_t = torch.from_numpy(batch.xyz).to(dev)
+    sdf_t = torch.from_numpy(batch.sdf).to(dev)
+    ew_t = precompute_eval_weights(SdfDecoder(ad0.decoder),
+                                   {k: v.to(dev) for k, v in sd.items()},
+                                   torch.bfloat16)
+    z_t = torch.from_numpy(codes[:64]).to(dev)[ids_t]
+    # the chairs' own codes put the step near the training optimum, where
+    # the batch gradient nearly cancels; the codes of chairs 64-127 put it
+    # far from it (as at the start of training), where it does not
+    z_far = torch.from_numpy(codes[64:128]).to(dev)[ids_t]
+    ft_err, ft_rel = 0.0, {}
+    for case, z_c, rate, gated in [("own codes", z_t, 0.0, True),
+                                   ("other chairs' codes", z_far, RATE, True),
+                                   ("own codes", z_t, RATE, False)]:
+        ft_args = (ew_t, z_c, xyz_t, sdf_t, N, ad0.clamp_dist, rate, 4242)
+        got = ft.fused_train_loss_grads(*ft_args)
+        again = ft.fused_train_loss_grads(*ft_args)
+        want = ft.fused_train_reference(*ft_args)
+        torch.cuda.synchronize()
+        pairs = {"dz": (got[1], want[1], again[1])}
+        for i, (a, b, c) in enumerate(zip(got[2], want[2], again[2])):
+            pairs.update({f"lin{i}.{k}": (a[k], b[k], c[k]) for k in b})
+        loss_rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+        rel, size = {}, {}
+        same = torch.equal(got[0], again[0])
+        for name, (a, b, c) in pairs.items():
+            err = float((a - b).abs().max())
+            size[name] = float(b.abs().max())
+            rel[name] = err / max(size[name], 1e-30)
+            if gated:
+                ft_err = max(ft_err, err)
+            same = same and torch.equal(a, c)
+        worst = max(rel, key=rel.get)
+        ft_rel[f"{case}, rate {rate}"] = dict(
+            loss=float(want[0]), loss_rel=loss_rel, grad_rel=rel,
+            grad_max=size, gated=gated)
+        log(f"[fused_train] 64x16384, {case}, rate {rate}: loss "
+            f"{float(got[0]):.6f} (plain {float(want[0]):.6f}, rel "
+            f"{loss_rel:.2e}, tol {TRAIN_LOSS_RTOL}); worst gradient {worst} "
+            f"{rel[worst]:.2e} of its max {size[worst]:.3e} (tol "
+            f"{TRAIN_GRAD_TOL}{'' if gated else ', reported only'}); "
+            f"max|dW_h| of lin1 {size['lin1.w_h']:.3e}; two passes "
+            f"bit-identical: {same}")
+        if gated and (loss_rel > TRAIN_LOSS_RTOL
+                      or rel[worst] > TRAIN_GRAD_TOL):
+            raise RuntimeError(f"fused train kernel disagrees: {ft_rel}")
+        if not same:
+            raise RuntimeError("fused train kernel is not deterministic")
+        del got, again, want, pairs
+    ft_args = (ew_t, z_t, xyz_t, sdf_t, N, ad0.clamp_dist, RATE, 4242)
+    ms_ft = time_ms(lambda: ft.fused_train_loss_grads(*ft_args), 5)
+    plain_ft = time_ms(lambda: ft.fused_train_reference(*ft_args), 1)
+    flops_ft = 2.0 * ft.macs_per_point(ew_t) * N
+    bound_ft = flops_ft / PEAK_BF16_FLOPS * 1e3
+    log(f"[fused_train] one 64x16384 step (dropout {RATE}): kernel "
+        f"{ms_ft:.2f} ms ({flops_ft / ms_ft / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_ft:.1f} ms, bound {bound_ft:.2f} ms (operations) [{card}]")
+    details["fused_train"] = dict(ms=ms_ft, plain_ms=plain_ft,
+                                  bound_ms=bound_ft, max_abs_err=ft_err,
+                                  rel=ft_rel)
+    del ew_t, ft_args
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: [train] config 3's ad block through both kernel routes
+    cfg = dataclasses.replace(ad0, num_scenes=64, num_epochs=4)
+    log(f"[train] config3_chairs_joint ad block, cut: num_scenes "
+        f"{ad0.num_scenes} -> 64, samples_per_shape 100000 -> 20000, "
+        f"num_epochs {ad0.num_epochs} -> 4 (one step per epoch); kept: "
+        f"8x{ad0.decoder.hidden_dim} decoder, L={ad0.decoder.latent_size}, "
+        f"{ad0.decoder.compute_dtype}, dropout {ad0.decoder.dropout_prob}, "
+        f"{S} scenes x {P} samples per step; start: the committed pack's "
+        f"params and codes[:64]")
+    routes = {"relu_dropout": cfg,
+              "fused_train": dataclasses.replace(cfg, use_pallas=True)}
+    train = {}
+    for route, c in routes.items():
+        state = init_ad_state(c, params=sd, codes=codes[:64], device=dev)
+        rec = []
+
+        def on_step(i, epoch, m):
+            torch.cuda.synchronize()
+            rec.append((time.perf_counter(), float(m["loss_l1"]),
+                        float(m["loss"])))
+
+        for k in rd.LAUNCHES:
+            rd.LAUNCHES[k] = 0
+        ft.LAUNCHES["fused_train"] = 0
+        train_auto_decoder(c, dataset, state=state, device=dev,
+                           on_step=on_step)
+        route_launches = {**rd.LAUNCHES, **ft.LAUNCHES}
+        ms_step = (rec[-1][0] - rec[0][0]) / (len(rec) - 1) * 1e3
+        l1 = [r[1] for r in rec]
+        train[route] = dict(loss_l1=l1, loss=[r[2] for r in rec],
+                            ms_per_step=ms_step, launches=route_launches)
+        log(f"[train] route {route}: loss_l1 per step "
+            f"{[round(v, 6) for v in l1]}, {ms_step:.1f} ms/step after one "
+            f"warm-up step, launches {route_launches} [{card}]")
+        want = ({"relu_dropout_fwd": 32, "relu_dropout_bwd": 32,
+                 "fused_train": 0} if route == "relu_dropout" else
+                {"relu_dropout_fwd": 0, "relu_dropout_bwd": 0,
+                 "fused_train": 4})
+        if route_launches != want:
+            raise RuntimeError(f"route {route}: launches {route_launches}, "
+                               f"expected {want}")
+        if not (np.isfinite([r[2] for r in rec]).all() and len(rec) == 4):
+            raise RuntimeError(f"route {route}: losses {rec}")
+        if not l1[0] < 0.01:
+            raise RuntimeError(f"route {route}: step-0 loss_l1 {l1[0]} >= "
+                               "0.01 from the trained pack")
+        if route == "fused_train":
+            trained = state
+        else:
+            del state
+        torch.cuda.empty_cache()
+    log(f"[train] step-0 loss_l1, relu_dropout route vs fused route (same "
+        f"batch, same masks): {train['relu_dropout']['loss_l1'][0]:.6f} vs "
+        f"{train['fused_train']['loss_l1'][0]:.6f}")
+    details["train"] = train
+
+    with tempfile.TemporaryDirectory() as td:
+        path = pathlib.Path(td) / "stage1_pack.npz"
+        save_stage1_pack(path, trained.decoder.state_dict(), trained.codes)
+        sd2, codes2 = load_stage1_pack(path)
+    if not (np.array_equal(codes2, trained.codes.detach().cpu().numpy())
+            and all(torch.equal(sd2[k], v.cpu()) for k, v in
+                    trained.decoder.state_dict().items())):
+        raise RuntimeError("stage-1 pack did not round-trip")
+    apply2 = make_kernel_apply(SdfDecoder(cfg.decoder), sd2)
+    (v2, f2, st2), = list(serve_meshes(apply2, [codes2[0]], res=res))
+    log(f"[train] trained pack written, reloaded and served: chair 0 at "
+        f"{res}^3 -> {len(v2)} verts, {len(f2)} faces, mesher "
+        f"{st2['mesher']}")
+    if len(f2) == 0 or st2["mesher"] != "native-payload":
+        raise RuntimeError(f"served mesh from the trained pack: {st2}")
+    details["train"]["served"] = dict(verts=len(v2), faces=len(f2))
+
+    # ---- where a training step's time goes: one traced step per route
+    xyz_w = xyz_t.to(torch.bfloat16)
+    details["train_trace"] = {}
+    for route, c in routes.items():
+        state = trained if route == "fused_train" else init_ad_state(
+            c, params=sd, codes=codes[:64], device=dev)
+        step = make_ad_train_step(state.decoder, c)
+        step(state, ids_t, xyz_w, sdf_t, 4.0, 99)          # warm-up
+        wall, busy, top = device_profile(
+            lambda: step(state, ids_t, xyz_w, sdf_t, 4.0, 100))
+        log_profile("trace", f"one training step, route {route}", wall,
+                    busy, top, card)
+        details["train_trace"][route] = dict(wall_s=wall,
+                                             device_busy_ms=busy,
+                                             top=top[:12])
+        del state, step
+        torch.cuda.empty_cache()
+
+    # ---- phase 8: summary
+    t512 = drop_t[512]
     kernels = [{
         "name": "fused_decoder_eval",
         "route": "cuda",
@@ -376,7 +665,49 @@ def main() -> int:
         "bound_ms": bound_shape,
         "bound_by": bound_by,
         "library_ms": None,
+    }, {
+        "name": "relu_dropout_fwd",
+        "route": "cuda",
+        "source": SRC + "relu_dropout.cu",
+        "replaces": "latent_diffusion_models_for_shape_sdfs_tpu/ops/"
+                    "pallas_kernels.py:289",
+        "launches": train["relu_dropout"]["launches"]["relu_dropout_fwd"],
+        "max_abs_err": 0.0,
+        "ms": t512["fwd"],
+        "plain_ms": t512["plain_fwd"],
+        "bound_ms": t512["bound_fwd"],
+        "bound_by": "bytes",
+        "library_ms": t512["library"],
+    }, {
+        "name": "relu_dropout_bwd",
+        "route": "cuda",
+        "source": SRC + "relu_dropout.cu",
+        "replaces": "latent_diffusion_models_for_shape_sdfs_tpu/ops/"
+                    "pallas_kernels.py:346",
+        "launches": train["relu_dropout"]["launches"]["relu_dropout_bwd"],
+        "max_abs_err": 0.0,
+        "ms": t512["bwd"],
+        "plain_ms": t512["plain_bwd"],
+        "bound_ms": t512["bound_bwd"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "fused_train",
+        "route": "cuda",
+        "source": SRC + "fused_train.cu",
+        "replaces": "latent_diffusion_models_for_shape_sdfs_tpu/ops/"
+                    "fused_train.py:51",
+        "launches": train["fused_train"]["launches"]["fused_train"],
+        "max_abs_err": ft_err,
+        "ms": ms_ft,
+        "plain_ms": plain_ft,
+        "bound_ms": bound_ft,
+        "bound_by": "operations",
+        "library_ms": None,
     }]
+    if not all(k["launches"] > 0 for k in kernels):
+        raise RuntimeError(f"a kernel was not launched on its main path: "
+                           f"{[(k['name'], k['launches']) for k in kernels]}")
     details.update(card=card, kind=kind, kernels=kernels,
                    total_s=time.perf_counter() - t_start)
     if args.details is not None:

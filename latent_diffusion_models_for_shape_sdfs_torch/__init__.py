@@ -5,8 +5,12 @@ the reference; this package keeps its module names so each counterpart is
 easy to find, and imports neither JAX nor that package. Entry points run
 on `cuda` unless the caller passes `device="cpu"`.
 
-Ported so far (the serving path): `config`, `models.decoder`,
+Ported so far. The serving path: `config`, `models.decoder`,
 `utils.checkpoint`, `ops.fused_decoder`, `ops.cuda_kernels` (the fused
 decoder-eval CUDA kernel, `csrc/fused_eval.cu`), `ops.grid_eval`,
-`ops.isosurface`, `evaluation`, `utils.meshio` and `serve`.
+`ops.isosurface`, `evaluation`, `utils.meshio` and `serve`. Stage-1
+training: `losses`, `models.latent_table`, `data.analytic`,
+`data.sdf_dataset`, `utils.logging`, `ops.relu_dropout` (the relu+dropout
+kernel pair, `csrc/relu_dropout.cu`), `ops.fused_train` (the fused train
+kernel, `csrc/fused_train.cu`) and `train.auto_decoder`.
 """

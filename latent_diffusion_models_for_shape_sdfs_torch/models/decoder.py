@@ -12,10 +12,14 @@ Weights are kept in torch's `nn.Linear` layout, `v [out, in]`, with the
 scale, W[o, :] = g[o] * v[o, :] / max(||v[o, :]||_2, 1e-12). The JAX tree
 stores `v [in, out]`; `utils.checkpoint.params_from_jax` converts.
 
-Only the eval forward exists so far (fp32, or bf16 operands with fp32
-accumulation when `compute_dtype="bfloat16"`); training dropout comes with
-the training slice, so `forward` refuses to run in training mode when the
-config asks for dropout.
+Compute is fp32, or bf16 operands with fp32 accumulation when
+`compute_dtype="bfloat16"`. In training mode (`decoder.train()`) the
+forward takes a `seed` and applies dropout after every hidden relu:
+`dropout_impl="pallas"` goes through the relu+dropout kernel
+(`ops.relu_dropout`, Philox mask keyed by seed + 7919 * layer, as the JAX
+decoder derives its per-layer seed), `dropout_impl="xla"` stays plain
+torch (an inverted-dropout mask drawn from a `torch.Generator` seeded the
+same way). In eval mode nothing is dropped.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from latent_diffusion_models_for_shape_sdfs_torch.config import DecoderConfig
+from latent_diffusion_models_for_shape_sdfs_torch.ops.relu_dropout import (
+    layer_seed, relu_dropout)
 
 
 def effective_weight(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -55,10 +61,11 @@ class WNLinear(nn.Module):
         self.reset_parameters()
 
     @torch.no_grad()
-    def reset_parameters(self) -> None:
+    def reset_parameters(self, generator: torch.Generator | None = None
+                         ) -> None:
         k = 1.0 / math.sqrt(self.v.shape[1])
-        nn.init.uniform_(self.v, -k, k)
-        nn.init.uniform_(self.b, -k, k)
+        nn.init.uniform_(self.v, -k, k, generator=generator)
+        nn.init.uniform_(self.b, -k, k, generator=generator)
         if self.use_weight_norm:
             self.g.copy_(torch.sqrt(torch.sum(self.v * self.v, dim=1)))
 
@@ -107,20 +114,28 @@ class SdfDecoder(nn.Module):
             plan.append((dims[layer], out, takes_skip))
         return plan
 
-    def forward(self, z: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
-        """z [..., L], xyz [..., 3] -> sdf [...] (fp32), eval semantics."""
+    def forward(self, z: torch.Tensor, xyz: torch.Tensor,
+                seed: int | None = None) -> torch.Tensor:
+        """z [..., L], xyz [..., 3] -> sdf [...] (fp32). In training mode
+        with dropout configured, `seed` (an int) fixes every dropout mask;
+        the relu+dropout kernel keys its mask by the row of the flattened
+        [..., H] activation, so pass flat [N, L] / [N, 3] inputs to get the
+        fused train kernel's masks."""
         c = self.cfg
-        if self.training and ((c.use_dropout and c.dropout_prob > 0)
-                              or c.latent_dropout):
-            raise NotImplementedError(
-                "training-mode dropout is not ported yet; call .eval()")
+        drop = self.training and c.use_dropout and c.dropout_prob > 0
+        if (drop or (self.training and c.latent_dropout)) and seed is None:
+            raise ValueError("training-mode dropout needs a seed")
         dtype = getattr(torch, c.compute_dtype)
         z = z.to(dtype)
         xyz = xyz.to(dtype)
-        inp = torch.cat([z, xyz], dim=-1)
-        x = inp
         plan = self.layer_dims()
         n_lin = len(plan)
+        if c.latent_dropout and self.training:
+            # lineage option: dropout(0.2) on the latent half of the input,
+            # drawn from the stream one past the last hidden layer's
+            z = _plain_dropout(z, 0.2, layer_seed(seed, n_lin))
+        inp = torch.cat([z, xyz], dim=-1)
+        x = inp
         for layer, (_, _, takes_skip) in enumerate(plan):
             if takes_skip:
                 x = torch.cat([x, inp], dim=-1)
@@ -128,7 +143,24 @@ class SdfDecoder(nn.Module):
                 x = torch.cat([x, xyz], dim=-1)
             x = getattr(self, f"lin{layer}")(x)
             if layer < n_lin - 1:
-                x = torch.relu(x).to(dtype)
+                s = layer_seed(seed, layer) if drop else 0
+                if drop and c.dropout_impl == "pallas":
+                    x = relu_dropout(x.to(dtype), s, c.dropout_prob)
+                else:
+                    x = torch.relu(x).to(dtype)
+                    if drop:
+                        x = _plain_dropout(x, c.dropout_prob, s)
         if c.use_tanh:
             x = torch.tanh(x)
         return x[..., 0].float()
+
+
+def _plain_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """Inverted dropout (flax `nn.Dropout` semantics: keep with
+    probability 1-rate, divide kept values by 1-rate in x's type), the
+    mask drawn from a generator seeded with `seed` on x's device."""
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(seed & 0xFFFFFFFFFFFFFFFF)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device))

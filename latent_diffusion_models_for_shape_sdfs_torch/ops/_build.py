@@ -2,8 +2,8 @@
 
 Each `csrc/*.cu` file is a plain C interface compiled by `nvcc` for Hopper
 (`sm_90a`) into `csrc/build/` (gitignored) at first use, and loaded with
-ctypes. The library name carries a hash of the source and the flags, so an
-edited source rebuilds and a stale library is never loaded; the build
+ctypes. The library name carries a hash of the source, the shared
+`csrc/*.cuh` headers and the flags, so an edited source rebuilds and a stale library is never loaded; the build
 writes to a temporary name and renames, so concurrent processes can race
 safely. Nothing here runs at import time.
 """
@@ -40,7 +40,8 @@ def build(source: str) -> pathlib.Path:
     the library path. The compiler's report (ptxas registers, shared
     memory, spills) is kept beside it as <lib>.log."""
     src = CSRC / source
-    key = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src.read_bytes() + headers
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{src.stem}_{key}.so"
     if lib.exists():

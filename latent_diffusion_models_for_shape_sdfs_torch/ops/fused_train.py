@@ -1,0 +1,411 @@
+"""Fused training pass of the SDF decoder (kernel #4).
+
+Counterpart of the JAX package's `ops/fused_train.py`
+(`_build_train_kernel`, `fused_train_loss_grads`,
+`make_pallas_ad_loss_grads`), ported to `csrc/fused_train.cu`.
+
+`fused_train_loss_grads(ew, z, xyz, sdf, ...)` takes the folded decoder
+(`ops.fused_decoder.precompute_eval_weights` in bf16: torch layout
+[out, in], latent and xyz slices split off at layer 0 and the skip layer)
+and returns (loss_l1, dz [S, L], grads), grads being one dict per layer
+with the f32 gradients of the folded `w_h`, `w_z`, `w_x` and `b`. On CPU
+tensors it runs the plain version `fused_train_reference`; on CUDA tensors
+it launches the kernels or raises, and adds one to `LAUNCHES["fused_train"]`
+per pass.
+
+Rounding follows the TPU kernel: z and xyz rounded to bf16 (z stays f32 in
+dW_z), every hidden activation bf16 after relu and dropout, dpred and
+every masked gradient bf16, gsum rounded to bf16 before the dz product
+(per scene here, per 256-point tile on the TPU). Dropout draws the Philox
+mask of `ops.relu_dropout` for layer seed seed + 7919 * layer and row =
+the point's index in the flat [S*P] batch, so with dropout on this pass
+sees the same mask as the decoder's `dropout_impl="pallas"` forward.
+
+`make_fused_ad_loss_grads(decoder, cfg)` is the training step's loss and
+gradient function: it folds the decoder's parameters with torch autograd
+recording, runs the pass on the folded weights, chains the folded
+gradients back to (v, g, b) with `torch.autograd.backward` (the JAX
+package's `refold_loss` vjp), adds the code regulariser's gradient and
+scatters the dz rows into the dense code gradient with `index_add_`
+(scene ids repeat in a padded batch).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Callable
+
+import torch
+from torch.nn import functional as F
+
+from latent_diffusion_models_for_shape_sdfs_torch import losses
+from latent_diffusion_models_for_shape_sdfs_torch.config import AdConfig
+from latent_diffusion_models_for_shape_sdfs_torch.models.decoder import (
+    SdfDecoder)
+from latent_diffusion_models_for_shape_sdfs_torch.models.latent_table import (
+    gather_codes)
+from latent_diffusion_models_for_shape_sdfs_torch.ops import _build
+from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
+    EvalLayer, EvalWeights, precompute_eval_weights)
+from latent_diffusion_models_for_shape_sdfs_torch.ops.relu_dropout import (
+    dropout_keep_mask, keep_threshold, layer_seed)
+
+LAUNCHES = {"fused_train": 0}
+TILE = 256          # points per colsum chunk; P % TILE == 0 (the TPU tile)
+_PAD = 128          # hidden widths are padded to the GEMM's block tile
+_KEYS = ("w_h", "w_z", "w_x", "b")
+
+
+def _pad_to(n: int) -> int:
+    return -(-n // _PAD) * _PAD
+
+
+def macs_per_point(ew: EvalWeights) -> int:
+    """Multiply-adds per point of one pass at the layers' true widths:
+    forward (hidden and xyz inputs; the latent rows are per scene), wgrad
+    (the same products) and dgrad (the hidden inputs only)."""
+    fwd = hidden = 0
+    for lay in ew.layers:
+        if lay.w_x is not None:
+            fwd += lay.w_x.numel()
+        if lay.w_h is not None:
+            fwd += lay.w_h.numel()
+            hidden += lay.w_h.numel()
+    return 2 * fwd + hidden
+
+
+# ------------------------------------------------------------ plain version
+
+
+def fused_train_reference(ew: EvalWeights, z: torch.Tensor,
+                          xyz: torch.Tensor, sdf: torch.Tensor,
+                          num_sdf_samples: int, clamp_dist: float,
+                          rate: float, seed: int) -> tuple:
+    """The pass in plain torch, with the kernel's rounding points: bf16
+    operands multiplied in f32, f32 sums. z [S, L], xyz [S, P, 3],
+    sdf [S, P]."""
+    S, P, _ = xyz.shape
+    N = S * P
+    n_lin = len(ew.layers)
+    bf = torch.bfloat16
+    inv_n = 1.0 / num_sdf_samples
+    scale = 1.0 / (1.0 - rate) if rate > 0 else 1.0
+    zf = z.float()
+    zb = zf.to(bf).float()
+    xb = xyz.reshape(N, 3).to(bf).float()
+    sid = torch.arange(S, device=z.device).repeat_interleave(P)
+
+    acts = []           # bf16 post-activation of every hidden layer
+    h = None
+    for i, lay in enumerate(ew.layers):
+        acc = lay.b.float()
+        if lay.w_z is not None:
+            rows = acc + F.linear(zb, lay.w_z.float())
+            acc = rows[sid] + F.linear(xb, lay.w_x.float())
+        if lay.w_h is not None:
+            acc = acc + F.linear(h.float(), lay.w_h.float())
+        if i < n_lin - 1:
+            a = torch.relu(acc)
+            if rate > 0:
+                keep = dropout_keep_mask(N, a.shape[1], layer_seed(seed, i),
+                                         rate, device=a.device)
+                a = torch.where(keep, a * scale, 0.0)
+            h = a.to(bf)
+            acts.append(h)
+        else:
+            pred = acc[:, 0]
+
+    pc = torch.clamp(pred, -clamp_dist, clamp_dist)
+    gc = torch.clamp(sdf.reshape(N).float(), -clamp_dist, clamp_dist)
+    diff = pc - gc
+    loss = torch.sum(torch.abs(diff)) * inv_n
+    dpred = torch.where(torch.abs(pred) < clamp_dist,
+                        torch.sign(diff) * inv_n, 0.0)
+    g = dpred.to(bf).float()[:, None]                  # [N, 1]
+
+    dz = torch.zeros_like(zf)
+    grads = [None] * n_lin
+    for i in range(n_lin - 1, -1, -1):
+        lay = ew.layers[i]
+        gr = {"b": g.sum(0)}
+        if lay.w_h is not None:
+            gr["w_h"] = g.T @ acts[i - 1].float()
+        if lay.w_z is not None:
+            gsum = g.reshape(S, P, -1).sum(1)           # [S, H]
+            gr["w_z"] = gsum.T @ zf
+            gr["w_x"] = g.T @ xb
+            dz = dz + gsum.to(bf).float() @ lay.w_z.float()
+        grads[i] = gr
+        if i > 0:
+            gh = g @ lay.w_h.float()
+            g = torch.where(acts[i - 1] > 0, gh * scale, 0.0).to(bf).float()
+    return loss, dz, grads
+
+
+# ------------------------------------------------------------ the kernels
+
+
+def _lib():
+    lib = _build.load("fused_train.cu")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        u32, f32 = ctypes.c_uint32, ctypes.c_float
+        sig = {
+            "ft_gemm_fwd": [vp, ll, vp, ll, i32, i32, ll, vp, ll, ll, vp, vp,
+                            u32, u32, f32, i32, vp, ll, vp],
+            "ft_gemm_dgrad": [vp, ll, vp, ll, i32, i32, ll, vp, ll, f32, vp,
+                              ll, vp],
+            "ft_gemm_wgrad": [vp, ll, vp, ll, i32, i32, ll, ll, vp, vp],
+            "ft_scene_rows": [vp, vp, vp, vp, i32, i32, i32, vp],
+            "ft_layer0": [vp, vp, vp, vp, ll, ll, i32, u32, u32, f32, i32,
+                          vp],
+            "ft_final": [vp, vp, vp, vp, vp, vp, vp, vp, ll, i32, f32, f32,
+                         f32, vp],
+            "ft_colsum": [vp, vp, vp, ll, i32, vp],
+            "ft_reduce": [vp, vp, i32, i32, ll, ll, vp],
+            "ft_dz": [vp, vp, vp, i32, i32, i32, i32, vp],
+            "ft_dwz": [vp, vp, vp, i32, i32, i32, vp],
+        }
+        for name, args in sig.items():
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = args
+        consts = (ctypes.c_int * 5)()
+        lib.ft_constants.restype = None
+        lib.ft_constants(consts)
+        if list(consts) != [_PAD, _PAD, 32, 64, TILE]:
+            raise RuntimeError("csrc/fused_train.cu and fused_train.py "
+                               f"disagree on tile sizes: {list(consts)}")
+        lib._argtypes_set = True
+    return lib
+
+
+def _call(name: str, *args) -> None:
+    rc = getattr(_lib(), name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: cudaError {rc}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _pad2(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    return F.pad(w, (0, cols - w.shape[1], 0, rows - w.shape[0])).contiguous()
+
+
+def _reduce(part: torch.Tensor, n_out: int, n_sum: int, stream) -> torch.Tensor:
+    """[n_out * n_sum, len] f32 -> [n_out, len], each sum in order."""
+    length = part.shape[1]
+    out = torch.empty(n_out, length, dtype=torch.float32, device=part.device)
+    _call("ft_reduce", part.data_ptr(), out.data_ptr(), n_out, n_sum, length,
+          length, stream)
+    return out
+
+
+def _sum_parts(part: torch.Tensor, stream) -> torch.Tensor:
+    """[n, len] f32 -> [len]: a fixed-order sum, in two levels when n is
+    large (a level sums groups of at most 128 consecutive rows)."""
+    n = part.shape[0]
+    while n > 128:
+        d = next((d for d in range(128, 1, -1) if n % d == 0), None)
+        if d is None:
+            break
+        part = _reduce(part, n // d, d, stream)
+        n //= d
+    return _reduce(part, 1, n, stream)[0]
+
+
+def _fused_train_cuda(ew: EvalWeights, z, xyz, sdf, num_sdf_samples,
+                      clamp_dist, rate, seed) -> tuple:
+    S, P, _ = xyz.shape
+    N = S * P
+    L = ew.latent_size
+    layers = ew.layers
+    n_lin = len(layers)
+    dev = z.device
+    bf = torch.bfloat16
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    inv_n = 1.0 / num_sdf_samples
+    drop = int(rate > 0)
+    scale = 1.0 / (1.0 - rate) if drop else 1.0
+    thr = keep_threshold(rate)
+    z = z.float().contiguous()
+    xb = xyz.reshape(N, 3).to(bf).contiguous()
+    sdf_f = sdf.reshape(N).float().contiguous()
+
+    true_out = [lay.b.shape[0] for lay in layers]
+    width = [_pad_to(w) for w in true_out[:-1]] + [1]
+    w_h, w_z, w_x, bias = [], [], [], []
+    for i, lay in enumerate(layers):
+        k_in = width[i - 1] if i > 0 else 0
+        w_h.append(None if lay.w_h is None
+                   else _pad2(lay.w_h.to(bf), width[i], k_in))
+        w_z.append(None if lay.w_z is None
+                   else _pad2(lay.w_z.to(bf), width[i], L))
+        w_x.append(None if lay.w_x is None
+                   else _pad2(lay.w_x.to(bf), width[i], 3))
+        bias.append(F.pad(lay.b.float(), (0, width[i] - true_out[i]))
+                    .contiguous())
+
+    # ---- forward: every hidden activation to device memory (bf16)
+    rows = {}
+    for i, lay in enumerate(layers):
+        if lay.w_z is not None:
+            rows[i] = torch.empty(S, width[i], dtype=torch.float32,
+                                  device=dev)
+            _call("ft_scene_rows", z.data_ptr(), w_z[i].data_ptr(),
+                  bias[i].data_ptr(), rows[i].data_ptr(), S, L, width[i],
+                  stream)
+    hs = [torch.empty(N, width[0], dtype=bf, device=dev)]
+    _call("ft_layer0", xb.data_ptr(), rows[0].data_ptr(), w_x[0].data_ptr(),
+          hs[0].data_ptr(), N, P, width[0],
+          layer_seed(seed, 0) & 0xFFFFFFFF, thr, scale, drop, stream)
+    for i in range(1, n_lin - 1):
+        skip = layers[i].w_z is not None
+        out = torch.empty(N, width[i], dtype=bf, device=dev)
+        _call("ft_gemm_fwd", hs[-1].data_ptr(), width[i - 1],
+              w_h[i].data_ptr(), width[i - 1], N, width[i], width[i - 1],
+              (rows[i] if skip else bias[i]).data_ptr(),
+              width[i] if skip else 0, P, _ptr(xb) if skip else None,
+              _ptr(w_x[i]), layer_seed(seed, i) & 0xFFFFFFFF, thr, scale,
+              drop, out.data_ptr(), width[i], stream)
+        hs.append(out)
+
+    # ---- final layer, loss, and its backward
+    K = width[n_lin - 2]
+    nblk = N // 64
+    g = torch.empty(N, K, dtype=bf, device=dev)
+    loss_part = torch.empty(nblk, 1, dtype=torch.float32, device=dev)
+    db_part = torch.empty(nblk, 1, dtype=torch.float32, device=dev)
+    dw_part = torch.empty(nblk, K, dtype=torch.float32, device=dev)
+    w_last = w_h[-1].reshape(-1)
+    _call("ft_final", hs[-1].data_ptr(), w_last.data_ptr(),
+          bias[-1].data_ptr(), sdf_f.data_ptr(), g.data_ptr(),
+          loss_part.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), N, K,
+          clamp_dist, inv_n, scale, stream)
+    loss = _sum_parts(loss_part, stream)[0] * inv_n
+    in_last = layers[-1].w_h.shape[1]
+    grads = [None] * n_lin
+    grads[-1] = {"w_h": _sum_parts(dw_part, stream)[:in_last][None, :],
+                 "b": _sum_parts(db_part, stream)}
+
+    # ---- hidden layers, top down
+    dz = torch.zeros(S, L, dtype=torch.float32, device=dev)
+    k_split = math.gcd(N, 16384)
+    for i in range(n_lin - 2, -1, -1):
+        lay, wi, wt = layers[i], width[i], true_out[i]
+        part = torch.empty(N // TILE, 4 * wi, dtype=torch.float32,
+                           device=dev)
+        _call("ft_colsum", g.data_ptr(), xb.data_ptr(), part.data_ptr(), N,
+              wi, stream)
+        per_scene = _reduce(part, S, P // TILE, stream)      # [S, 4*wi]
+        tot = _sum_parts(per_scene, stream).reshape(4, wi)
+        gr = {"b": tot[0, :wt]}
+        if lay.w_z is not None:
+            gsum = per_scene.reshape(S, 4, wi)[:, 0].contiguous()
+            gr["w_x"] = tot[1:4, :wt].T.contiguous()
+            dwz = torch.empty(wi, L, dtype=torch.float32, device=dev)
+            _call("ft_dwz", gsum.data_ptr(), z.data_ptr(), dwz.data_ptr(), S,
+                  L, wi, stream)
+            gr["w_z"] = dwz[:wt]
+            _call("ft_dz", gsum.data_ptr(), w_z[i].data_ptr(), dz.data_ptr(),
+                  S, L, wi, 1, stream)
+        if i > 0:
+            k_in = width[i - 1]
+            part_w = torch.empty(N // k_split, wi * k_in,
+                                 dtype=torch.float32, device=dev)
+            _call("ft_gemm_wgrad", g.data_ptr(), wi, hs[i - 1].data_ptr(),
+                  k_in, wi, k_in, N, k_split, part_w.data_ptr(), stream)
+            dw = _sum_parts(part_w, stream).reshape(wi, k_in)
+            gr["w_h"] = dw[:wt, :lay.w_h.shape[1]]
+            g_prev = torch.empty(N, k_in, dtype=bf, device=dev)
+            _call("ft_gemm_dgrad", g.data_ptr(), wi, w_h[i].data_ptr(), k_in,
+                  N, k_in, wi, hs[i - 1].data_ptr(), k_in, scale,
+                  g_prev.data_ptr(), k_in, stream)
+            g = g_prev
+        grads[i] = gr
+    return loss, dz, grads
+
+
+def fused_train_loss_grads(ew: EvalWeights, z: torch.Tensor,
+                           xyz: torch.Tensor, sdf: torch.Tensor,
+                           num_sdf_samples: int, clamp_dist: float,
+                           dropout_rate: float, seed: int) -> tuple:
+    """One fused forward + loss + backward pass over [S, P] points.
+
+    Returns (loss_l1, dz [S, L], grads): grads[i] holds the f32 gradients
+    of layer i's folded `w_h` / `w_z` / `w_x` / `b` (torch layout). The
+    caller chains them through the weight-norm fold."""
+    S, P, _ = xyz.shape
+    if P % TILE:
+        raise ValueError(f"samples_per_scene {P} % tile {TILE} != 0")
+    if z.device.type == "cpu":
+        return fused_train_reference(ew, z, xyz, sdf, num_sdf_samples,
+                                     clamp_dist, dropout_rate, seed)
+    if z.device.type != "cuda" or xyz.device != z.device \
+            or sdf.device != z.device:
+        raise ValueError(f"fused_train: inputs on {z.device}/{xyz.device}/"
+                         f"{sdf.device}")
+    la = ew.layers
+    if (la[0].w_h is not None or la[-1].w_z is not None
+            or la[-1].b.shape[0] != 1
+            or any(lay.w_h is None for lay in la[1:])):
+        raise ValueError("fused_train: unsupported layer plan")
+    out = _fused_train_cuda(ew, z, xyz, sdf, num_sdf_samples, clamp_dist,
+                            dropout_rate, seed)
+    LAUNCHES["fused_train"] += 1
+    return out
+
+
+def _detached(ew: EvalWeights) -> EvalWeights:
+    return EvalWeights(tuple(
+        EvalLayer(*(None if t is None else t.detach() for t in lay))
+        for lay in ew.layers), ew.use_tanh, ew.latent_size)
+
+
+def make_fused_ad_loss_grads(decoder: SdfDecoder, cfg: AdConfig
+                             ) -> Callable:
+    """value_and_grads(codes, scene_ids, xyz, sdf, epoch, seed) ->
+    (loss, aux): runs the fused pass and leaves the gradients in the
+    `.grad` of the decoder's parameters and of `codes` (a dense leaf
+    tensor), as `loss.backward()` does on the autograd route."""
+    if cfg.code_bound not in (0, 0.0):
+        raise NotImplementedError(
+            "code_bound > 0 under use_pallas: the fused route does not "
+            "chain gradients through the max-norm projection")
+    if cfg.decoder.use_tanh:
+        raise NotImplementedError("use_tanh under use_pallas: the fused "
+                                  "train kernel has no tanh")
+    N = cfg.scenes_per_batch * cfg.samples_per_scene
+    rate = cfg.decoder.dropout_prob if cfg.decoder.use_dropout else 0.0
+
+    def value_and_grads(codes, scene_ids, xyz, sdf, epoch, seed):
+        params = dict(decoder.named_parameters())
+        with torch.enable_grad():
+            ew = precompute_eval_weights(decoder, params, torch.bfloat16)
+        with torch.no_grad():
+            z = gather_codes(codes.detach(), scene_ids)
+            l1, dz, g_folded = fused_train_loss_grads(
+                _detached(ew), z, xyz, sdf, N, cfg.clamp_dist, rate, seed)
+        tensors, cotangents = [], []
+        for lay, gr in zip(ew.layers, g_folded):
+            for k in _KEYS:
+                t = getattr(lay, k)
+                if t is not None:
+                    tensors.append(t)
+                    cotangents.append(gr[k].to(t.dtype))
+        torch.autograd.backward(tensors, cotangents)
+        with torch.enable_grad():
+            zr = gather_codes(codes, scene_ids)
+            reg = losses.code_reg(zr, epoch, cfg.code_reg_lambda,
+                                  cfg.code_reg_warmup_epochs,
+                                  num_sdf_samples=zr.shape[0],
+                                  squared=cfg.code_reg_squared)
+            reg.backward()
+        codes.grad.index_add_(0, scene_ids, dz)
+        loss = l1 + reg.detach()
+        return loss, {"loss_l1": l1, "loss_reg": reg.detach()}
+
+    return value_and_grads

@@ -1,10 +1,11 @@
-"""Reader for the `pack_tree_npz` stage-1 packs, and the JAX <-> torch
-parameter conversion.
+"""Reader and writer of the `pack_tree_npz` stage-1 packs, and the JAX <->
+torch parameter conversion.
 
 A pack is one compressed npz whose keys are `jax.tree_util.keystr` paths
 of a pytree, e.g. `['params']['lin0']['v']` or `['codes']` (written by the
 JAX package's `utils/checkpoint.py::pack_tree_npz`). Reading it needs no
-JAX: the keys parse back into nested dicts of numpy arrays.
+JAX: the keys parse back into nested dicts of numpy arrays, and
+`pack_tree_npz` writes the same keys from nested dicts.
 
 The JAX decoder stores each layer as `v [in, out]`, `g [out]`, `b [out]`;
 the port keeps torch's `nn.Linear` layout `v [out, in]`. `params_from_jax`
@@ -84,3 +85,39 @@ def load_stage1_pack(path: str | pathlib.Path) -> tuple:
     tree = load_tree_npz(path)
     return params_from_jax(tree["params"]), np.asarray(tree["codes"],
                                                        np.float32)
+
+
+def _keystr(path: tuple) -> str:
+    return "".join(f"[{p}]" if isinstance(p, int) else f"['{p}']"
+                   for p in path)
+
+
+def pack_tree_npz(path: str | pathlib.Path, tree: dict) -> None:
+    """Nested dicts of arrays -> one compressed npz keyed by keystr paths
+    (the JAX package's `pack_tree_npz` format; its `restore_tree_npz`
+    reads it back bit for bit)."""
+    flat: dict = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, prefix + (k,))
+        else:
+            a = node.detach().cpu().numpy() if isinstance(
+                node, torch.Tensor) else np.asarray(node)
+            flat[_keystr(prefix)] = a
+
+    walk(tree, ())
+    pathlib.Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(str(path), **flat)
+
+
+def save_stage1_pack(path: str | pathlib.Path, state_dict: dict,
+                     codes) -> None:
+    """Decoder state dict + codes [n_scenes, L] -> a stage-1 pack
+    (`['params']['lin0']['v']` in the JAX [in, out] layout, `['codes']`),
+    readable by `load_stage1_pack` and by the JAX package."""
+    codes = (codes.detach().cpu().numpy() if isinstance(codes, torch.Tensor)
+             else np.asarray(codes))
+    pack_tree_npz(path, {"params": params_to_jax(state_dict),
+                         "codes": codes.astype(np.float32)})

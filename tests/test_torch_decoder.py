@@ -106,8 +106,10 @@ def test_decoder_forward_matches_jax(pack, dtype, atol):
 def test_decoder_refuses_training_dropout():
     dec = SdfDecoder(tcfg.DecoderConfig(latent_size=8, hidden_dim=32,
                                         num_layers=2, latent_in=()))
-    with pytest.raises(NotImplementedError):
+    """Training-mode dropout runs only with an explicit seed."""
+    with pytest.raises(ValueError, match="seed"):
         dec(torch.zeros(4, 8), torch.zeros(4, 3))
+    assert dec(torch.zeros(4, 8), torch.zeros(4, 3), seed=1).shape == (4,)
     assert dec.eval()(torch.zeros(4, 8), torch.zeros(4, 3)).shape == (4,)
 
 
