@@ -1,12 +1,13 @@
-"""Smoke run of the PyTorch port on one CUDA card: build, check, serve, train.
+"""Smoke run of the PyTorch port on one CUDA card: build, check, serve,
+train, generate.
 
     python3 chip_smoke.py [--details PATH]
 
 Builds the port's CUDA kernels (csrc/fused_eval.cu, csrc/relu_dropout.cu,
-csrc/fused_train.cu: one nvcc each for sm_90a, all started together) and
-the native mesher (native/, cmake or g++) from this checkout, while it
-generates the training data (64 analytic chairs, a process pool started
-before CUDA is), then:
+csrc/fused_train.cu, csrc/fused_eval_pairs.cu: one nvcc each for sm_90a,
+all started together) and the native mesher (native/, cmake or g++) from
+this checkout, while it generates the training data (64 analytic chairs,
+a process pool started before CUDA is), then:
 
   1. prints the card (nvidia-smi name and power limit) and turns TF32 off;
   2. holds the decoder-eval kernel against its plain version (bf16
@@ -29,7 +30,21 @@ before CUDA is), then:
      through both kernel routes (relu+dropout kernels; fused train
      kernel), counting launches, then writes the trained pack, reloads it
      and serves chair 0 at 256^3; traces one step of each route;
-  8. prints one JSON line per ported kernel and, last, the device line.
+  8. [pairs] holds the per-point-latent eval kernel (#2) against its plain
+     version (bf16 fast_apply over z rows) on the committed multicat
+     decoder with rows of 64 codes at 2^19 and 2^19+131 points, on a small
+     and a tanh plan, and with all rows equal against kernel #1; times it;
+  9. [flat] decodes config 4's batch of 64 heterogeneous multicat shapes
+     (13 classes) at 256^3 through the flat batched decode (kernel #2):
+     probed caps, one checked and three timed steps, one traced step; holds
+     it against the plain version's flat decode and, as meshes of 4 shapes
+     of 4 classes, against serve_meshes with kernel #1; times the same 64
+     codes through the per-shape decode;
+ 10. [generate] samples config 4's 64 conditioned latents (CondDenoiser at
+     full width with seeded weights, CFG 2.0, DDIM-50 and DPM-10; same seed,
+     same latents), decodes them through the flat decode and two through
+     generate_meshes;
+ 11. prints one JSON line per ported kernel and, last, the device line.
 
 Any failure raises and exits non-zero; without a card (or outside a
 checkout of the repository) it exits non-zero before printing a result.
@@ -96,11 +111,12 @@ def kernel_macs_per_point(decoder) -> int:
     return macs
 
 
-def bound(n_points: int, macs: int, weight_bytes: int) -> tuple:
+def bound(n_points: int, macs: int, other_bytes: int) -> tuple:
     """Least time (ms) for n points on this card: operations over the bf16
-    peak vs bytes (xyz in, sdf out, weights once) over HBM bandwidth."""
+    peak vs bytes (xyz in, sdf out, and `other_bytes` read once: the
+    weights, and for kernel #2 its latent rows) over HBM bandwidth."""
     ops = 2.0 * macs * n_points / PEAK_BF16_FLOPS
-    byt = (16.0 * n_points + weight_bytes) / PEAK_HBM_BYTES
+    byt = (16.0 * n_points + other_bytes) / PEAK_HBM_BYTES
     return max(ops, byt) * 1e3, ("operations" if ops >= byt else "bytes")
 
 
@@ -166,6 +182,402 @@ def train_split():
     return analytic.make_synthetic_split("chair", 6145, seed=11)[:64]
 
 
+MULTICAT = ("runs", "multicat6k", "stage1_pack.npz")
+RES = 256
+FLAT_KW = dict(safety=1.2, safety3=2.0)    # config 4's decode margins
+
+
+def pairs_macs_per_point(decoder) -> int:
+    """Kernel #2's multiply-adds per point: kernel #1's, plus the latent
+    products of layer 0 and of every skip layer, which it runs per point."""
+    L = decoder.cfg.latent_size
+    return kernel_macs_per_point(decoder) + sum(
+        L * out for i, (_, out, skip) in enumerate(decoder.layer_dims())
+        if i == 0 or skip)
+
+
+def pairs_bytes(pairs, n_points: int) -> int:
+    """Bytes kernel #2 must move besides xyz and sdf (bound() counts
+    those): a bf16 latent row per point, and the weights and biases."""
+    return (2 * pairs.ew.latent_size * n_points + pairs.w_all.nbytes
+            + pairs.wx_all.nbytes + pairs.rows.nbytes)
+
+
+def pairs_phase(dev, card, sd_m, codes_m) -> dict:
+    """[pairs] kernel #2 against its plain version (bf16 fast_apply over z
+    rows) at the flat decode's launch shape and a ragged N on the trained
+    multicat decoder with rows of 64 codes, on the small and tanh plans,
+    and with all rows equal against kernel #1; then its times."""
+    import numpy as np
+    import torch
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        DecoderConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.models.decoder import (
+        SdfDecoder)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.cuda_kernels import (
+        make_kernel_apply, make_kernel_apply_pairs)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
+        fast_apply)
+
+    decoder = SdfDecoder(DecoderConfig())
+    pairs = make_kernel_apply_pairs(decoder, sd_m)
+    zs = torch.from_numpy(codes_m[:64]).to(dev)
+    rng = np.random.default_rng(3)
+    n19 = 1 << 19
+
+    def rows_xyz(n, zsrc):
+        ids = torch.from_numpy(rng.integers(0, len(zsrc), n)).to(dev)
+        xyz = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(
+            np.float32)).to(dev)
+        return zsrc[ids], xyz
+
+    torch.manual_seed(0)
+    plans = [("trained multicat 8x512, rows of 64 codes", pairs, zs, n19),
+             ("trained multicat 8x512, rows of 64 codes", pairs, zs,
+              n19 + 131)]
+    for name, kw in [("small (L 16, 3x128, skip 2)",
+                      dict(latent_size=16, hidden_dim=128, num_layers=3,
+                           latent_in=(2,), use_dropout=False)),
+                     ("tanh (L 8, 2x32, no skip)",
+                      dict(latent_size=8, hidden_dim=32, num_layers=2,
+                           latent_in=(), use_tanh=True, use_dropout=False))]:
+        small = SdfDecoder(DecoderConfig(**kw))
+        L = small.cfg.latent_size
+        plans.append((name, make_kernel_apply_pairs(small, small.state_dict()),
+                      torch.randn(64, L, device=dev) / np.sqrt(L), 4096 + 77))
+    max_err = 0.0
+    for name, fn, zsrc, n in plans:
+        z_rows, xyz = rows_xyz(n, zsrc)
+        got = fn(z_rows, xyz)
+        want = fast_apply(fn.ew, z_rows, xyz)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError("kernel #2 produced non-finite values")
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        log(f"[pairs] {name}, n={n}: max|kernel-plain| {err:.3e} (tol {TOL})")
+        if err > TOL:
+            raise RuntimeError(f"kernel #2 disagrees with plain version: {err}")
+    z0 = zs[5]
+    xyz = torch.rand(1 << 16, 3, device=dev) * 2 - 1
+    err1 = float((pairs(z0.expand(len(xyz), -1), xyz)
+                  - make_kernel_apply(decoder, sd_m)(z0, xyz)).abs().max())
+    log(f"[pairs] all rows one latent vs kernel #1, n=2^16: max diff "
+        f"{err1:.3e} (tol 1e-2)")
+    if err1 > 1e-2:
+        raise RuntimeError(f"kernel #2 with equal rows vs kernel #1: {err1}")
+
+    # timing at the flat decode's launch shape
+    z_rows, xyz = rows_xyz(n19, zs)
+    zb = z_rows.to(torch.bfloat16).contiguous()
+    ms = time_ms(lambda: pairs.launch(zb, xyz), 20)
+    plain_ms = time_ms(lambda: fast_apply(pairs.ew, z_rows, xyz), 3)
+    macs = pairs_macs_per_point(decoder)
+    bound_ms, bound_by = bound(n19, macs, pairs_bytes(pairs, n19))
+    tflops = 2.0 * macs * n19 / (ms * 1e-3) / 1e12
+    log(f"[pairs] 2^19 points (one flat-decode launch): kernel {ms:.3f} ms "
+        f"({2 * ms:.3f} ms per 2^20, {tflops:.1f} TFLOP/s), plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; {macs} "
+        f"MAC/point) [{card}]")
+    return dict(pairs=pairs, max_abs_err=max_err, equal_rows_vs_k1=err1,
+                ms=ms, ms_2p20=2 * ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, tflops=tflops, macs_per_point=macs)
+
+
+def flat_caps(pairs_fn, zs) -> tuple:
+    """probe_flat_caps at config 4's margins, chunk 16; caps of at least
+    512 (a level no shape reaches would probe to 0)."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.grid_eval import (
+        probe_flat_caps)
+    return tuple(max(512, c) for c in probe_flat_caps(
+        pairs_fn, zs, RES, chunk=16, **FLAT_KW))
+
+
+def flat_phase(dev, card, pairs, sd_m, codes_m) -> dict:
+    """[flat] config 4's batched decode of 64 heterogeneous multicat
+    shapes at 256^3 through kernel #2, held against the plain version's
+    flat decode and (4 shapes, as meshes) against serve_meshes with kernel
+    #1; the same codes through the per-shape decode for comparison."""
+    import numpy as np
+    import torch
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        DecoderConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.evaluation import (
+        chamfer_l2)
+    from latent_diffusion_models_for_shape_sdfs_torch.models.decoder import (
+        SdfDecoder)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.cuda_kernels import (
+        make_kernel_apply)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
+        fast_apply)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.grid_eval import (
+        decode_grid_hierarchical3_batch_flat, decode_grid_hierarchical3_sparse2,
+        unblock_grid)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.isosurface import (
+        extract_mesh)
+    from latent_diffusion_models_for_shape_sdfs_torch.serve import serve_meshes
+
+    # the first five shapes of each of the 13 classes, cut to 64: shapes
+    # 0-63 of the split the pack was trained on (class = index mod 13)
+    from latent_diffusion_models_for_shape_sdfs_torch.data import analytic
+    split = analytic.make_synthetic_split("classes13", 6136, seed=5)[:64]
+    class_ids = [s["class_id"] for s in split]
+    if class_ids != [i % 13 for i in range(64)]:
+        raise RuntimeError(f"unexpected class ids {class_ids}")
+    zs = torch.from_numpy(codes_m[:64]).to(dev).to(torch.bfloat16)
+    S = len(zs)
+    decoder = SdfDecoder(DecoderConfig())
+
+    def flat(fn, caps, check, out_dtype="bfloat16"):
+        return decode_grid_hierarchical3_batch_flat(
+            fn, zs, RES, 16, 4, 2, *caps, out_dtype=out_dtype,
+            check_overflow=check, **FLAT_KW)
+
+    t0 = time.perf_counter()
+    caps = flat_caps(pairs, zs)
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    pairs.launches = 0                        # the main path starts here
+    grids, st = flat(pairs, caps, True)
+    if st["capacity_exceeded"]:
+        raise RuntimeError(f"flat decode exceeded its probed caps: {st}")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g, _ = flat(pairs, caps, False)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del g
+    launches = pairs.launches                 # ... and ends here
+    ms = float(np.median(times))
+    vox = S * RES ** 3 / (ms * 1e-3)
+    acts = [st["active_l1"], st["active_l2"], st["active_l3"]]
+    log(f"[flat] 64 multicat shapes (13 classes) at {RES}^3, bf16 codes and "
+        f"grids, margins {FLAT_KW}: caps {caps} (probed in {probe_s:.2f} s, "
+        f"chunk 16), actives {acts}, per-shape L1 actives "
+        f"{int(st['per_shape_l1'].min())}-{int(st['per_shape_l1'].max())}")
+    log(f"[flat] step times {[round(t, 1) for t in times]} ms: {ms:.1f} ms "
+        f"per 64-shape step, {ms / S:.2f} ms per shape, {vox:.3e} effective "
+        f"voxels/s; kernel #2 launches {launches} (1 checked + 3 timed "
+        f"steps) [{card}]")
+    wall, busy, top = device_profile(lambda: flat(pairs, caps, False))
+    log_profile("flat", "one traced 64-shape step", wall, busy, top, card)
+    k2_ms = sum(ms_ for name, ms_, _ in top if "fused_eval_pairs" in name)
+    # points kernel #2 evaluates per step (every level at its caps) and
+    # the points the batch's actives need; the bound counts the latter
+    r1, r2 = 4 ** 3, 2 ** 3
+    evals = S * (RES // 16) ** 3 + caps[0] * r1 + (caps[1] + caps[2]) * r2
+    needed = S * (RES // 16) ** 3 + acts[0] * r1 + (acts[1] + acts[2]) * r2
+    step_bound, step_by = bound(needed, pairs_macs_per_point(decoder),
+                                pairs_bytes(pairs, needed))
+    log(f"[flat] kernel #2 in the traced step: {k2_ms:.1f} ms for {evals} "
+        f"points at the caps ({needed} needed by the actives): "
+        f"{k2_ms / evals * (1 << 20):.2f} ms per 2^20; bound for the needed "
+        f"points {step_bound:.1f} ms ({step_by}) [{card}]")
+
+    # (a) the same decode through the plain version
+    def plain(z_rows, xyz):
+        return fast_apply(pairs.ew, z_rows, xyz)
+
+    t0 = time.perf_counter()
+    g_p, st_p = flat(plain, caps, True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    acts_p = [st_p["active_l1"], st_p["active_l2"], st_p["active_l3"]]
+    d_act = [abs(a - b) for a, b in zip(acts, acts_p)]
+    h = 2.0 / (RES - 1)
+    near_err, flips = 0.0, 0
+    for s in range(S):
+        a, b = grids[s].float(), g_p[s].float()
+        near = (a.abs() < h) & (b.abs() < h)
+        if bool(near.any()):
+            near_err = max(near_err, float((a - b)[near].abs().max()))
+        far = torch.minimum(a.abs(), b.abs()) >= 1e-2
+        flips += int(((a < 0) != (b < 0))[far].sum())
+    log(f"[flat] plain version's flat decode ({plain_s:.1f} s): actives "
+        f"{acts_p} (|diff| {d_act}); near-surface voxels (|sdf| < h in "
+        f"both): max |kernel-plain| {near_err:.3e} (tol 1e-2); sign flips "
+        f"where both |sdf| >= 1e-2: {flips}")
+    if (near_err > 1e-2 or flips
+            or any(d > 0.002 * n + 16 for d, n in zip(d_act, acts_p))):
+        raise RuntimeError("flat decode through kernel #2 differs from the "
+                           "plain version's")
+    del g_p
+
+    # (b) 4 shapes of 4 classes as meshes vs serve_meshes with kernel #1
+    apply1 = make_kernel_apply(decoder, sd_m)
+    sel = [0, 1, 2, 3]
+    served = list(serve_meshes(apply1, [codes_m[i] for i in sel], res=RES))
+    cds = []
+    for i, (v1, f1, _) in zip(sel, served):
+        grid = unblock_grid(grids[i].float().cpu().numpy(), RES, 4)
+        v, f = extract_mesh(grid)
+        cds.append(chamfer_l2(v, v1))
+        log(f"[flat] shape {i} (class {class_ids[i]}): flat-grid mesh "
+            f"{len(v)} verts vs serve_meshes (kernel #1) {len(v1)}: "
+            f"chamfer-L2 {cds[-1]:.3e} (limit {(h / 4) ** 2:.3e})")
+        if len(f) == 0 or not cds[-1] < (h / 4) ** 2:
+            raise RuntimeError(f"flat mesh of shape {i} disagrees")
+    del grids
+
+    # the same 64 codes through the per-shape decode with kernel #1, at
+    # caps of 1.25x the largest shape's actives (the per-shape policy)
+    zf = zs.float()
+    big = ((RES // 16) ** 3, RES ** 2 // 2, 2 * RES ** 2)
+    mx = [0, 0, 0]
+    for z in zf:
+        _, st1 = decode_grid_hierarchical3_sparse2(
+            apply1, z, RES, 16, 4, 2, *big, check_overflow=True, **FLAT_KW)
+        mx = [max(m, st1[k]) for m, k in zip(mx, ("active_l1", "active_l2",
+                                                   "active_l3"))]
+    caps1 = tuple(-(-int(1.25 * n) // 128) * 128 for n in mx)
+
+    def per_shape():
+        for z in zf:
+            decode_grid_hierarchical3_sparse2(
+                apply1, z, RES, 16, 4, 2, *caps1, check_overflow=False,
+                **FLAT_KW)
+
+    per_shape()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    per_shape()
+    torch.cuda.synchronize()
+    per_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[flat] per-shape decode of the same 64 codes with kernel #1 (int8 "
+        f"payload, caps {caps1} = 1.25x the largest shape's actives): "
+        f"{per_ms:.1f} ms per 64 shapes, {per_ms / S:.2f} ms per shape "
+        f"[{card}]")
+    return dict(caps=caps, probe_s=probe_s, actives=acts,
+                per_shape_l1=st["per_shape_l1"].tolist(), step_ms=times,
+                ms=ms, ms_per_shape=ms / S, voxels_per_s=vox,
+                launches=launches, trace=dict(wall_s=wall, device_busy_ms=busy,
+                                              top=top[:12]),
+                kernel2_step_ms=k2_ms, points_at_caps=evals,
+                points_needed=needed, step_bound_ms=step_bound,
+                plain_s=plain_s, plain_actives=acts_p, near_err=near_err,
+                sign_flips=flips, chamfer=cds, per_shape_caps=caps1,
+                per_shape_ms=per_ms, apply1=apply1)
+
+
+def generate_phase(dev, card, pairs, apply1, codes_m) -> dict:
+    """[generate] config 4's conditional generation at full width: DDIM-50
+    with CFG 2.0 over class + 512 observed points, 64 latents, seeded
+    weights; deterministic per seed; DPM-10; the latents through the flat
+    decode (kernel #2) and two through generate_meshes (kernel #1)."""
+    import numpy as np
+    import torch
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        ExperimentConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.data import analytic
+    from latent_diffusion_models_for_shape_sdfs_torch.diffusion.sampler import (
+        ddim_sample, dpm_solver_sample, guided_denoise_fn)
+    from latent_diffusion_models_for_shape_sdfs_torch.diffusion.schedule import (
+        DiffusionSchedule)
+    from latent_diffusion_models_for_shape_sdfs_torch.models.denoiser import (
+        CondDenoiser)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.grid_eval import (
+        decode_grid_hierarchical3_batch_flat)
+    from latent_diffusion_models_for_shape_sdfs_torch.serve import (
+        generate_meshes)
+    from latent_diffusion_models_for_shape_sdfs_torch.train.diffusion import (
+        normalize_codes, unnormalize_codes)
+
+    exp = ExperimentConfig.load(ROOT / "configs" / "config4_conditional")
+    dc, sc = exp.diff.denoiser, exp.sample
+    torch.manual_seed(0)
+    model = CondDenoiser(dc).to(dev).eval()
+    # seeded weights; out_proj (zero at init, as flax's) gets a small
+    # seeded normal init so that guidance has something to combine
+    g = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        model.body.out_proj.weight.normal_(0.0, 0.02, generator=g)
+    sched = DiffusionSchedule.create(exp.diff.timesteps, exp.diff.beta_start,
+                                     exp.diff.beta_end, device=dev)
+    _, mu, sigma = normalize_codes(torch.from_numpy(codes_m).to(dev))
+    n = sc.num_samples
+    split = analytic.make_synthetic_split("classes13", 6136, seed=5)[:n]
+    rng = np.random.default_rng(7)
+    obs = [analytic.sample_sdf_points(s, dc.partial_points, rng)
+           for s in split]
+    obs_xyz = torch.from_numpy(np.stack([o[0] for o in obs])).to(dev)
+    obs_sdf = torch.from_numpy(np.stack([o[1] for o in obs])).to(dev)
+    cid = torch.arange(n, device=dev) % dc.num_classes
+    fn = guided_denoise_fn(model, sc.guidance_scale, class_id=cid,
+                           obs_xyz=obs_xyz, obs_sdf=obs_sdf)
+    L = dc.latent_size
+
+    def sample(which, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        if which == "ddim":
+            return ddim_sample(fn, sched, gen, n, L, steps=sc.ddim_steps)
+        return dpm_solver_sample(fn, sched, gen, n, L, steps=sc.dpm_steps)
+
+    out = {}
+    for which in ("ddim", "dpm"):
+        sample(which, 0)                              # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z = sample(which, 0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        same = torch.equal(z, sample(which, 0))
+        other = not torch.equal(z, sample(which, 1))
+        out[which] = dict(ms=ms, samples_per_s=n / (ms * 1e-3),
+                          deterministic=same, z_abs_max=float(z.abs().max()))
+        steps = sc.ddim_steps if which == "ddim" else sc.dpm_steps
+        log(f"[generate] {which.upper()}-{steps}, CFG {sc.guidance_scale}, "
+            f"{n} latents (CondDenoiser mlp {dc.hidden_dim}x{dc.num_blocks}, "
+            f"{dc.num_classes} classes, {dc.partial_points} obs points): "
+            f"{ms:.1f} ms, {n / (ms * 1e-3):.0f} samples/s; same seed "
+            f"identical: {same}, other seed differs: {other}; max|z| "
+            f"{out[which]['z_abs_max']:.2f} [{card}]")
+        if not (same and other and bool(torch.isfinite(z).all())):
+            raise RuntimeError(f"{which} sampling is not deterministic per "
+                               "seed or not finite")
+        if which == "ddim":
+            z_ddim = z
+            wall, busy, top = device_profile(lambda: sample("ddim", 0))
+            log_profile("generate", "one traced DDIM-50 batch", wall, busy,
+                        top, card)
+            out["ddim"]["trace"] = dict(wall_s=wall, device_busy_ms=busy,
+                                        top=top[:12])
+    lat = unnormalize_codes(z_ddim, mu, sigma).to(torch.bfloat16)
+    caps = flat_caps(pairs, lat)
+    n0 = pairs.launches
+    grids, st = decode_grid_hierarchical3_batch_flat(
+        pairs, lat, RES, 16, 4, 2, *caps, out_dtype="bfloat16", **FLAT_KW)
+    ok = bool(torch.isfinite(grids.float()).all())
+    log(f"[generate] {n} generated latents through the flat decode: caps "
+        f"{caps}, actives {[st['active_l1'], st['active_l2'], st['active_l3']]}"
+        f", kernel #2 launches {pairs.launches - n0}, grid "
+        f"{tuple(grids.shape)} finite: {ok}")
+    if st["capacity_exceeded"] or not ok or pairs.launches == n0:
+        raise RuntimeError(f"flat decode of generated latents: {st}")
+    del grids
+    fn2 = guided_denoise_fn(model, sc.guidance_scale, class_id=cid[:2],
+                            obs_xyz=obs_xyz[:2], obs_sdf=obs_sdf[:2])
+    n1 = apply1.launches
+    meshes = list(generate_meshes(apply1, fn2, sched,
+                                  torch.Generator(device=dev).manual_seed(0),
+                                  2, L, mu=mu, sigma=sigma, steps=sc.ddim_steps,
+                                  res=RES))
+    for v, f, st2 in meshes:
+        if not np.isfinite(v).all():
+            raise RuntimeError("generate_meshes returned non-finite vertices")
+    log(f"[generate] generate_meshes (DDIM-{sc.ddim_steps}, serve_meshes with "
+        f"kernel #1, {apply1.launches - n1} launches): "
+        f"{[(len(v), len(f)) for v, f, _ in meshes]} (verts, faces), "
+        f"escalations {[st2['escalations'] for _, _, st2 in meshes]}")
+    if len(meshes) != 2 or apply1.launches == n1:
+        raise RuntimeError("generate_meshes did not serve through kernel #1")
+    out.update(flat_caps=caps, flat_actives=[st["active_l1"], st["active_l2"],
+                                             st["active_l3"]],
+               meshes=[(len(v), len(f)) for v, f, _ in meshes])
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--details", type=pathlib.Path, default=None,
@@ -207,7 +619,8 @@ def main() -> int:
     # ---- build: one nvcc per kernel source and the mesher, all at once,
     # while the training data is generated (a fork pool, before CUDA)
     t0 = time.perf_counter()
-    sources = ["fused_eval.cu", "relu_dropout.cu", "fused_train.cu"]
+    sources = ["fused_eval.cu", "relu_dropout.cu", "fused_train.cu",
+               "fused_eval_pairs.cu"]
     built: dict = {}
     errors: list = []
 
@@ -649,7 +1062,25 @@ def main() -> int:
         del state, step
         torch.cuda.empty_cache()
 
-    # ---- phase 8: summary
+    del trained, dataset, xyz_t, xyz_w, sdf_t, ids_t, z_t, z_far
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: [pairs] kernel #2 vs its plain version
+    sd_m, codes_m = load_stage1_pack(ROOT.joinpath(*MULTICAT))
+    pr = pairs_phase(dev, card, sd_m, codes_m)
+    pairs = pr.pop("pairs")
+    details["pairs"] = pr
+
+    # ---- phase 9: [flat] config 4's 64-shape batched decode at 256^3
+    fl = flat_phase(dev, card, pairs, sd_m, codes_m)
+    apply1 = fl.pop("apply1")
+    details["flat"] = fl
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: [generate] config 4's conditional generation
+    details["generate"] = generate_phase(dev, card, pairs, apply1, codes_m)
+
+    # ---- phase 11: summary
     t512 = drop_t[512]
     kernels = [{
         "name": "fused_decoder_eval",
@@ -703,6 +1134,19 @@ def main() -> int:
         "plain_ms": plain_ft,
         "bound_ms": bound_ft,
         "bound_by": "operations",
+        "library_ms": None,
+    }, {
+        "name": "fused_decoder_eval_pairs",
+        "route": "cuda",
+        "source": SRC + "fused_eval_pairs.cu",
+        "replaces": "latent_diffusion_models_for_shape_sdfs_tpu/ops/"
+                    "pallas_kernels.py:163",
+        "launches": fl["launches"],
+        "max_abs_err": pr["max_abs_err"],
+        "ms": pr["ms"],
+        "plain_ms": pr["plain_ms"],
+        "bound_ms": pr["bound_ms"],
+        "bound_by": pr["bound_by"],
         "library_ms": None,
     }]
     if not all(k["launches"] > 0 for k in kernels):

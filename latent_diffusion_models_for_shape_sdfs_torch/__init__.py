@@ -12,5 +12,10 @@ decoder-eval CUDA kernel, `csrc/fused_eval.cu`), `ops.grid_eval`,
 training: `losses`, `models.latent_table`, `data.analytic`,
 `data.sdf_dataset`, `utils.logging`, `ops.relu_dropout` (the relu+dropout
 kernel pair, `csrc/relu_dropout.cu`), `ops.fused_train` (the fused train
-kernel, `csrc/fused_train.cu`) and `train.auto_decoder`.
+kernel, `csrc/fused_train.cu`) and `train.auto_decoder`. Config 4's
+generation: `diffusion.schedule`, `diffusion.sampler`, `models.denoiser`,
+`train.diffusion` (code normalization), `serve.generate_meshes`, and the
+flat batched decode in `ops.grid_eval` with the per-point-latent eval
+kernel (`ops.cuda_kernels.make_kernel_apply_pairs`,
+`csrc/fused_eval_pairs.cu`).
 """

@@ -10,6 +10,14 @@ launches one kernel that runs every layer for a tile of points with the
 activations in shared memory. Its plain version is
 `ops.fused_decoder.fast_apply` in bf16: a wrapper given CPU tensors runs
 that; given CUDA tensors it launches the kernel or raises.
+
+``make_kernel_apply_pairs`` (replaces ``make_pallas_apply_pairs``): the same
+evaluation where every point carries its own latent row,
+`csrc/fused_eval_pairs.cu`. Nothing is hoisted: the latent products of
+layer 0 and the skip layers run inside the kernel, from W_z slices packed
+in fragment order beside the hidden weights, and every layer's row is its
+bias, uploaded once. Its plain version is `fast_apply` in bf16 over the z
+rows.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from latent_diffusion_models_for_shape_sdfs_torch.utils.device import (
 _PAD = 64          # the kernel takes widths that are multiples of 64
 MAX_WIDTH = 512    # csrc/fused_eval.cu MAX_WIDTH (checked at load)
 MAX_LAYERS = 16    # csrc/fused_eval.cu MAX_LAYERS
+MAX_LATENT = 512   # csrc/fused_eval_pairs.cu MAX_LATENT (checked at load)
 
 
 def _pad_to(n: int) -> int:
@@ -115,6 +124,33 @@ def hoisted_rows(ew: EvalWeights, meta: np.ndarray,
     return torch.cat(rows).contiguous()
 
 
+def pack_weights_pairs(ew: EvalWeights) -> tuple:
+    """The pairs kernel's view of a folded decoder: (w_all bf16, wx_all
+    bf16, rows f32, meta int64 [n_layers, 6], lz). pack_weights' buffers
+    with each latent layer's W_z [n, lz] appended to w_all in fragment
+    order, its latent columns zero-padded to lz (a multiple of 16); meta
+    rows are (k, n, w_off, wz_off, row_off, x_off) with wz_off -1 for
+    layers without a latent term; rows are the padded f32 biases."""
+    w_all, wx_all, meta = pack_weights(ew)
+    lz = -(-ew.latent_size // 16) * 16
+    if lz > MAX_LATENT:
+        raise ValueError(f"fused pairs kernel: latent size {ew.latent_size} "
+                         f"> {MAX_LATENT}")
+    parts, wz_off, off = [w_all], [], w_all.numel()
+    for lay, n in zip(ew.layers, meta[:, 1].tolist()):
+        if lay.w_z is None:
+            wz_off.append(-1)
+            continue
+        wz_off.append(off)
+        parts.append(fragment_order(_pad2(lay.w_z, n, lz)).to(w_all.dtype))
+        off += n * lz
+    rows = torch.cat([F.pad(lay.b, (0, n - lay.b.shape[0]))
+                      for lay, n in zip(ew.layers, meta[:, 1].tolist())])
+    meta6 = np.insert(meta, 3, wz_off, axis=1)
+    return (torch.cat(parts).contiguous(), wx_all, rows.contiguous(),
+            np.ascontiguousarray(meta6, np.int64), lz)
+
+
 def _fused_eval_lib():
     lib = _build.load("fused_eval.cu")
     if not getattr(lib, "_argtypes_set", False):
@@ -192,3 +228,100 @@ def make_kernel_apply(decoder: SdfDecoder, params: dict,
     dev = resolve_device(device)
     ew = precompute_eval_weights(decoder, params, torch.bfloat16, dev)
     return KernelApply(ew, dev)
+
+
+def _fused_eval_pairs_lib():
+    lib = _build.load("fused_eval_pairs.cu")
+    if not getattr(lib, "_argtypes_set", False):
+        vp = ctypes.c_void_p
+        lib.fused_eval_pairs_launch.restype = ctypes.c_int
+        lib.fused_eval_pairs_launch.argtypes = [
+            vp, vp, ctypes.c_int, vp, ctypes.c_longlong, vp, vp, vp,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+            vp]
+        for fn in ("fused_eval_pairs_max_width",
+                   "fused_eval_pairs_max_latent"):
+            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).argtypes = []
+        if (lib.fused_eval_pairs_max_width() != MAX_WIDTH
+                or lib.fused_eval_pairs_max_latent() != MAX_LATENT):
+            raise RuntimeError("csrc/fused_eval_pairs.cu and cuda_kernels.py "
+                               "disagree on the widest layer or latent")
+        lib._argtypes_set = True
+    return lib
+
+
+class KernelApplyPairs:
+    """(z_rows [N, L], xyz [N,3] f32) -> sdf [N] f32 through the fused
+    pairs kernel: every point is evaluated with its own latent row.
+
+    `launches` counts kernel launches (one per call on a CUDA tensor);
+    callers reset it to 0 before a run they want to account for."""
+
+    def __init__(self, ew: EvalWeights, device: torch.device):
+        self.ew = ew
+        self.device = device
+        self.launches = 0
+        if device.type == "cuda":
+            _fused_eval_pairs_lib()
+            w_all, wx_all, rows, self.meta, self.lz = pack_weights_pairs(ew)
+            self.w_all = w_all.to(device)
+            self.wx_all = wx_all.to(device)
+            self.rows = rows.to(device)
+
+    def launch(self, z_rows: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
+        """One kernel launch on the current stream: z_rows [N, lz] bf16
+        (16-byte aligned) and xyz [N,3] f32, contiguous -> sdf [N] f32."""
+        n = xyz.shape[0]
+        if (xyz.dtype != torch.float32 or xyz.ndim != 2
+                or xyz.shape[1] != 3 or not xyz.is_contiguous()):
+            raise ValueError("fused pairs kernel: xyz must be a contiguous "
+                             f"float32 [N, 3] tensor, got {xyz.dtype} "
+                             f"{tuple(xyz.shape)}")
+        if (z_rows.dtype != torch.bfloat16 or tuple(z_rows.shape) != (n, self.lz)
+                or not z_rows.is_contiguous() or z_rows.data_ptr() % 16):
+            raise ValueError("fused pairs kernel: z_rows must be a contiguous, "
+                             f"16-byte aligned bfloat16 [{n}, {self.lz}] "
+                             f"tensor, got {z_rows.dtype} "
+                             f"{tuple(z_rows.shape)}")
+        out = torch.empty(n, dtype=torch.float32, device=xyz.device)
+        rc = _fused_eval_pairs_lib().fused_eval_pairs_launch(
+            xyz.data_ptr(), z_rows.data_ptr(), self.lz, out.data_ptr(), n,
+            self.w_all.data_ptr(), self.rows.data_ptr(),
+            self.wx_all.data_ptr(),
+            self.meta.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
+            len(self.meta), int(self.ew.use_tanh),
+            torch.cuda.current_stream(xyz.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"fused_eval_pairs_launch failed: cudaError {rc}")
+        self.launches += 1
+        return out
+
+    def __call__(self, z_rows: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
+        if xyz.device != self.device or z_rows.device != self.device:
+            raise ValueError(f"inputs on {xyz.device}/{z_rows.device}, "
+                             f"weights on {self.device}")
+        if z_rows.shape != (xyz.shape[0], self.ew.latent_size):
+            raise ValueError(f"z_rows {tuple(z_rows.shape)} for "
+                             f"{xyz.shape[0]} points of latent size "
+                             f"{self.ew.latent_size}")
+        if xyz.device.type == "cpu":
+            return fast_apply(self.ew, z_rows, xyz)
+        zb = F.pad(z_rows.to(torch.bfloat16),
+                   (0, self.lz - z_rows.shape[1])).contiguous()
+        if zb.data_ptr() % 16:
+            zb = zb.clone()
+        return self.launch(zb, xyz.float().contiguous())
+
+
+def make_kernel_apply_pairs(decoder: SdfDecoder, params: dict,
+                            device="cuda") -> KernelApplyPairs:
+    """(z_rows [N, L], xyz [N,3]) -> sdf [N]: the per-point-latent fused
+    decoder-eval path (the flat batched decode's evaluator).
+
+    `params` as for make_kernel_apply. On `cuda` (the default; raises when
+    no card is present) every call launches the kernel; with
+    `device="cpu"` every call runs the bf16 plain version."""
+    dev = resolve_device(device)
+    ew = precompute_eval_weights(decoder, params, torch.bfloat16, dev)
+    return KernelApplyPairs(ew, dev)

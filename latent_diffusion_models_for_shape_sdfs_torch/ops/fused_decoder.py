@@ -19,7 +19,7 @@ operands are rounded to bf16 and then multiplied *as fp32*: a torch
 matmul on bf16 tensors returns bf16, which would round the accumulator
 before the bias is added, where JAX keeps fp32
 (`preferred_element_type=float32`). `fast_apply` in bf16 is the plain
-version that `ops.cuda_kernels` holds its kernel against.
+version that `ops.cuda_kernels` holds its kernels against.
 """
 
 from __future__ import annotations
@@ -76,8 +76,9 @@ def precompute_eval_weights(decoder: SdfDecoder, params: dict,
 
 def fast_apply(ew: EvalWeights, z: torch.Tensor,
                xyz: torch.Tensor) -> torch.Tensor:
-    """z [L], xyz [N,3] -> sdf [N] (fp32). Operands rounded to ew's dtype,
-    products and sums in fp32."""
+    """z [L] (one latent) or [N, L] (a latent row per point), xyz [N,3] ->
+    sdf [N] (fp32). Operands rounded to ew's dtype, products and sums in
+    fp32. In bf16 it is the plain version of both fused eval kernels."""
     dtype = ew.layers[0].w_z.dtype
 
     def rounded(t):

@@ -1,7 +1,8 @@
-"""SDF grid decoding on the device: dense and three-level hierarchical.
+"""SDF grid decoding on the device: dense, three-level hierarchical, and
+the flat batched decode of many shapes at once.
 
 Counterpart of the subset of the JAX package's `ops/grid_eval.py` that the
-serving path runs. Query coordinates are made on the device from flat
+serving and generation paths run. Query coordinates are made on the device from flat
 indices (no coordinate array is uploaded), and every level of the
 hierarchical decode evaluates its static, capacity-sized rows, so a decode
 enqueues its work without waiting on the device: the active counts come
@@ -325,6 +326,262 @@ def decode_grid_hierarchical3_sparse2(apply_fn: ApplyFn, z: torch.Tensor,
                                       or stats["active_l2"] > cap2
                                       or stats["active_l3"] > cap3)
     return arrs, stats
+
+
+# ------------------------------------------------ flattened batched decode
+#
+# The flat decode compacts the active blocks of ALL shapes of a batch into
+# one global work list per level (ids carry the shape through shape-major
+# flat indexing, s * nb^3 + local id), so a heterogeneous batch does work
+# ~ the sum of its actives plus one shared headroom, not S times the
+# largest shape's. Its evaluator takes a latent row per point:
+# ops.cuda_kernels.make_kernel_apply_pairs (or ops.fused_decoder.fast_apply
+# over z rows).
+
+PairsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+"""(z_rows [N, L], xyz [N,3]) -> sdf [N]: every point with its own latent
+row."""
+
+_PAIRS_POINTS_PER_GROUP = 1 << 19
+
+
+def _eval_pairs_grouped(pairs_fn: PairsFn, zs: torch.Tensor,
+                        sids: torch.Tensor, xyz: torch.Tensor,
+                        points_per_group: int = _PAIRS_POINTS_PER_GROUP
+                        ) -> torch.Tensor:
+    """pairs_fn over (zs[sids], xyz) in bounded-memory groups.
+
+    The latent rows are gathered per group, so the transient is
+    group * L rows, not the whole work list's; zs is gathered in its own
+    dtype (bf16 codes on the production path, f32 in the parity tests).
+    Groups are balanced, the last padded with the edge point."""
+    n = xyz.shape[0]
+    if n <= points_per_group:
+        return pairs_fn(zs.index_select(0, sids), xyz)
+    ngroups = math.ceil(n / points_per_group)
+    group = math.ceil(n / ngroups)
+    pad = ngroups * group - n
+    sids_p = torch.cat([sids, sids[-1:].expand(pad)]).reshape(ngroups, group)
+    xyz_p = torch.cat([xyz, xyz[-1:].expand(pad, 3)]).reshape(
+        ngroups, group, 3)
+    out = torch.empty((ngroups, group), dtype=torch.float32, device=xyz.device)
+    for g in range(ngroups):
+        out[g] = pairs_fn(zs.index_select(0, sids_p[g]), xyz_p[g])
+    return out.reshape(ngroups * group)[:n]
+
+
+def _fill_cascade_gather_flat(c1: torch.Tensor, c2: torch.Tensor,
+                              idx1: torch.Tensor, valid1: torch.Tensor,
+                              S: int, nb1: int, nb2: int, r1: int,
+                              cap1: int) -> torch.Tensor:
+    """The b2-granularity fill of every shape, [S*nb2^3]: c1 broadcast to
+    its r1^3 children, replaced by the c2 row where the parent refined.
+    The shape-major b1 id ((s*nb1 + x1)*nb1 + y1)*nb1 + z1 factors s into
+    the leading axis of the transpose, so children stay in their shape's
+    segment."""
+    n1 = S * nb1 ** 3
+    inv1 = torch.full((n1 + 1,), cap1, dtype=torch.int32, device=c1.device)
+    inv1.scatter_(0, torch.where(valid1, idx1, n1).long(),
+                  torch.arange(cap1, dtype=torch.int32, device=c1.device))
+    inv1 = inv1[:n1]
+    c2_pad = torch.cat([c2, c2.new_zeros((1, r1 ** 3))])
+    rows = c2_pad[torch.clamp(inv1, max=cap1).long()]       # [S*nb1^3, r1^3]
+    rows = torch.where((inv1 < cap1)[:, None], rows, c1[:, None])
+    rows = rows.reshape(S * nb1, nb1, nb1, r1, r1, r1)
+    return rows.permute(0, 3, 1, 4, 2, 5).reshape(S * nb2 ** 3)
+
+
+def _repeat(t: torch.Tensor, k: int) -> torch.Tensor:
+    """Each element k times in a row (jnp.repeat), without a host sync."""
+    return t[:, None].expand(-1, k).reshape(-1)
+
+
+def _decode_flat_impl(pairs_fn: PairsFn, zs: torch.Tensor, S: int,
+                      res: int, b1: int, b2: int, b3: int, cap1: int,
+                      cap2: int, cap3: int, safety: float, safety3: float,
+                      out_dtype: str,
+                      points_per_group: int = _PAIRS_POINTS_PER_GROUP):
+    """The flat batched decode, enqueued with no host sync: the same
+    levels, thresholds and fills as _decode_grid_hier3_impl, compacted
+    over the whole batch. Returns (grids [S, nb2^3, b2^3] block layout,
+    n1, n2, n3, per_shape_l1 [S]), counts as device scalars."""
+    r1, r2 = b1 // b2, b2 // b3
+    nb1, nb2, nb3 = res // b1, res // b2, res // b3
+    h = 2.0 / (res - 1)
+    tau1 = safety * (b1 * h * math.sqrt(3.0) / 2.0)
+    tau2 = safety * (b2 * h * math.sqrt(3.0) / 2.0)
+    tau3 = (safety3 or safety) * (b3 * h * math.sqrt(3.0) / 2.0)
+    conv, _ = _quantizers(out_dtype, tau2, b2)
+    dev = zs.device
+
+    def arange(n):
+        return torch.arange(n, dtype=torch.int32, device=dev)
+
+    # ---- L0: every shape's b1-block centers
+    flat = arange(nb1 ** 3)
+    ijk = torch.stack([flat // (nb1 * nb1), (flat // nb1) % nb1,
+                       flat % nb1], -1).to(torch.float32)
+    xyz_c = (ijk * b1 + (b1 - 1) / 2.0) * h - 1.0
+    c1 = _eval_pairs_grouped(pairs_fn, zs, _repeat(arange(S), nb1 ** 3),
+                             xyz_c.repeat(S, 1), points_per_group)
+    mask1 = c1.abs() <= tau1                                 # [S*nb1^3]
+    idx1, valid1, n1, _ = _compact(mask1, cap1)
+
+    # ---- L1: b2 sub-centers of selected parents (global ids)
+    s1, l1 = idx1 // nb1 ** 3, idx1 % nb1 ** 3
+    x1, y1, z1 = l1 // (nb1 * nb1), (l1 // nb1) % nb1, l1 % nb1
+    off = arange(r1 ** 3)
+    ox, oy, oz = off // (r1 * r1), (off // r1) % r1, off % r1
+    sx = x1[:, None] * r1 + ox[None, :]
+    sy = y1[:, None] * r1 + oy[None, :]
+    sz = z1[:, None] * r1 + oz[None, :]
+    sub_ids = s1[:, None] * nb2 ** 3 + (sx * nb2 + sy) * nb2 + sz
+    cidx = torch.stack([sx, sy, sz], -1).to(torch.float32) * b2 \
+        + (b2 - 1) / 2.0
+    c2 = _eval_pairs_grouped(
+        pairs_fn, zs, _repeat(s1, r1 ** 3),
+        (cidx * h - 1.0).reshape(cap1 * r1 ** 3, 3),
+        points_per_group).reshape(cap1, r1 ** 3)
+    act2 = (c2.abs() <= tau2) & valid1[:, None]
+    sel2, valid2, n2, _ = _compact(act2.reshape(-1), cap2)
+    ids2 = sub_ids.reshape(-1)[sel2.long()]                  # global b2 ids
+
+    # ---- L2: b3 sub-centers of selected b2 blocks
+    s2, l2 = ids2 // nb2 ** 3, ids2 % nb2 ** 3
+    x2, y2, z2 = l2 // (nb2 * nb2), (l2 // nb2) % nb2, l2 % nb2
+    off3 = arange(r2 ** 3)
+    px, py, pz = off3 // (r2 * r2), (off3 // r2) % r2, off3 % r2
+    tx = x2[:, None] * r2 + px[None, :]
+    ty = y2[:, None] * r2 + py[None, :]
+    tz = z2[:, None] * r2 + pz[None, :]
+    sub3_ids = s2[:, None] * nb3 ** 3 + (tx * nb3 + ty) * nb3 + tz
+    c3idx = torch.stack([tx, ty, tz], -1).to(torch.float32) * b3 \
+        + (b3 - 1) / 2.0
+    c3 = _eval_pairs_grouped(
+        pairs_fn, zs, _repeat(s2, r2 ** 3),
+        (c3idx * h - 1.0).reshape(cap2 * r2 ** 3, 3),
+        points_per_group).reshape(cap2, r2 ** 3)
+    act3 = (c3.abs() <= tau3) & valid2[:, None]
+    sel3, _, n3, slot_rank = _compact(act3.reshape(-1), cap3)
+    ids3 = sub3_ids.reshape(-1)[sel3.long()]                 # global b3 ids
+
+    # ---- L3: fine voxels of selected b3 blocks
+    vals3 = _eval_pairs_grouped(
+        pairs_fn, zs, _repeat(ids3 // nb3 ** 3, b3 ** 3),
+        _block_points(ids3 % nb3 ** 3, res, b3).reshape(cap3 * b3 ** 3, 3),
+        points_per_group).reshape(cap3, b3 ** 3)
+
+    # ---- compose b2 rows (as the single-shape decode)
+    inv_slot = slot_rank.reshape(cap2, r2 ** 3)
+    vals3_pad = torch.cat([vals3, vals3.new_zeros((1, b3 ** 3))])
+    picked = vals3_pad[torch.clamp(inv_slot, max=cap3).long()]
+    vals2 = torch.where((inv_slot < cap3)[..., None], picked, c3[..., None])
+    vals2 = vals2.reshape(cap2, r2, r2, r2, b3, b3, b3)
+    vals2 = vals2.permute(0, 1, 4, 2, 5, 3, 6).reshape(cap2, b2 ** 3)
+
+    fill2 = _fill_cascade_gather_flat(c1, c2, idx1, valid1, S, nb1, nb2,
+                                      r1, cap1)
+    vals2, fill2 = conv(vals2), conv(fill2)
+    # block-layout assembly over the S*nb2^3 global block axis
+    n2_all = S * nb2 ** 3
+    inv2 = torch.full((n2_all + 1,), cap2, dtype=torch.int32, device=dev)
+    inv2.scatter_(0, torch.where(valid2, ids2, n2_all).long(), arange(cap2))
+    inv2 = inv2[:n2_all]
+    vals2_pad = torch.cat([vals2, vals2.new_zeros((1, b2 ** 3))])
+    grids = torch.where((inv2 < cap2)[:, None],
+                        vals2_pad[torch.clamp(inv2, max=cap2).long()],
+                        fill2[:, None]).reshape(S, nb2 ** 3, b2 ** 3)
+    per_shape_l1 = mask1.reshape(S, nb1 ** 3).sum(1, dtype=torch.int32)
+    return grids, n1, n2, n3, per_shape_l1
+
+
+def decode_grid_hierarchical3_batch_flat(
+        pairs_fn: PairsFn, zs: torch.Tensor, res: int, b1: int = 16,
+        b2: int = 4, b3: int = 2, cap1: int = 16384, cap2: int = 147456,
+        cap3: int = 393216, safety: float = 1.2, safety3: float = 2.0,
+        out_dtype: str = "float32", check_overflow: bool = True,
+        points_per_group: int = _PAIRS_POINTS_PER_GROUP):
+    """Flattened three-level batched decode of zs [S, L]: work ~ the sum of
+    the shapes' actives.
+
+    caps are global totals across the batch (probe_flat_caps). Returns
+    (grids [S, (res/b2)^3, b2^3] in block layout on zs's device, stats).
+    Thresholds, fills and sign-exactness are those of the single-shape
+    decode. `out_dtype` "float32", "bfloat16" or "int8" (sign-preserving
+    at tau2/127, as hier3_int8_scale). With check_overflow=False nothing
+    waits on the device: the active counts stay device scalars."""
+    if out_dtype not in ("float32", "bfloat16", "int8"):
+        raise ValueError(f"unsupported payload dtype {out_dtype!r} for the "
+                         "flat decode (float32, bfloat16, int8)")
+    if not (res % b1 == 0 and b1 % b2 == 0 and b2 % b3 == 0):
+        raise ValueError(f"need res % b1 == b1 % b2 == b2 % b3 == 0, got "
+                         f"res={res} b1={b1} b2={b2} b3={b3}")
+    S = int(zs.shape[0])
+    r1, r2 = b1 // b2, b2 // b3
+    nb1 = res // b1
+    cap1 = min(cap1, S * nb1 ** 3)
+    cap2 = min(cap2, cap1 * r1 ** 3)
+    cap3 = min(cap3, cap2 * r2 ** 3)
+    grids, n1, n2, n3, per_shape_l1 = _decode_flat_impl(
+        pairs_fn, zs, S, res, b1, b2, b3, cap1, cap2, cap3, float(safety),
+        float(safety3), out_dtype, points_per_group)
+    stats = {
+        "layout": "block",
+        "coarse_evals": S * nb1 ** 3,
+        "mid_evals": cap1 * r1 ** 3,
+        "sub_evals": cap2 * r2 ** 3,
+        "fine_evals": cap3 * b3 ** 3,
+        "active_l1": n1, "active_l2": n2, "active_l3": n3,
+        "cap1": cap1, "cap2": cap2, "cap3": cap3,
+        "effective_voxels": S * res ** 3,
+    }
+    if check_overflow:
+        stats["active_l1"] = int(n1)
+        stats["active_l2"] = int(n2)
+        stats["active_l3"] = int(n3)
+        stats["per_shape_l1"] = per_shape_l1.cpu().numpy()
+        stats["capacity_exceeded"] = (stats["active_l1"] > cap1
+                                      or stats["active_l2"] > cap2
+                                      or stats["active_l3"] > cap3)
+    return grids, stats
+
+
+def probe_flat_caps(pairs_fn: PairsFn, zs: torch.Tensor, res: int,
+                    safety: float = 1.2, safety3: float = 2.0,
+                    headroom: float = 1.25, chunk: int = 16) -> tuple:
+    """Measured-active + headroom global caps for the flat decode: generous
+    cap decodes of `chunk` shapes at a time measure each level's total
+    actives (a shape's actives do not depend on its batch-mates, so the
+    chunks' counts add up); caps = round_up(headroom * total, 512)."""
+    S = int(zs.shape[0])
+    nb1 = res // 16
+    tot1 = tot2 = tot3 = 0
+    for s0 in range(0, S, chunk):
+        zc = zs[s0:s0 + chunk]
+        Sc = int(zc.shape[0])
+        # bf16 grids: only the counts matter here
+        _, st = decode_grid_hierarchical3_batch_flat(
+            pairs_fn, zc, res, 16, 4, 2, Sc * nb1 ** 3, Sc * res ** 2 // 2,
+            Sc * 2 * res ** 2, safety=safety, safety3=safety3,
+            out_dtype="bfloat16", check_overflow=True)
+        if st["capacity_exceeded"]:
+            raise RuntimeError(f"probe caps exceeded: {st}")
+        tot1 += st["active_l1"]
+        tot2 += st["active_l2"]
+        tot3 += st["active_l3"]
+
+    def rnd(n):
+        return -(-int(headroom * n) // 512) * 512
+
+    return (rnd(tot1), rnd(tot2), rnd(tot3))
+
+
+def unblock_grid(block_grid: np.ndarray, res: int, block: int) -> np.ndarray:
+    """Host-side block layout -> x-major [res,res,res] (numpy view ops)."""
+    nb = res // block
+    g = np.asarray(block_grid).reshape(nb, nb, nb, block, block, block)
+    return np.ascontiguousarray(
+        g.transpose(0, 3, 1, 4, 2, 5)).reshape(res, res, res)
 
 
 # ------------------------------------------- host-side payload (numpy)

@@ -1,7 +1,7 @@
 """End-to-end mesh-serving path: latents -> meshes.
 
 Counterpart of the JAX package's `serve.py` (`serve_meshes`,
-`watch_and_serve`). Latents -> three-level sparse hierarchical decode on
+`generate_meshes`, `watch_and_serve`). Latents -> three-level sparse hierarchical decode on
 the card (every point evaluation through the fused decoder-eval kernel
 when `apply_fn` is `ops.cuda_kernels.make_kernel_apply`) -> compact int8
 near-surface payload -> copied to pinned host buffers -> meshed directly
@@ -260,6 +260,32 @@ def serve_meshes(apply_fn, latents: Sequence, res: int = 256,
         futures = [pool.submit(mesh_job, *job) for job in jobs()]
         for fut in futures:
             yield fut.result()
+
+
+def generate_meshes(apply_fn, denoise_fn, schedule, generator, n: int,
+                    latent_size: int, mu=None, sigma=None, steps: int = 50,
+                    res: int = 256, sampler: str = "ddim",
+                    **serve_kw) -> Iterator[tuple]:
+    """Generation service: sample n latents on the schedule's device
+    (`sampler` "ddim", or "dpm" = DPM-Solver++(2M), few-step: pair it with
+    steps ~10) with `generator` (a torch.Generator on that device),
+    un-normalize them with the stage-2 code moments mu/sigma
+    (train.diffusion.normalize_codes; None skips it), then stream meshes
+    through serve_meshes on the same device. Conditioning and CFG are the
+    caller's: pass a wrapped denoise_fn (diffusion.sampler.guided_denoise_fn).
+    """
+    from latent_diffusion_models_for_shape_sdfs_torch.diffusion.sampler import (
+        ddim_sample, dpm_solver_sample)
+    from latent_diffusion_models_for_shape_sdfs_torch.train.diffusion import (
+        unnormalize_codes)
+
+    sample_fn = {"ddim": ddim_sample, "dpm": dpm_solver_sample}[sampler]
+    zs = sample_fn(denoise_fn, schedule, generator, n, latent_size,
+                   steps=steps)
+    if mu is not None:
+        zs = unnormalize_codes(zs, mu, sigma)
+    return serve_meshes(apply_fn, list(zs), res=res, device=schedule.device,
+                        **serve_kw)
 
 
 def watch_and_serve(apply_fn, in_dir, out_dir, res: int = 256,

@@ -1,1 +1,2 @@
-"""Training loops (stage 1: the auto-decoder)."""
+"""Training loops (stage 1: the auto-decoder) and stage-2 code
+normalization."""

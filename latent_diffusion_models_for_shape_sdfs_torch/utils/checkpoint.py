@@ -121,3 +121,55 @@ def save_stage1_pack(path: str | pathlib.Path, state_dict: dict,
              else np.asarray(codes))
     pack_tree_npz(path, {"params": params_to_jax(state_dict),
                          "codes": codes.astype(np.float32)})
+
+
+# flax leaf name -> torch parameter name (Dense kernels are transposed)
+_FLAX_LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight",
+              "embedding": "weight"}
+
+
+def denoiser_params_from_jax(tree: dict) -> dict:
+    """Flax CondDenoiser (or bare body) params, nested dicts of numpy
+    arrays, -> the state dict of models.denoiser.CondDenoiser: a Dense
+    `kernel` [in, out] becomes `weight` [out, in]; LayerNorm `scale` and
+    Embed `embedding` become `weight`; scopes join with dots
+    (`body/block0/ln/scale` -> `body.block0.ln.weight`). Bit-exact."""
+    sd = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+                continue
+            if k not in _FLAX_LEAF:
+                raise ValueError(f"unknown flax leaf {'/'.join(prefix + (k,))}")
+            a = np.asarray(v)
+            if k == "kernel":
+                a = a.T
+            sd[".".join(prefix + (_FLAX_LEAF[k],))] = torch.from_numpy(
+                np.array(a, dtype=np.float32, order="C"))
+
+    walk(tree, ())
+    return sd
+
+
+def denoiser_params_to_jax(state_dict: dict) -> dict:
+    """Inverse of denoiser_params_from_jax: state dict -> nested numpy flax
+    tree (1-D `weight` is a LayerNorm scale, the class table `cls` an
+    Embed, every other 2-D `weight` a Dense kernel)."""
+    tree: dict = {}
+    for key, t in state_dict.items():
+        *scope, leaf = key.split(".")
+        a = t.detach().cpu().numpy()
+        if leaf == "weight":
+            if a.ndim == 1:
+                leaf = "scale"
+            elif scope[-1] == "cls":
+                leaf = "embedding"
+            else:
+                leaf, a = "kernel", np.ascontiguousarray(a.T)
+        node = tree
+        for s in scope:
+            node = node.setdefault(s, {})
+        node[leaf] = a
+    return tree

@@ -265,3 +265,136 @@ def test_training_step_on_card(use_pallas, impl, cuda):
         assert ft.LAUNCHES["fused_train"] == n_ft + 4
     else:
         assert rd.LAUNCHES["relu_dropout_fwd"] == n_rd + 4 * 3
+
+
+# ------------------------------------- per-point-latent eval kernel (#2)
+
+MULTICAT = (pathlib.Path(__file__).resolve().parents[1] / "runs"
+            / "multicat6k" / "stage1_pack.npz")
+
+
+def _pairs_decoder(name):
+    """A plan and z rows [n, L] drawn from 64 latents (mixed shapes)."""
+    if name == "trained":
+        sd, codes = load_stage1_pack(MULTICAT)
+        return SdfDecoder(DecoderConfig()), sd, codes[:64]
+    torch.manual_seed(0)
+    dec = SdfDecoder(DecoderConfig(**PLANS[name]))
+    L = dec.cfg.latent_size
+    zs = np.random.default_rng(1).normal(size=(64, L)) / np.sqrt(L)
+    return dec, dec.state_dict(), zs.astype(np.float32)
+
+
+@pytest.mark.parametrize("name", sorted(PLANS) + ["trained"])
+@pytest.mark.parametrize("n", [1, 63, 64, 700, (1 << 16) + 131])
+def test_pairs_kernel_matches_plain_version(name, n, cuda):
+    """Kernel #2 vs bf16 fast_apply over z rows, ragged tails included
+    (tolerance of tests/test_pallas_kernels.py:79)."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.cuda_kernels import (
+        make_kernel_apply_pairs)
+    dec, sd, zs = _pairs_decoder(name)
+    apply = make_kernel_apply_pairs(dec, sd, device=cuda)
+    rng = np.random.default_rng(n)
+    z_rows = torch.from_numpy(zs[rng.integers(0, len(zs), n)]).to(cuda)
+    xyz = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(
+        np.float32)).to(cuda)
+    got = apply(z_rows, xyz)
+    torch.cuda.synchronize()
+    assert apply.launches == 1 and got.shape == (n,)
+    torch.testing.assert_close(got, fast_apply(apply.ew, z_rows, xyz),
+                               atol=5e-3, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["small", "trained"])
+def test_pairs_kernel_with_equal_rows_matches_kernel_1(name, cuda):
+    """All rows one latent: kernel #2 computes kernel #1's function
+    (tests/test_pallas_kernels.py:94-105, tolerance 1e-2)."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.cuda_kernels import (
+        make_kernel_apply_pairs)
+    dec, sd, zs = _pairs_decoder(name)
+    z = torch.from_numpy(zs[3]).to(cuda)
+    xyz = torch.rand(5000, 3, device=cuda) * 2 - 1
+    got = make_kernel_apply_pairs(dec, sd, device=cuda)(
+        z.expand(5000, -1), xyz)
+    want = make_kernel_apply(dec, sd, device=cuda)(z, xyz)
+    torch.testing.assert_close(got, want, atol=1e-2, rtol=0)
+
+
+def test_pairs_kernel_wrapper_checks_inputs(cuda):
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.cuda_kernels import (
+        make_kernel_apply_pairs)
+    dec, sd, zs = _pairs_decoder("tanh")
+    apply = make_kernel_apply_pairs(dec, sd, device=cuda)
+    with pytest.raises(ValueError, match="z_rows must be"):
+        apply.launch(torch.zeros(4, 8, device=cuda, dtype=torch.bfloat16),
+                     torch.zeros(4, 3, device=cuda))
+    assert apply(torch.zeros(0, 8, device=cuda),
+                 torch.zeros(0, 3, device=cuda)).shape == (0,)
+    # an unaligned row view is copied before the launch
+    z = torch.from_numpy(zs).to(cuda).to(torch.bfloat16)
+    rows = z.reshape(-1)[1:1 + 10 * 8].reshape(10, 8)
+    xyz = torch.rand(10, 3, device=cuda)
+    torch.testing.assert_close(apply(rows, xyz),
+                               fast_apply(apply.ew, rows, xyz),
+                               atol=5e-3, rtol=0)
+
+
+def cube_rows(zr, xyz):
+    """Per-row snapped cube (tests/test_torch_flat_decode.py): exact in
+    float32 on any device."""
+    q = torch.abs(torch.round(xyz * 256.0) - zr[:, 1:4] * 256.0)
+    return torch.amax(q, dim=-1) / 256.0 - zr[:, 0]
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "int8"])
+def test_flat_decode_on_card_matches_cpu(out_dtype, cuda):
+    """Same SDF values on both devices: the card's flat decode (no host
+    sync, int32 index math) gives the CPU's grids and stats bit for bit."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.grid_eval import (
+        decode_grid_hierarchical3_batch_flat)
+    zs = np.asarray([[0.2, 0, 0, 0], [0.3, 0.125, 0, -0.0625],
+                     [0.45, 0, 0.03125, 0]], np.float32)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        g, st = decode_grid_hierarchical3_batch_flat(
+            cube_rows, torch.from_numpy(zs).to(dev), 64, 16, 4, 2, 128,
+            4096, 16384, out_dtype=out_dtype)
+        out.append((g.cpu(), st))
+    (g1, s1), (g2, s2) = out
+    assert torch.equal(g1, g2)
+    for k in ("active_l1", "active_l2", "active_l3", "capacity_exceeded"):
+        assert s1[k] == s2[k], k
+    np.testing.assert_array_equal(s1["per_shape_l1"], s2["per_shape_l1"])
+
+
+def test_flat_decode_through_pairs_kernel_matches_plain_version(cuda):
+    """Six multicat shapes at 128^3 through kernel #2 and through its
+    plain version: the same actives up to bf16 noise at the thresholds,
+    near-surface values within 1e-2, no sign flip where both |sdf| >= 1e-2."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.cuda_kernels import (
+        make_kernel_apply_pairs)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.grid_eval import (
+        decode_grid_hierarchical3_batch_flat, probe_flat_caps)
+    dec, sd, codes = _pairs_decoder("trained")
+    apply = make_kernel_apply_pairs(dec, sd, device=cuda)
+    zs = torch.from_numpy(codes[:6]).to(cuda).to(torch.bfloat16)
+    res = 128
+    caps = probe_flat_caps(apply, zs, res)
+    n0 = apply.launches
+    g, st = decode_grid_hierarchical3_batch_flat(apply, zs, res, 16, 4, 2,
+                                                 *caps)
+    assert apply.launches > n0 and not st["capacity_exceeded"]
+
+    def plain(z_rows, xyz):
+        return fast_apply(apply.ew, z_rows, xyz)
+
+    gp, sp = decode_grid_hierarchical3_batch_flat(plain, zs, res, 16, 4, 2,
+                                                  *caps)
+    for k in ("active_l1", "active_l2", "active_l3"):
+        assert abs(st[k] - sp[k]) <= 0.002 * sp[k] + 16, k
+    h = 2.0 / (res - 1)
+    near = (g.abs() < h) & (gp.abs() < h)
+    assert int(near.sum()) > 10_000
+    assert float((g - gp)[near].abs().max()) <= 1e-2
+    far = torch.minimum(g.abs(), gp.abs()) >= 1e-2
+    assert torch.equal(g[far] < 0, gp[far] < 0)
