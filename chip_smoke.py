@@ -31,15 +31,20 @@ a process pool started before CUDA is), then:
      kernel), counting launches, then writes the trained pack, reloads it
      and serves chair 0 at 256^3; traces one step of each route;
   8. [pairs] holds the per-point-latent eval kernel (#2) against its plain
-     version (bf16 fast_apply over z rows) on the committed multicat
-     decoder with rows of 64 codes at 2^19 and 2^19+131 points, on a small
-     and a tanh plan, and with all rows equal against kernel #1; times it;
+     version (bf16 fast_apply over codes[sids]) on the committed multicat
+     decoder with rows of 64 codes read by shuffled shape ids at 2^19 and
+     2^19+131 points and of one code, through the (z_rows, xyz) call, on a
+     small and a tanh plan, and with all rows equal against kernel #1;
+     checks two launches are bit-identical; times it and prints its launch
+     configuration (cluster, ring stages, shared memory), the card's SM
+     clock and power meanwhile, and its ptxas report;
   9. [flat] decodes config 4's batch of 64 heterogeneous multicat shapes
-     (13 classes) at 256^3 through the flat batched decode (kernel #2):
-     probed caps, one checked and three timed steps, one traced step; holds
-     it against the plain version's flat decode and, as meshes of 4 shapes
-     of 4 classes, against serve_meshes with kernel #1; times the same 64
-     codes through the per-shape decode;
+     (13 classes) at 256^3 through the flat batched decode (kernel #2, rows
+     read by index): probed caps, one checked and three timed steps, one
+     traced step (kernel #2 launches per step, no aten::index_select);
+     holds it against the plain version's flat decode and, as meshes of 4
+     shapes of 4 classes, against serve_meshes with kernel #1; times the
+     same 64 codes through the per-shape decode;
  10. [generate] samples config 4's 64 conditioned latents (CondDenoiser at
      full width with seeded weights, CFG 2.0, DDIM-50 and DPM-10; same seed,
      same latents), decodes them through the flat decode and two through
@@ -135,9 +140,56 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_profile(fn) -> tuple:
+class SmiSampler:
+    """Samples the card's SM clock (MHz) and power draw (W) with
+    nvidia-smi in a background thread while a `with` block runs."""
+
+    def __init__(self):
+        self.samples: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True).stdout.strip().splitlines()
+            try:
+                clk, pw = (float(v) for v in out[0].split(","))
+                self.samples.append((clk, pw))
+            except (IndexError, ValueError):
+                pass
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def summary(self) -> dict:
+        if not self.samples:
+            return dict(n=0)
+        clk, pw = zip(*self.samples)
+        return dict(n=len(clk), sm_mhz_min=min(clk), sm_mhz_max=max(clk),
+                    sm_mhz_median=sorted(clk)[len(clk) // 2],
+                    power_w_max=max(pw))
+
+    def text(self) -> str:
+        s = self.summary()
+        if not s["n"]:
+            return "nvidia-smi gave no samples"
+        return (f"SM clock {s['sm_mhz_min']:.0f}-{s['sm_mhz_max']:.0f} MHz "
+                f"(median {s['sm_mhz_median']:.0f}), power up to "
+                f"{s['power_w_max']:.0f} W over {s['n']} nvidia-smi samples")
+
+
+def device_profile(fn, cpu_ops: dict | None = None) -> tuple:
     """Runs fn() once under torch.profiler; returns (wall s, device busy
-    ms as the union of device spans, [(name, ms, count)] by device time)."""
+    ms as the union of device spans, [(name, ms, count)] by device time).
+    `cpu_ops`, if given, receives the count of each host-side op name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -149,6 +201,8 @@ def device_profile(fn) -> tuple:
         wall = time.perf_counter() - t0
     spans, by_name = [], {}
     for e in prof.events():
+        if cpu_ops is not None and e.device_type == DeviceType.CPU:
+            cpu_ops[e.name] = cpu_ops.get(e.name, 0) + 1
         if e.device_type == DeviceType.CUDA:         # kernels and copies
             spans.append((e.time_range.start, e.time_range.end))
             ms, cnt = by_name.get(e.name, (0.0, 0))
@@ -196,18 +250,39 @@ def pairs_macs_per_point(decoder) -> int:
         if i == 0 or skip)
 
 
-def pairs_bytes(pairs, n_points: int) -> int:
+def pairs_bytes(pairs, n_points: int, n_codes: int) -> int:
     """Bytes kernel #2 must move besides xyz and sdf (bound() counts
-    those): a bf16 latent row per point, and the weights and biases."""
-    return (2 * pairs.ew.latent_size * n_points + pairs.w_all.nbytes
-            + pairs.wx_all.nbytes + pairs.rows.nbytes)
+    those), each read once: a 4-byte shape id per point, the codes table
+    [n_codes, lt] bf16, and the weights and biases."""
+    return (4 * n_points + 2 * pairs.lt * n_codes + pairs.w.nbytes
+            + pairs.rows.nbytes)
+
+
+def ptxas_report(source: str) -> dict:
+    """Registers, stack and spill bytes of the kernel in csrc/<source>,
+    from the compiler's report kept beside the built library."""
+    import re
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import _build
+    text = _build.build(source).with_suffix(".log").read_text()
+    out = {}
+    for key, pat in [("registers", r"Used (\d+) registers"),
+                     ("stack_bytes", r"(\d+) bytes stack frame"),
+                     ("spill_stores", r"(\d+) bytes spill stores"),
+                     ("spill_loads", r"(\d+) bytes spill loads")]:
+        m = re.search(pat, text)
+        out[key] = int(m.group(1)) if m else None
+    out["warnings"] = [ln.strip() for ln in text.splitlines()
+                       if "Performance Loss" in ln or "ignored" in ln]
+    return out
 
 
 def pairs_phase(dev, card, sd_m, codes_m) -> dict:
-    """[pairs] kernel #2 against its plain version (bf16 fast_apply over z
-    rows) at the flat decode's launch shape and a ragged N on the trained
-    multicat decoder with rows of 64 codes, on the small and tanh plans,
-    and with all rows equal against kernel #1; then its times."""
+    """[pairs] kernel #2 against its plain version (bf16 fast_apply over
+    codes[sids]) at the flat decode's launch shape and a ragged N on the
+    trained multicat decoder with rows of 64 codes read by shuffled shape
+    ids, with one code, through the (z_rows, xyz) call, on the small and
+    tanh plans, and with all rows equal against kernel #1; two launches
+    bit for bit; then its times."""
     import numpy as np
     import torch
     from latent_diffusion_models_for_shape_sdfs_torch.config import (
@@ -215,7 +290,7 @@ def pairs_phase(dev, card, sd_m, codes_m) -> dict:
     from latent_diffusion_models_for_shape_sdfs_torch.models.decoder import (
         SdfDecoder)
     from latent_diffusion_models_for_shape_sdfs_torch.ops.cuda_kernels import (
-        make_kernel_apply, make_kernel_apply_pairs)
+        PAIRS_LAYOUT, make_kernel_apply, make_kernel_apply_pairs)
     from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
         fast_apply)
 
@@ -225,16 +300,18 @@ def pairs_phase(dev, card, sd_m, codes_m) -> dict:
     rng = np.random.default_rng(3)
     n19 = 1 << 19
 
-    def rows_xyz(n, zsrc):
-        ids = torch.from_numpy(rng.integers(0, len(zsrc), n)).to(dev)
+    def ids_xyz(n, n_codes):
+        sids = torch.from_numpy(rng.permutation(np.arange(n) % n_codes)
+                                .astype(np.int32)).to(dev)
         xyz = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(
             np.float32)).to(dev)
-        return zsrc[ids], xyz
+        return sids, xyz
 
     torch.manual_seed(0)
-    plans = [("trained multicat 8x512, rows of 64 codes", pairs, zs, n19),
-             ("trained multicat 8x512, rows of 64 codes", pairs, zs,
-              n19 + 131)]
+    name8 = "trained multicat 8x512"
+    plans = [(f"{name8}, 64 codes by index", pairs, zs, n19),
+             (f"{name8}, 64 codes by index", pairs, zs, n19 + 131),
+             (f"{name8}, 1 code by index", pairs, zs[7:8], 4096 + 77)]
     for name, kw in [("small (L 16, 3x128, skip 2)",
                       dict(latent_size=16, hidden_dim=128, num_layers=3,
                            latent_in=(2,), use_dropout=False)),
@@ -243,13 +320,13 @@ def pairs_phase(dev, card, sd_m, codes_m) -> dict:
                            latent_in=(), use_tanh=True, use_dropout=False))]:
         small = SdfDecoder(DecoderConfig(**kw))
         L = small.cfg.latent_size
-        plans.append((name, make_kernel_apply_pairs(small, small.state_dict()),
+        plans.append((f"{name}, 64 codes by index",
+                      make_kernel_apply_pairs(small, small.state_dict()),
                       torch.randn(64, L, device=dev) / np.sqrt(L), 4096 + 77))
     max_err = 0.0
-    for name, fn, zsrc, n in plans:
-        z_rows, xyz = rows_xyz(n, zsrc)
-        got = fn(z_rows, xyz)
-        want = fast_apply(fn.ew, z_rows, xyz)
+
+    def check(name, n, got, want):
+        nonlocal max_err
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got).all()):
             raise RuntimeError("kernel #2 produced non-finite values")
@@ -258,30 +335,60 @@ def pairs_phase(dev, card, sd_m, codes_m) -> dict:
         log(f"[pairs] {name}, n={n}: max|kernel-plain| {err:.3e} (tol {TOL})")
         if err > TOL:
             raise RuntimeError(f"kernel #2 disagrees with plain version: {err}")
+
+    for name, fn, zsrc, n in plans:
+        sids, xyz = ids_xyz(n, len(zsrc))
+        check(name, n, fn.indexed(zsrc, sids, xyz),
+              fast_apply(fn.ew, zsrc[sids.long()], xyz))
+    sids, xyz = ids_xyz(4096 + 77, 64)
+    z_rows = zs[sids.long()]
+    check(f"{name8}, (z_rows, xyz) call", len(xyz), pairs(z_rows, xyz),
+          fast_apply(pairs.ew, z_rows, xyz))
     z0 = zs[5]
     xyz = torch.rand(1 << 16, 3, device=dev) * 2 - 1
-    err1 = float((pairs(z0.expand(len(xyz), -1), xyz)
-                  - make_kernel_apply(decoder, sd_m)(z0, xyz)).abs().max())
+    err1 = float((pairs.indexed(z0[None], torch.zeros(
+        len(xyz), dtype=torch.int32, device=dev), xyz)
+        - make_kernel_apply(decoder, sd_m)(z0, xyz)).abs().max())
     log(f"[pairs] all rows one latent vs kernel #1, n=2^16: max diff "
         f"{err1:.3e} (tol 1e-2)")
     if err1 > 1e-2:
         raise RuntimeError(f"kernel #2 with equal rows vs kernel #1: {err1}")
 
-    # timing at the flat decode's launch shape
-    z_rows, xyz = rows_xyz(n19, zs)
-    zb = z_rows.to(torch.bfloat16).contiguous()
-    ms = time_ms(lambda: pairs.launch(zb, xyz), 20)
-    plain_ms = time_ms(lambda: fast_apply(pairs.ew, z_rows, xyz), 3)
+    # timing at the flat decode's launch shape: 2^19 points, ids over 64
+    table = pairs.table(zs)
+    sids, xyz = ids_xyz(n19, 64)
+    first = pairs.launch(table, sids, xyz)
+    same = torch.equal(first, pairs.launch(table, sids, xyz))
+    log(f"[pairs] two launches at 2^19 points bit-identical: {same}")
+    if not same:
+        raise RuntimeError("kernel #2 is not deterministic")
+    with SmiSampler() as smi:
+        ms = time_ms(lambda: pairs.launch(table, sids, xyz), 100)
+    plain_ms = time_ms(lambda: fast_apply(pairs.ew, zs[sids.long()], xyz), 3)
     macs = pairs_macs_per_point(decoder)
-    bound_ms, bound_by = bound(n19, macs, pairs_bytes(pairs, n19))
+    bound_ms, bound_by = bound(n19, macs, pairs_bytes(pairs, n19, len(zs)))
     tflops = 2.0 * macs * n19 / (ms * 1e-3) / 1e12
-    log(f"[pairs] 2^19 points (one flat-decode launch): kernel {ms:.3f} ms "
-        f"({2 * ms:.3f} ms per 2^20, {tflops:.1f} TFLOP/s), plain "
+    cfg = pairs.config()
+    ptx = ptxas_report("fused_eval_pairs.cu")
+    log(f"[pairs] 2^19 points (one flat-decode launch), rows of 64 codes by "
+        f"index: kernel {ms:.3f} ms ({2 * ms:.3f} ms per 2^20, {tflops:.1f} "
+        f"TFLOP/s, {100 * bound_ms / ms:.1f}% of its bound), plain "
         f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; {macs} "
         f"MAC/point) [{card}]")
+    log(f"[pairs] during the 100 timed launches: {smi.text()}")
+    log(f"[pairs] launch: cluster {cfg['cluster']} CTAs, {cfg['stages']} "
+        f"ring stages of {PAIRS_LAYOUT['stage_slabs']} x 16 KB slabs, "
+        f"{cfg['smem']} B shared memory, {cfg['max_clusters']} clusters "
+        f"resident; ptxas: {ptx['registers']} registers a thread at launch "
+        f"(before setmaxnreg), {ptx['stack_bytes']} B stack, spills "
+        f"{ptx['spill_stores']}/{ptx['spill_loads']} B; warnings "
+        f"{ptx['warnings'] or 'none'}")
     return dict(pairs=pairs, max_abs_err=max_err, equal_rows_vs_k1=err1,
                 ms=ms, ms_2p20=2 * ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, tflops=tflops, macs_per_point=macs)
+                bound_by=bound_by, tflops=tflops, bound_share=bound_ms / ms,
+                macs_per_point=macs, config=cfg, ptxas=ptx,
+                bit_identical=same,
+                smi=smi.summary())
 
 
 def flat_caps(pairs_fn, zs) -> tuple:
@@ -342,14 +449,16 @@ def flat_phase(dev, card, pairs, sd_m, codes_m) -> dict:
     if st["capacity_exceeded"]:
         raise RuntimeError(f"flat decode exceeded its probed caps: {st}")
     times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        g, _ = flat(pairs, caps, False)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        del g
+    with SmiSampler() as smi:
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g, _ = flat(pairs, caps, False)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            del g
     launches = pairs.launches                 # ... and ends here
+    per_step = launches / 4
     ms = float(np.median(times))
     vox = S * RES ** 3 / (ms * 1e-3)
     acts = [st["active_l1"], st["active_l2"], st["active_l3"]]
@@ -360,17 +469,28 @@ def flat_phase(dev, card, pairs, sd_m, codes_m) -> dict:
     log(f"[flat] step times {[round(t, 1) for t in times]} ms: {ms:.1f} ms "
         f"per 64-shape step, {ms / S:.2f} ms per shape, {vox:.3e} effective "
         f"voxels/s; kernel #2 launches {launches} (1 checked + 3 timed "
-        f"steps) [{card}]")
-    wall, busy, top = device_profile(lambda: flat(pairs, caps, False))
+        f"steps: {per_step:g} per step) [{card}]")
+    log(f"[flat] during the 3 timed steps: {smi.text()}")
+    ops: dict = {}
+    wall, busy, top = device_profile(lambda: flat(pairs, caps, False), ops)
     log_profile("flat", "one traced 64-shape step", wall, busy, top, card)
     k2_ms = sum(ms_ for name, ms_, _ in top if "fused_eval_pairs" in name)
+    k2_n = sum(c for name, _, c in top if "fused_eval_pairs" in name)
+    gathers = ops.get("aten::index_select", 0)
+    sel = [(n, round(m, 3), c) for n, m, c in top if "indexSelect" in n]
+    log(f"[flat] traced step: kernel #2 launched {k2_n} times; "
+        f"aten::index_select calls {gathers} (the per-group z-row gathers "
+        f"are gone: {gathers == 0}); index_select kernels {sel or 'none'}")
+    if gathers or k2_n != per_step:
+        raise RuntimeError(f"flat step: {gathers} z-row gathers, {k2_n} "
+                           f"kernel #2 launches (expected 0, {per_step})")
     # points kernel #2 evaluates per step (every level at its caps) and
     # the points the batch's actives need; the bound counts the latter
     r1, r2 = 4 ** 3, 2 ** 3
     evals = S * (RES // 16) ** 3 + caps[0] * r1 + (caps[1] + caps[2]) * r2
     needed = S * (RES // 16) ** 3 + acts[0] * r1 + (acts[1] + acts[2]) * r2
     step_bound, step_by = bound(needed, pairs_macs_per_point(decoder),
-                                pairs_bytes(pairs, needed))
+                                pairs_bytes(pairs, needed, S))
     log(f"[flat] kernel #2 in the traced step: {k2_ms:.1f} ms for {evals} "
         f"points at the caps ({needed} needed by the actives): "
         f"{k2_ms / evals * (1 << 20):.2f} ms per 2^20; bound for the needed "
@@ -452,8 +572,10 @@ def flat_phase(dev, card, pairs, sd_m, codes_m) -> dict:
     return dict(caps=caps, probe_s=probe_s, actives=acts,
                 per_shape_l1=st["per_shape_l1"].tolist(), step_ms=times,
                 ms=ms, ms_per_shape=ms / S, voxels_per_s=vox,
-                launches=launches, trace=dict(wall_s=wall, device_busy_ms=busy,
-                                              top=top[:12]),
+                launches=launches, launches_per_step=per_step,
+                smi=smi.summary(),
+                index_select_calls=gathers,
+                trace=dict(wall_s=wall, device_busy_ms=busy, top=top[:12]),
                 kernel2_step_ms=k2_ms, points_at_caps=evals,
                 points_needed=needed, step_bound_ms=step_bound,
                 plain_s=plain_s, plain_actives=acts_p, near_err=near_err,

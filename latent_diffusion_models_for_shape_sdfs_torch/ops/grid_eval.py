@@ -336,7 +336,9 @@ def decode_grid_hierarchical3_sparse2(apply_fn: ApplyFn, z: torch.Tensor,
 # ~ the sum of its actives plus one shared headroom, not S times the
 # largest shape's. Its evaluator takes a latent row per point:
 # ops.cuda_kernels.make_kernel_apply_pairs (or ops.fused_decoder.fast_apply
-# over z rows).
+# over z rows). An evaluator with an `indexed(zs, sids, xyz)` method (the
+# kernel's wrapper) reads each point's row from zs itself, so no rows are
+# gathered.
 
 PairsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 """(z_rows [N, L], xyz [N,3]) -> sdf [N]: every point with its own latent
@@ -351,13 +353,22 @@ def _eval_pairs_grouped(pairs_fn: PairsFn, zs: torch.Tensor,
                         ) -> torch.Tensor:
     """pairs_fn over (zs[sids], xyz) in bounded-memory groups.
 
-    The latent rows are gathered per group, so the transient is
-    group * L rows, not the whole work list's; zs is gathered in its own
-    dtype (bf16 codes on the production path, f32 in the parity tests).
-    Groups are balanced, the last padded with the edge point."""
+    With `pairs_fn.indexed` each group is one indexed call on (zs, the
+    group's ids, its points). Otherwise the latent rows are gathered per
+    group, so the transient is group * L rows, not the whole work list's;
+    zs is gathered in its own dtype (bf16 codes on the production path,
+    f32 in the parity tests). Groups are balanced, the last padded with
+    the edge point."""
+    indexed = getattr(pairs_fn, "indexed", None)
+
+    def run(s, x):
+        if indexed is not None:
+            return indexed(zs, s, x)
+        return pairs_fn(zs.index_select(0, s), x)
+
     n = xyz.shape[0]
     if n <= points_per_group:
-        return pairs_fn(zs.index_select(0, sids), xyz)
+        return run(sids, xyz)
     ngroups = math.ceil(n / points_per_group)
     group = math.ceil(n / ngroups)
     pad = ngroups * group - n
@@ -366,7 +377,7 @@ def _eval_pairs_grouped(pairs_fn: PairsFn, zs: torch.Tensor,
         ngroups, group, 3)
     out = torch.empty((ngroups, group), dtype=torch.float32, device=xyz.device)
     for g in range(ngroups):
-        out[g] = pairs_fn(zs.index_select(0, sids_p[g]), xyz_p[g])
+        out[g] = run(sids_p[g], xyz_p[g])
     return out.reshape(ngroups * group)[:n]
 
 

@@ -305,19 +305,67 @@ def test_pairs_kernel_matches_plain_version(name, n, cuda):
                                atol=5e-3, rtol=0)
 
 
+@pytest.mark.parametrize("name", ["small", "tanh", "trained"])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 700, (1 << 16) + 131])
+@pytest.mark.parametrize("S", [1, 64])
+def test_pairs_kernel_indexed_matches_plain_version(name, n, S, cuda):
+    """Kernel #2 reading its rows by index: shuffled shape ids over S codes
+    against bf16 fast_apply over codes[sids] (5e-3)."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.cuda_kernels import (
+        make_kernel_apply_pairs)
+    dec, sd, zs = _pairs_decoder(name)
+    apply = make_kernel_apply_pairs(dec, sd, device=cuda)
+    rng = np.random.default_rng(n + S)
+    codes = torch.from_numpy(zs[:S]).to(cuda)
+    sids = torch.from_numpy(rng.permutation(np.arange(n) % S).astype(
+        np.int32)).to(cuda)
+    xyz = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(
+        np.float32)).to(cuda)
+    got = apply.indexed(codes, sids, xyz)
+    torch.cuda.synchronize()
+    assert apply.launches == 1 and got.shape == (n,)
+    torch.testing.assert_close(got, fast_apply(apply.ew, codes[sids.long()],
+                                               xyz), atol=5e-3, rtol=0)
+
+
 @pytest.mark.parametrize("name", ["small", "trained"])
 def test_pairs_kernel_with_equal_rows_matches_kernel_1(name, cuda):
     """All rows one latent: kernel #2 computes kernel #1's function
-    (tests/test_pallas_kernels.py:94-105, tolerance 1e-2)."""
+    (tests/test_pallas_kernels.py:94-105, tolerance 1e-2), as expanded rows
+    and as a one-row table read by index."""
     from latent_diffusion_models_for_shape_sdfs_torch.ops.cuda_kernels import (
         make_kernel_apply_pairs)
     dec, sd, zs = _pairs_decoder(name)
     z = torch.from_numpy(zs[3]).to(cuda)
     xyz = torch.rand(5000, 3, device=cuda) * 2 - 1
-    got = make_kernel_apply_pairs(dec, sd, device=cuda)(
-        z.expand(5000, -1), xyz)
+    pairs = make_kernel_apply_pairs(dec, sd, device=cuda)
     want = make_kernel_apply(dec, sd, device=cuda)(z, xyz)
+    torch.testing.assert_close(pairs(z.expand(5000, -1), xyz), want,
+                               atol=1e-2, rtol=0)
+    got = pairs.indexed(z[None], torch.zeros(5000, dtype=torch.int32,
+                                             device=cuda), xyz)
     torch.testing.assert_close(got, want, atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["small", "trained"])
+def test_pairs_kernel_launches_are_bit_identical(name, cuda):
+    """No atomics and a fixed summation order: two launches give the same
+    bits, and so do the (z_rows, xyz) call on the gathered rows."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.cuda_kernels import (
+        make_kernel_apply_pairs)
+    dec, sd, zs = _pairs_decoder(name)
+    apply = make_kernel_apply_pairs(dec, sd, device=cuda)
+    codes = torch.from_numpy(zs).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n = 100_003
+    sids = torch.randint(0, len(zs), (n,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    xyz = torch.rand(n, 3, generator=gen, device=cuda) * 2 - 1
+    outs = [apply.indexed(codes, sids, xyz), apply.indexed(codes, sids, xyz),
+            apply(codes[sids.long()], xyz)]
+    torch.cuda.synchronize()
+    assert apply.launches == 3
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
 def test_pairs_kernel_wrapper_checks_inputs(cuda):
@@ -325,15 +373,29 @@ def test_pairs_kernel_wrapper_checks_inputs(cuda):
         make_kernel_apply_pairs)
     dec, sd, zs = _pairs_decoder("tanh")
     apply = make_kernel_apply_pairs(dec, sd, device=cuda)
-    with pytest.raises(ValueError, match="z_rows must be"):
-        apply.launch(torch.zeros(4, 8, device=cuda, dtype=torch.bfloat16),
-                     torch.zeros(4, 3, device=cuda))
+    table = apply.table(torch.from_numpy(zs).to(cuda))
+    assert table.dtype == torch.bfloat16 and table.shape == (64, apply.lt)
+    xyz = torch.rand(10, 3, device=cuda)
+    ids = torch.arange(10, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="sids must be"):
+        apply.launch(table, ids.long(), xyz)                 # dtype
+    with pytest.raises(ValueError, match="sids must be"):
+        apply.launch(table, ids[:9], xyz)                    # shape
+    with pytest.raises(ValueError, match="sids must be"):
+        apply.launch(table, torch.arange(20, dtype=torch.int32,
+                                         device=cuda)[::2], xyz)
+    with pytest.raises(ValueError, match="codes must be"):
+        apply.launch(table.float(), ids, xyz)                # dtype
+    with pytest.raises(ValueError, match="codes must be"):
+        apply.launch(table.reshape(-1)[4:4 + 10 * apply.lt].reshape(
+            10, apply.lt), ids, xyz)                         # alignment
+    with pytest.raises(ValueError, match="xyz must be"):
+        apply.launch(table, ids, xyz.double())
     assert apply(torch.zeros(0, 8, device=cuda),
                  torch.zeros(0, 3, device=cuda)).shape == (0,)
-    # an unaligned row view is copied before the launch
+    # an unaligned row view is copied into an aligned table first
     z = torch.from_numpy(zs).to(cuda).to(torch.bfloat16)
     rows = z.reshape(-1)[1:1 + 10 * 8].reshape(10, 8)
-    xyz = torch.rand(10, 3, device=cuda)
     torch.testing.assert_close(apply(rows, xyz),
                                fast_apply(apply.ew, rows, xyz),
                                atol=5e-3, rtol=0)
