@@ -19,8 +19,10 @@ gradient is dense, so untouched rows move through Adam's m/v as in the
 lineage) and one `torch.optim.Adam` with a decoder group and a latent
 group; a step updates them in place.
 
-Not ported: `device_data=True` (the on-device sample bank) and
-`data_parallel=True`; both raise NotImplementedError.
+`data_parallel=True` takes the single-device step when at most one device
+is visible, as the JAX package does; with more than one CUDA device it
+raises NotImplementedError (no `torch.distributed` route yet). Not ported:
+`device_data=True` (the on-device sample bank), which raises.
 """
 
 from __future__ import annotations
@@ -183,12 +185,14 @@ def train_auto_decoder(cfg: AdConfig, dataset: SdfDataset,
     if cfg.device_data:
         raise NotImplementedError("device_data=True (the on-device sample "
                                   "bank) is not ported")
-    if cfg.data_parallel:
-        raise NotImplementedError("data_parallel=True is not ported")
+    dev = resolve_device(device)
+    if (cfg.data_parallel and dev.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        raise NotImplementedError("data_parallel=True over more than one "
+                                  "device is not ported")
     if len(dataset) != cfg.num_scenes:
         raise ValueError(f"dataset has {len(dataset)} scenes, config says "
                          f"{cfg.num_scenes}")
-    dev = resolve_device(device)
     if state is None:
         state = init_ad_state(cfg, decoder, seed=cfg.seed, device=dev)
     decoder = state.decoder

@@ -296,9 +296,37 @@ def test_train_loop_logs_checkpoints_and_learns(tmp_path):
 
 
 @pytest.mark.parametrize("opt", ["device_data", "data_parallel"])
-def test_unported_options_raise(opt):
-    with pytest.raises(NotImplementedError, match=opt):
-        tad.train_auto_decoder(_loop_cfg(**{opt: True}), None, device="cpu")
+def test_unported_options_raise(opt, monkeypatch):
+    """device_data raises. data_parallel on one device takes the
+    single-device step, as the JAX package does: the same trajectory bit
+    for bit as data_parallel=False; it raises only with more than one
+    CUDA device."""
+    if opt == "device_data":
+        with pytest.raises(NotImplementedError, match=opt):
+            tad.train_auto_decoder(_loop_cfg(device_data=True), None,
+                                   device="cpu")
+        return
+    ds = SdfDataset.from_analytic(analytic.make_synthetic_split(
+        "sphere", 3, seed=0), 2000, workers=1)
+    runs = []
+    for dp in (False, True):
+        losses = []
+        _, state, _ = tad.train_auto_decoder(
+            _loop_cfg(num_epochs=2, data_parallel=dp), ds, device="cpu",
+            on_step=lambda i, e, m: losses.append(
+                (float(m["loss_l1"]), float(m["loss"]))))
+        runs.append((losses, state))
+    (l0, s0), (l1, s1) = runs
+    assert len(l0) == 4 and l0 == l1
+    assert torch.equal(s0.codes, s1.codes)
+    sd1 = s1.decoder.state_dict()
+    for k, v in s0.decoder.state_dict().items():
+        assert torch.equal(v, sd1[k]), k
+    monkeypatch.setattr(tad, "resolve_device",
+                        lambda device: torch.device("cuda", 0))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="data_parallel"):
+        tad.train_auto_decoder(_loop_cfg(data_parallel=True), ds)
 
 
 def test_unported_fused_options_raise():
