@@ -88,6 +88,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int TILE_M = 64;
@@ -151,109 +153,7 @@ __device__ __forceinline__ int tile_off(int m, int c) {
   return ((c >> 3) * 8 + (m >> 3)) * 64 + (m & 7) * 8 + (c & 7);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-
-// ---- mbarriers, bulk copies, cluster
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits for the phase after `parity`, spinning inside one asm block (no
-// divergent C++ loop between the wgmmas); a wait of more than ~2 s (a
-// broken pipeline) traps, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      ".reg .u64 t0, t1;\n"
-      "mov.u64 t0, %%clock64;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra LAB_DONE;\n"
-      "mov.u64 t1, %%clock64;\n"
-      "sub.u64 t1, t1, t0;\n"
-      "setp.gt.u64 p, t1, 4000000000;\n"
-      "@p trap;\n"
-      "bra LAB_WAIT;\n"
-      "LAB_DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// arrive on the barrier at the same offset in CTA `cta` of the cluster if
-// `pred` (predicated inside the asm: no divergent branch). Default
-// semantics: a cluster-scope release would fence on every slab, and the
-// slot's reads are already complete (wgmma.wait_group) when it arrives.
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta,
-                                                    uint32_t pred) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b32 ra;\n"
-      "setp.ne.u32 p, %2, 0;\n"
-      "mapa.shared::cluster.u32 ra, %0, %1;\n"
-      "@p mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(
-          bar),
-      "r"(cta), "r"(pred)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar,
-                                          uint16_t mask, bool multicast) {
-  if (multicast)
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-        ".multicast::cluster [%0], [%1], %2, [%3], %4;" ::"r"(dst),
-        "l"(src), "r"(bytes), "r"(bar), "h"(mask)
-        : "memory");
-  else
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];" ::"r"(dst),
-        "l"(src), "r"(bytes), "r"(bar)
-        : "memory");
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, 256;" ::: "memory");
-}
-
-// generic-proxy shared-memory writes -> visible to wgmma (async proxy)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
+using namespace sm90;
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
@@ -268,99 +168,6 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
-
-// ---- wgmma: D[64, NW] += A[64, 16] B[NW, 16]^T, both K-major in shared memory
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-#define F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-
-template <int NW>
-struct Wgmma;
-
-template <>
-struct Wgmma<32> {
-  __device__ __forceinline__ static void run(float (&d)[16], uint64_t a,
-                                             uint64_t b) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : F4(0), F4(4), F4(8), F4(12)
-      : "l"(a), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  __device__ __forceinline__ static void run(float (&d)[32], uint64_t a,
-                                             uint64_t b) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : F4(0), F4(4), F4(8), F4(12), F4(16), F4(20), F4(24), F4(28)
-      : "l"(a), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,
-                                             uint64_t b) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : F4(0), F4(4), F4(8), F4(12), F4(16), F4(20), F4(24), F4(28),
-        F4(32), F4(36), F4(40), F4(44), F4(48), F4(52), F4(56), F4(60)
-      : "l"(a), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<256> {
-  __device__ __forceinline__ static void run(float (&d)[128], uint64_t a,
-                                             uint64_t b) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
-      : F4(0), F4(4), F4(8), F4(12), F4(16), F4(20), F4(24), F4(28),
-        F4(32), F4(36), F4(40), F4(44), F4(48), F4(52), F4(56), F4(60),
-        F4(64), F4(68), F4(72), F4(76), F4(80), F4(84), F4(88), F4(92),
-        F4(96), F4(100), F4(104), F4(108), F4(112), F4(116), F4(120), F4(124)
-      : "l"(a), "l"(b), "r"(1));
-  }
-};
-
-#undef F4
 
 // ---- the ring of weight slots: stage and phase, walked identically by the
 // producer and the consumers
@@ -619,7 +426,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   if (warp >= CONSUMERS / 32) {
     // producer: every slab of every layer, tile after tile (one thread)
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    setmaxnreg_dec<PRODUCER_REGS>();
     if (warp == CONSUMERS / 32 && lane == 0) {
       constexpr uint16_t mask = (1u << CLUSTER) - 1u;
       const char* wb = reinterpret_cast<const char*>(w);
@@ -649,7 +456,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     cluster_sync();   // no CTA leaves while its cluster may still write to it
   } else {
     // consumers: two warpgroups
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+    setmaxnreg_inc<CONSUMER_REGS>();
     const int wg = warp / 4, wwarp = warp % 4;
     const uint32_t leader = (tid % 128) == 0;
     const Layer& F = layers[plan.n_layers - 1];

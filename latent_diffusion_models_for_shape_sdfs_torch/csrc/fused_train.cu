@@ -25,31 +25,66 @@
 //
 // Bound on this card: operations. 4,717,056 MAC per point for the 8x512
 // decoder (forward 1,573,376, dgrad 1,570,304, wgrad 1,573,376), so one
-// 64 x 16,384-point step is 9.89 TFLOP: 10.0 ms at 989 TFLOP/s bf16.
+// 64 x 16,384-point step is 9.89 TFLOP: 10.0 ms at 989 TFLOP/s bf16. Per
+// launch of the launch sequence below, a forward or dgrad GEMM at 2^20 x
+// 512 x 512 is bound by bytes instead: the forward reads h and writes h'
+// (2.15 GB, 0.641 ms at 3.35 TB/s), the dgrad reads g and h_prev and
+// writes g' (3.22 GB, 0.961 ms), against 0.556 ms of products.
 //
-// Design (simple first; a persistent fused kernel with wgmma and TMA is
-// later work). The TPU keeps a tile's nine layers of activations in VMEM
-// (2.1 MB) and accumulates dW in VMEM over a sequential grid; an SM has
-// 227 KB and blocks run concurrently. So the pass is a sequence of
-// launches:
-//   * one bf16 GEMM kernel (128x128x32 block tile, 8 warps of 64x32,
-//     mma.sync m16n8k16 with f32 accumulation, ldmatrix fragments, a
-//     two-stage cp.async pipeline) with three operand layouts and
-//     epilogues: forward (bias row per scene, skip-layer xyz term, relu,
-//     Philox dropout, bf16 store of h to device memory), dgrad (mask from
-//     the stored h, scale, bf16 store of g) and wgrad (split-K over the
-//     points into f32 partials);
+// The TPU keeps a tile's nine layers of activations in VMEM (2.1 MB) and
+// accumulates dW in VMEM over a sequential grid; an SM has 227 KB and
+// blocks run concurrently. So the pass is a sequence of launches:
+//   * the forward and dgrad GEMMs: one Hopper GEMM engine (tn_gemm_kernel)
+//     with two epilogues, described below;
+//   * the wgrad GEMM: an mma.sync kernel (128x128x32 block tile, 8 warps of
+//     64x32, m16n8k16 with f32 accumulation, ldmatrix fragments, a
+//     two-stage cp.async pipeline), split-K over the points into f32
+//     partials;
 //   * small CUDA-core kernels: the per-scene latent rows, layer 0 (K = 3),
 //     the final layer with the loss and its dgrad/wgrad, per-scene column
 //     sums of g, the latent gradients;
 //   * a fixed-order reduction of every set of partials. No float atomics
 //     anywhere, so two runs give the same bits.
+//
+// The forward/dgrad engine: C[M, N] = A[M, K] B[N, K]^T, both operands
+// K-major (forward: A = h_{i-1}, B = W [out][in]; dgrad: A = g_i, B = W^T
+// [in][out], a contiguous copy the wrapper makes per layer).
+//   * Loads: 2-D TMA tensor maps (encoded on the host through the driver
+//     entry point of cuTensorMapEncodeTiled, passed as __grid_constant__
+//     parameters) with 128-byte swizzle, box 64 of K x the tile's rows; one
+//     producer thread fills a ring of TN_STAGES mbarrier-guarded stages
+//     (A 128 x 64 and B BN x 64, 48 KB at BN = 256).
+//   * Products: wgmma m64nBNk16 bf16 -> f32 from the swizzled tiles
+//     (descriptor mode 128B swizzle, csrc/sm90.cuh), two consumer
+//     warpgroups of 64 rows each (setmaxnreg 232 / 40 for the producer's
+//     warpgroup).
+//   * Schedule: one persistent CTA per SM walks 128 x BN output tiles (BN
+//     256, or 128 for a width that is not a multiple of 256), N fastest,
+//     so the CTAs working at once share A's rows through L2. Both
+//     warpgroups work on one tile (cooperative); while they run a tile's
+//     epilogue the producer already fills the ring with the next tile's
+//     stages, so the loads, not the products, overlap the epilogue.
+//   * Epilogues from the accumulator registers straight to device memory:
+//     wgmma's accumulator holds, per warp w of the warpgroup, rows 16w +
+//     lane/4 (+8) and columns 8j + 2 (lane % 4) (+1): the m16n8 C fragment
+//     of mma.sync, repeated over BN/8. Forward: bias row per scene, the
+//     skip layer's xyz term, relu, Philox dropout, bf16 h; dgrad: the mask
+//     from the stored h_prev, scale, bf16 g. Lanes q and q^1 of a quad
+//     share a 4-column Philox block of a row, so lane q computes the block
+//     of row r (q even) or r + 8 (q odd) and the pair swaps the two words
+//     the other needs with __shfl_xor_sync: one Philox call per 4 elements.
+//   * Deterministic: no atomics, fixed tile order within a tile's K loop.
+// Shape rules (the wrapper checks and raises): M a multiple of 128, K of
+// 64, N of BN, operands 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cuda.h>   // CUtensorMap and the encoder's types; no -lcuda
+
 #include "philox.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -105,7 +140,7 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// ------------------------------------------------------------------ GEMM
+// ------------------------------------------------------- wgrad GEMM
 //
 // C[M, N] = sum_k A[m, k] B[k, n] over a k range, bf16 x bf16 -> f32.
 // A is given either K-contiguous ([M][lda], AT = false) or M-contiguous
@@ -113,8 +148,6 @@ __device__ __forceinline__ float bf16_round(float v) {
 // N-contiguous ([K][ldb], BT = true). In shared memory a K-contiguous tile
 // is [128][BK + 8] and an M/N-contiguous one [BK][128 + 8]; the 8-element
 // row padding makes every ldmatrix phase conflict-free.
-//   forward: A = h_{i-1} [points][in] (AT=0), B = W [out][in] (BT=0)
-//   dgrad  : A = g [points][out] (AT=0),     B = W [out][in] (BT=1)
 //   wgrad  : A = g [points][out] (AT=1),     B = h_{i-1} [points][in] (BT=1)
 
 constexpr int BM = 128, BN = 128, BK = 32;
@@ -133,21 +166,6 @@ struct GemmArgs {
   long long ldb;
   int m, n;
   long long k_split;          // reduction length per blockIdx.z
-  // forward epilogue
-  const float* rows;          // bias row: rows[(row / p) * rows_stride + col]
-  long long rows_stride;      // 0: one row shared by all points
-  long long p;                // points per scene
-  const bf16* xyz;            // [points][3] bf16 or null (skip layer only)
-  const bf16* wx;             // [n][3] bf16
-  uint32_t key, threshold;
-  int drop;
-  float scale;                // 1/(1-rate) (forward, dgrad) or 1
-  // dgrad epilogue
-  const bf16* hprev;          // [points][ldh]
-  long long ldh;
-  // outputs
-  bf16* out;                  // forward, dgrad: [points][ldo]
-  long long ldo;
   float* part;                // wgrad: [gridDim.z][m][n]
 };
 
@@ -246,53 +264,12 @@ __global__ void __launch_bounds__(GEMM_THREADS)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const long long row = m0 + wm0 + mt * 16 + gq + h * 8;
-      float x0 = 0.f, x1 = 0.f, x2 = 0.f;
-      const float* rw = nullptr;
-      if (EPI == EPI_FWD) {
-        rw = p.rows + (row / p.p) * p.rows_stride;
-        if (p.xyz != nullptr) {
-          x0 = __bfloat162float(p.xyz[row * 3]);
-          x1 = __bfloat162float(p.xyz[row * 3 + 1]);
-          x2 = __bfloat162float(p.xyz[row * 3 + 2]);
-        }
-      }
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const int col = n0 + wn0 + nt * 8 + q * 2;
-        float v0 = acc[mt][nt][h * 2], v1 = acc[mt][nt][h * 2 + 1];
-        if (EPI == EPI_FWD) {
-          v0 += rw[col];
-          v1 += rw[col + 1];
-          if (p.xyz != nullptr) {
-            const bf16* w0 = p.wx + col * 3;
-            v0 += x0 * __bfloat162float(w0[0]) + x1 * __bfloat162float(w0[1]) +
-                  x2 * __bfloat162float(w0[2]);
-            v1 += x0 * __bfloat162float(w0[3]) + x1 * __bfloat162float(w0[4]) +
-                  x2 * __bfloat162float(w0[5]);
-          }
-          v0 = fmaxf(v0, 0.f);
-          v1 = fmaxf(v1, 0.f);
-          if (p.drop) {
-            const uint4 bits =
-                philox::dropout_bits(row, static_cast<uint32_t>(col >> 2), p.key);
-            const int j = col & 3;
-            v0 = philox::word(bits, j) >= p.threshold ? v0 * p.scale : 0.f;
-            v1 = philox::word(bits, j + 1) >= p.threshold ? v1 * p.scale : 0.f;
-          }
-          *reinterpret_cast<__nv_bfloat162*>(p.out + row * p.ldo + col) =
-              __floats2bfloat162_rn(v0, v1);
-        } else if (EPI == EPI_DGRAD) {
-          const float2 hp = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(p.hprev + row * p.ldh + col));
-          v0 = hp.x > 0.f ? v0 * p.scale : 0.f;
-          v1 = hp.y > 0.f ? v1 * p.scale : 0.f;
-          *reinterpret_cast<__nv_bfloat162*>(p.out + row * p.ldo + col) =
-              __floats2bfloat162_rn(v0, v1);
-        } else {
-          *reinterpret_cast<float2*>(
-              p.part + ((long long)blockIdx.z * p.m + row) * p.n + col) =
-              make_float2(v0, v1);
-        }
+        *reinterpret_cast<float2*>(
+            p.part + ((long long)blockIdx.z * p.m + row) * p.n + col) =
+            make_float2(acc[mt][nt][h * 2], acc[mt][nt][h * 2 + 1]);
       }
     }
   }
@@ -306,6 +283,308 @@ int launch_gemm(const GemmArgs& p, long long k_total, cudaStream_t stream) {
   const dim3 grid(p.m / BM, p.n / BN, static_cast<unsigned>(k_total / p.k_split));
   gemm_kernel<AT, BT, EPI><<<grid, GEMM_THREADS, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------- forward / dgrad GEMM engine
+//
+// C[M, N] = A[M, K] B[N, K]^T, both operands K-major, through TMA and
+// wgmma (see the header); the forward or dgrad epilogue on C.
+
+using namespace sm90;
+
+constexpr int TN_WGS = 2;                // consumer warpgroups, 64 rows each
+constexpr int TN_BM = 64 * TN_WGS;       // tile rows
+constexpr int TN_BK = 64;                // K per ring stage: one 128-byte row
+constexpr int TN_MAX_BN = 256;
+constexpr int TN_STAGES = 4;
+constexpr int TN_A_BYTES = TN_BM * TN_BK * 2;               // 16 KB
+constexpr int TN_STAGE_BYTES = TN_A_BYTES + TN_MAX_BN * TN_BK * 2;  // 48 KB
+constexpr int TN_THREADS = 128 * (TN_WGS + 1);   // and the producer's warpgroup
+constexpr int TN_PRODUCER_REGS = 40;     // setmaxnreg: 128 x 40 +
+constexpr int TN_CONSUMER_REGS = 232;    //   256 x 232 <= 65,536
+// the ring, its full and empty barriers, and slack to align it to 1024
+constexpr int TN_SMEM = TN_STAGES * TN_STAGE_BYTES + 2 * TN_STAGES * 8 + 1024;
+
+struct TnArgs {
+  int m, n, k;
+  // forward epilogue
+  const float* rows;          // bias row: rows[(row / p) * rows_stride + col]
+  long long rows_stride;      // 0: one row shared by all points
+  long long p;                // points per scene
+  const bf16* xyz;            // [m][3] bf16 or null (skip layer only)
+  const bf16* wx;             // [n][3] bf16
+  uint32_t key, threshold;
+  int drop;
+  float scale;                // 1/(1-rate) (forward, dgrad) or 1
+  // dgrad epilogue
+  const bf16* hprev;          // [m][n]
+  bf16* out;                  // [m][n]
+};
+
+__device__ __forceinline__ float keep(uint32_t word, float v, const TnArgs& p) {
+  return word >= p.threshold ? v * p.scale : 0.f;
+}
+
+// One warp's rows r0 = row0 + lane/4 and r1 = r0 + 8, columns n0 + 8j +
+// 2 (lane % 4) (+1), from the accumulator to device memory.
+template <int BN, int EPI>
+__device__ __forceinline__ void tn_epilogue(const float (&acc)[BN / 2],
+                                            const TnArgs& p, int row0,
+                                            int n0, int lane) {
+  const int q = lane % 4;
+  const bool odd = q & 1;
+  const long long r0 = row0 + lane / 4, r1 = r0 + 8;
+  bf16* o0 = p.out + r0 * p.n + n0 + 2 * q;
+  bf16* o1 = p.out + r1 * p.n + n0 + 2 * q;
+  if (EPI == EPI_FWD) {
+    const float* b0 = p.rows + (r0 / p.p) * p.rows_stride + n0 + 2 * q;
+    const float* b1 = p.rows + (r1 / p.p) * p.rows_stride + n0 + 2 * q;
+    float x0[3] = {0.f, 0.f, 0.f}, x1[3] = {0.f, 0.f, 0.f};
+    if (p.xyz != nullptr) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        x0[c] = __bfloat162float(p.xyz[r0 * 3 + c]);
+        x1[c] = __bfloat162float(p.xyz[r1 * 3 + c]);
+      }
+    }
+    const long long my_row = odd ? r1 : r0;   // the Philox block this lane draws
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float2 c0 = *reinterpret_cast<const float2*>(b0 + 8 * j);
+      const float2 c1 = *reinterpret_cast<const float2*>(b1 + 8 * j);
+      float v00 = acc[4 * j] + c0.x, v01 = acc[4 * j + 1] + c0.y;
+      float v10 = acc[4 * j + 2] + c1.x, v11 = acc[4 * j + 3] + c1.y;
+      if (p.xyz != nullptr) {
+        const bf16* w = p.wx + (n0 + 8 * j + 2 * q) * 3;
+        const float w0 = __bfloat162float(w[0]), w1 = __bfloat162float(w[1]),
+                    w2 = __bfloat162float(w[2]), w3 = __bfloat162float(w[3]),
+                    w4 = __bfloat162float(w[4]), w5 = __bfloat162float(w[5]);
+        v00 += x0[0] * w0 + x0[1] * w1 + x0[2] * w2;
+        v01 += x0[0] * w3 + x0[1] * w4 + x0[2] * w5;
+        v10 += x1[0] * w0 + x1[1] * w1 + x1[2] * w2;
+        v11 += x1[0] * w3 + x1[1] * w4 + x1[2] * w5;
+      }
+      v00 = fmaxf(v00, 0.f);
+      v01 = fmaxf(v01, 0.f);
+      v10 = fmaxf(v10, 0.f);
+      v11 = fmaxf(v11, 0.f);
+      if (p.drop) {
+        // words 0-1 of a block belong to the even lane, 2-3 to the odd one
+        const uint4 bits = philox::dropout_bits(
+            my_row, static_cast<uint32_t>((n0 + 8 * j + 2 * q) >> 2), p.key);
+        const uint32_t s0 = odd ? bits.x : bits.z, s1 = odd ? bits.y : bits.w;
+        const uint32_t t0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+        const uint32_t t1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+        v00 = keep(odd ? t0 : bits.x, v00, p);
+        v01 = keep(odd ? t1 : bits.y, v01, p);
+        v10 = keep(odd ? bits.z : t0, v10, p);
+        v11 = keep(odd ? bits.w : t1, v11, p);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) =
+          __floats2bfloat162_rn(v00, v01);
+      *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * j) =
+          __floats2bfloat162_rn(v10, v11);
+    }
+  } else {
+    const bf16* h0 = p.hprev + r0 * p.n + n0 + 2 * q;
+    const bf16* h1 = p.hprev + r1 * p.n + n0 + 2 * q;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float2 a = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(h0 + 8 * j));
+      const float2 b = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(h1 + 8 * j));
+      *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) = __floats2bfloat162_rn(
+          a.x > 0.f ? acc[4 * j] * p.scale : 0.f,
+          a.y > 0.f ? acc[4 * j + 1] * p.scale : 0.f);
+      *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * j) = __floats2bfloat162_rn(
+          b.x > 0.f ? acc[4 * j + 2] * p.scale : 0.f,
+          b.y > 0.f ? acc[4 * j + 3] * p.scale : 0.f);
+    }
+  }
+}
+
+template <int BN, int EPI>
+__global__ void __launch_bounds__(TN_THREADS, 1)
+    tn_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b,
+                   const TnArgs p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full = ring + TN_STAGES * TN_STAGE_BYTES;
+  const uint32_t empty = full + TN_STAGES * 8;
+  const int tid = threadIdx.x, lane = tid % 32;
+  // warp-uniform to the compiler (no divergent path around the wgmmas)
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int n_tiles = p.n / BN;
+  const int tiles = (p.m / TN_BM) * n_tiles;
+  const int ksteps = p.k / TN_BK;
+  if (tid == 0) {
+    for (int s = 0; s < TN_STAGES; ++s) {
+      mbar_init(full + s * 8, 1);
+      mbar_init(empty + s * 8, TN_WGS);     // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * TN_WGS) {
+    // producer: every K stage of every tile of this CTA (one thread)
+    setmaxnreg_dec<TN_PRODUCER_REGS>();
+    if (warp == 4 * TN_WGS && lane == 0) {
+      tma_prefetch_map(&map_a);
+      tma_prefetch_map(&map_b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / n_tiles) * TN_BM, n0 = (t % n_tiles) * BN;
+        for (int kb = 0; kb < ksteps; ++kb) {
+          mbar_wait(empty + stage * 8, phase ^ 1u);
+          const uint32_t f = full + stage * 8;
+          const uint32_t s = ring + stage * TN_STAGE_BYTES;
+          mbar_expect_tx(f, (TN_BM + BN) * TN_BK * 2);
+          tma_load_2d(s, &map_a, kb * TN_BK, m0, f);
+          tma_load_2d(s + TN_A_BYTES, &map_b, kb * TN_BK, n0, f);
+          if (++stage == TN_STAGES) {
+            stage = 0;
+            phase ^= 1u;
+          }
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each tile
+    setmaxnreg_inc<TN_CONSUMER_REGS>();
+    const int wg = warp / 4;
+    const uint32_t leader = (tid % 128) == 0;
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[BN / 2];
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t / n_tiles) * TN_BM, n0 = (t % n_tiles) * BN;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      int prev = -1;
+      for (int kb = 0; kb < ksteps; ++kb) {
+        mbar_wait(full + stage * 8, phase);
+        wgmma_fence();
+        const uint32_t a = ring + stage * TN_STAGE_BYTES + wg * 64 * 128;
+        const uint32_t b = ring + stage * TN_STAGE_BYTES + TN_A_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < TN_BK / 16; ++kk)
+          Wgmma<BN>::run(acc, desc_sw128(a + 32 * kk),
+                         desc_sw128(b + 32 * kk));
+        wgmma_commit();
+        if (prev >= 0) {
+          wgmma_wait<1>();
+          mbar_arrive(empty + prev * 8, leader);
+        }
+        prev = stage;
+        if (++stage == TN_STAGES) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+      mbar_arrive(empty + prev * 8, leader);
+      tn_epilogue<BN, EPI>(acc, p, m0 + wg * 64 + 16 * (warp % 4), n0, lane);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point (the
+// library links no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// The map of a row-major [rows][k] bf16 operand: box TN_BK x box_rows,
+// 128-byte swizzle. False if the encoder is missing or refuses.
+bool tile_map(CUtensorMap* map, const void* ptr, int rows, int k,
+              int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(TN_BK),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+template <int BN, int EPI>
+int launch_tn(const void* a, const void* b, const TnArgs& p,
+              cudaStream_t stream) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        tn_gemm_kernel<BN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        TN_SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = true;
+  }
+  CUtensorMap ma, mb;
+  if (!tile_map(&ma, a, p.m, p.k, TN_BM) || !tile_map(&mb, b, p.n, p.k, BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int tiles = (p.m / TN_BM) * (p.n / BN);
+  tn_gemm_kernel<BN, EPI><<<tiles < sms ? tiles : sms, TN_THREADS, TN_SMEM,
+                            stream>>>(ma, mb, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int EPI>
+int run_tn(const void* a, const void* b, int bn, const TnArgs& p,
+           void* stream) {
+  if (p.m <= 0 || p.n <= 0 || p.k <= 0 || p.m % TN_BM || p.k % TN_BK ||
+      (bn != 128 && bn != TN_MAX_BN) || p.n % bn ||
+      reinterpret_cast<uintptr_t>(a) % 16 ||
+      reinterpret_cast<uintptr_t>(b) % 16 ||
+      reinterpret_cast<uintptr_t>(p.out) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bn == TN_MAX_BN ? launch_tn<TN_MAX_BN, EPI>(a, b, p, s)
+                         : launch_tn<128, EPI>(a, b, p, s);
 }
 
 // ------------------------------------------------------- small kernels
@@ -510,20 +789,18 @@ extern "C" {
 // Every function launches on `stream` and returns the cudaError_t of its
 // launch (0 = success); pointers are device pointers, bf16 as void*.
 
-// h_out[M][ldo] = drop(relu(h[M][K] W[N][K]^T + rows (+ xyz term))).
-int ft_gemm_fwd(const void* h, long long ldh, const void* w, long long ldw,
-                int m, int n, long long k, const float* rows,
-                long long rows_stride, long long p, const void* xyz,
-                const void* wx, unsigned key, unsigned threshold, float scale,
-                int drop, void* out, long long ldo, void* stream) {
-  GemmArgs a{};
-  a.a = static_cast<const bf16*>(h);
-  a.lda = ldh;
-  a.b = static_cast<const bf16*>(w);
-  a.ldb = ldw;
+// out[M][N] = drop(relu(h[M][K] W[N][K]^T + rows (+ xyz term))), all
+// row-major and contiguous; bn (128 or 256) the tile width, N % bn == 0.
+int ft_gemm_fwd(const void* h, const void* w, int m, int n, int k, int bn,
+                const float* rows, long long rows_stride, long long p,
+                const void* xyz, const void* wx, unsigned key,
+                unsigned threshold, float scale, int drop, void* out,
+                void* stream) {
+  if (p <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  TnArgs a{};
   a.m = m;
   a.n = n;
-  a.k_split = k;
+  a.k = k;
   a.rows = rows;
   a.rows_stride = rows_stride;
   a.p = p;
@@ -531,33 +808,24 @@ int ft_gemm_fwd(const void* h, long long ldh, const void* w, long long ldw,
   a.wx = static_cast<const bf16*>(wx);
   a.key = key;
   a.threshold = threshold;
-  a.scale = scale;
   a.drop = drop;
+  a.scale = scale;
   a.out = static_cast<bf16*>(out);
-  a.ldo = ldo;
-  if (ldo % 2 || p <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_gemm<false, false, EPI_FWD>(a, k, static_cast<cudaStream_t>(stream));
+  return run_tn<EPI_FWD>(h, w, bn, a, stream);
 }
 
-// g_prev[M][ldo] = bf16(where(hprev > 0, (g[M][K] W[K][N]) * scale, 0)).
-int ft_gemm_dgrad(const void* g, long long ldg, const void* w, long long ldw,
-                  int m, int n, long long k, const void* hprev, long long ldh,
-                  float scale, void* out, long long ldo, void* stream) {
-  GemmArgs a{};
-  a.a = static_cast<const bf16*>(g);
-  a.lda = ldg;
-  a.b = static_cast<const bf16*>(w);
-  a.ldb = ldw;
+// g_prev[M][N] = bf16(where(hprev[M][N] > 0, (g[M][K] wt[N][K]^T) * scale,
+// 0)), wt = W^T contiguous ([in][out]); as ft_gemm_fwd otherwise.
+int ft_gemm_dgrad(const void* g, const void* wt, int m, int n, int k, int bn,
+                  const void* hprev, float scale, void* out, void* stream) {
+  TnArgs a{};
   a.m = m;
   a.n = n;
-  a.k_split = k;
-  a.hprev = static_cast<const bf16*>(hprev);
-  a.ldh = ldh;
+  a.k = k;
   a.scale = scale;
+  a.hprev = static_cast<const bf16*>(hprev);
   a.out = static_cast<bf16*>(out);
-  a.ldo = ldo;
-  if (ldo % 2 || ldh % 2) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_gemm<false, true, EPI_DGRAD>(a, k, static_cast<cudaStream_t>(stream));
+  return run_tn<EPI_DGRAD>(g, wt, bn, a, stream);
 }
 
 // part[K / k_split][M][N] = per-chunk sums of g[K][M]^T h[K][N].
@@ -662,6 +930,22 @@ void ft_constants(int* out) {
   out[2] = BK;
   out[3] = FINAL_TILE;
   out[4] = COLSUM_TILE;
+}
+
+// The forward/dgrad engine's layout (ops/train_gemm.py TN_LAYOUT): tile
+// rows, K per stage, widest tile, ring stages, swizzle bytes, the
+// descriptor's 8-row stride, bytes per stage, threads, dynamic shared
+// memory.
+void ft_gemm_layout(int* out) {
+  out[0] = TN_BM;
+  out[1] = TN_BK;
+  out[2] = TN_MAX_BN;
+  out[3] = TN_STAGES;
+  out[4] = 128;
+  out[5] = static_cast<int>(sm90::SW128_SBO);
+  out[6] = TN_STAGE_BYTES;
+  out[7] = TN_THREADS;
+  out[8] = TN_SMEM;
 }
 
 }  // extern "C"

@@ -48,8 +48,11 @@ def build(source: str) -> pathlib.Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(src)], capture_output=True, text=True)
+    # -I csrc: a variant written elsewhere (tools/*_probe.py) still finds
+    # the shared headers
+    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
+                           str(tmp), str(src)], capture_output=True,
+                          text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")

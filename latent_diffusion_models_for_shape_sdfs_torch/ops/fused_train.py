@@ -21,6 +21,11 @@ mask of `ops.relu_dropout` for layer seed seed + 7919 * layer and row =
 the point's index in the flat [S*P] batch, so with dropout on this pass
 sees the same mask as the decoder's `dropout_impl="pallas"` forward.
 
+The forward and dgrad GEMMs of the pass run on the kernel's Hopper GEMM
+engine (TMA ring, wgmma, persistent CTAs; its layout is modelled in
+`ops.train_gemm`), callable alone as `gemm_fwd` / `gemm_dgrad` with plain
+versions `gemm_fwd_reference` / `gemm_dgrad_reference`.
+
 `make_fused_ad_loss_grads(decoder, cfg)` is the training step's loss and
 gradient function: it folds the decoder's parameters with torch autograd
 recording, runs the pass on the folded weights, chains the folded
@@ -46,12 +51,14 @@ from latent_diffusion_models_for_shape_sdfs_torch.models.decoder import (
 from latent_diffusion_models_for_shape_sdfs_torch.models.latent_table import (
     gather_codes)
 from latent_diffusion_models_for_shape_sdfs_torch.ops import _build
+from latent_diffusion_models_for_shape_sdfs_torch.ops.train_gemm import (
+    TN_LAYOUT, check_shape)
 from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
     EvalLayer, EvalWeights, precompute_eval_weights)
 from latent_diffusion_models_for_shape_sdfs_torch.ops.relu_dropout import (
     dropout_keep_mask, keep_threshold, layer_seed)
 
-LAUNCHES = {"fused_train": 0}
+LAUNCHES = {"fused_train": 0, "gemm_fwd": 0, "gemm_dgrad": 0}
 TILE = 256          # points per colsum chunk; P % TILE == 0 (the TPU tile)
 _PAD = 128          # hidden widths are padded to the GEMM's block tile
 _KEYS = ("w_h", "w_z", "w_x", "b")
@@ -152,10 +159,9 @@ def _lib():
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         u32, f32 = ctypes.c_uint32, ctypes.c_float
         sig = {
-            "ft_gemm_fwd": [vp, ll, vp, ll, i32, i32, ll, vp, ll, ll, vp, vp,
-                            u32, u32, f32, i32, vp, ll, vp],
-            "ft_gemm_dgrad": [vp, ll, vp, ll, i32, i32, ll, vp, ll, f32, vp,
-                              ll, vp],
+            "ft_gemm_fwd": [vp, vp, i32, i32, i32, i32, vp, ll, ll, vp, vp,
+                            u32, u32, f32, i32, vp, vp],
+            "ft_gemm_dgrad": [vp, vp, i32, i32, i32, i32, vp, f32, vp, vp],
             "ft_gemm_wgrad": [vp, ll, vp, ll, i32, i32, ll, ll, vp, vp],
             "ft_scene_rows": [vp, vp, vp, vp, i32, i32, i32, vp],
             "ft_layer0": [vp, vp, vp, vp, ll, ll, i32, u32, u32, f32, i32,
@@ -174,9 +180,14 @@ def _lib():
         consts = (ctypes.c_int * 5)()
         lib.ft_constants.restype = None
         lib.ft_constants(consts)
-        if list(consts) != [_PAD, _PAD, 32, 64, TILE]:
-            raise RuntimeError("csrc/fused_train.cu and fused_train.py "
-                               f"disagree on tile sizes: {list(consts)}")
+        layout = (ctypes.c_int * len(TN_LAYOUT))()
+        lib.ft_gemm_layout.restype = None
+        lib.ft_gemm_layout(layout)
+        if (list(consts) != [_PAD, _PAD, 32, 64, TILE]
+                or list(layout) != list(TN_LAYOUT.values())):
+            raise RuntimeError("csrc/fused_train.cu and fused_train.py / "
+                               "train_gemm.py disagree on tile sizes or the "
+                               f"GEMM layout: {list(consts)} {list(layout)}")
         lib._argtypes_set = True
     return lib
 
@@ -189,6 +200,106 @@ def _call(name: str, *args) -> None:
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def gemm_fwd_reference(h: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
+                       p: int, xyz=None, wx=None, seed: int = 0,
+                       rate: float = 0.0) -> torch.Tensor:
+    """Plain version of the forward GEMM role: bf16(drop(relu(h W^T +
+    rows[row // p] (+ xyz wx^T)))) from bf16 operands with f32 sums; rows
+    [1, N] (one bias row) or [M // p, N] (a row per scene), f32; the
+    dropout mask of `ops.relu_dropout` for layer seed `seed`."""
+    acc = h.float() @ w.float().T
+    if rows.shape[0] == 1:
+        acc = acc + rows.float()
+    else:
+        acc = acc + rows.float().repeat_interleave(p, 0)
+    if xyz is not None:
+        acc = acc + xyz.float() @ wx.float().T
+    a = torch.relu(acc)
+    if rate > 0:
+        keep = dropout_keep_mask(a.shape[0], a.shape[1], seed, rate,
+                                 device=a.device)
+        a = torch.where(keep, a * (1.0 / (1.0 - rate)), 0.0)
+    return a.to(torch.bfloat16)
+
+
+def gemm_dgrad_reference(g: torch.Tensor, wt: torch.Tensor,
+                         hprev: torch.Tensor, scale: float) -> torch.Tensor:
+    """Plain version of the dgrad GEMM role: bf16(where(hprev > 0, (g
+    wt^T) * scale, 0)), wt = W^T [in][out]."""
+    return torch.where(hprev > 0, (g.float() @ wt.float().T) * scale,
+                       0.0).to(torch.bfloat16)
+
+
+def _gemm_operands(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
+    """Checks the two bf16 operands of an engine launch; returns the tile
+    width."""
+    for t in (a, b):
+        if (t.dtype != torch.bfloat16 or t.ndim != 2 or not t.is_contiguous()
+                or t.device != a.device or t.data_ptr() % 16):
+            raise ValueError(f"{what}: operands must be contiguous, 16-byte "
+                             f"aligned bf16 matrices on one device, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if a.shape[1] != b.shape[1]:
+        raise ValueError(f"{what}: K of {tuple(a.shape)} and {tuple(b.shape)}")
+    return check_shape(a.shape[0], b.shape[0], a.shape[1])
+
+
+def gemm_fwd(h: torch.Tensor, w: torch.Tensor, rows: torch.Tensor, p: int,
+             xyz=None, wx=None, seed: int = 0, rate: float = 0.0
+             ) -> torch.Tensor:
+    """The forward GEMM role, h [M, K] x W [N, K] (bf16) -> h' [M, N] bf16
+    (see gemm_fwd_reference): the plain version on CPU tensors, one launch
+    of the engine on CUDA tensors (M a multiple of 128, K of 64, N of
+    128; raises otherwise)."""
+    if h.device.type == "cpu":
+        return gemm_fwd_reference(h, w, rows, p, xyz, wx, seed, rate)
+    bn = _gemm_operands(h, w, "gemm_fwd")
+    m, n = h.shape[0], w.shape[0]
+    if (rows.dtype != torch.float32 or not rows.is_contiguous()
+            or rows.shape[1:] != (n,) or rows.device != h.device
+            or rows.shape[0] not in (1, m // max(p, 1)) or p <= 0
+            or m % p):
+        raise ValueError(f"gemm_fwd: rows {rows.dtype} {tuple(rows.shape)} "
+                         f"for {m} points, {p} per scene, width {n}")
+    if xyz is not None and (
+            xyz.dtype != torch.bfloat16 or tuple(xyz.shape) != (m, 3)
+            or not xyz.is_contiguous() or wx is None or wx.dtype
+            != torch.bfloat16 or tuple(wx.shape) != (n, 3)
+            or not wx.is_contiguous()):
+        raise ValueError("gemm_fwd: xyz must be bf16 [M, 3] with wx bf16 "
+                         "[N, 3], both contiguous")
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=h.device)
+    drop = int(rate > 0)
+    _call("ft_gemm_fwd", h.data_ptr(), w.data_ptr(), m, n, h.shape[1], bn,
+          rows.data_ptr(), 0 if rows.shape[0] == 1 else n, p, _ptr(xyz),
+          _ptr(wx), seed & 0xFFFFFFFF, keep_threshold(rate),
+          1.0 / (1.0 - rate) if drop else 1.0, drop, out.data_ptr(),
+          torch.cuda.current_stream(h.device).cuda_stream)
+    LAUNCHES["gemm_fwd"] += 1
+    return out
+
+
+def gemm_dgrad(g: torch.Tensor, wt: torch.Tensor, hprev: torch.Tensor,
+               scale: float) -> torch.Tensor:
+    """The dgrad GEMM role, g [M, K] x W^T [N, K] (bf16, K = the layer's
+    output width, N its input width) -> g_prev [M, N] bf16 (see
+    gemm_dgrad_reference): as gemm_fwd for devices and shapes."""
+    if g.device.type == "cpu":
+        return gemm_dgrad_reference(g, wt, hprev, scale)
+    bn = _gemm_operands(g, wt, "gemm_dgrad")
+    m, n = g.shape[0], wt.shape[0]
+    if (hprev.dtype != torch.bfloat16 or tuple(hprev.shape) != (m, n)
+            or not hprev.is_contiguous() or hprev.device != g.device):
+        raise ValueError(f"gemm_dgrad: hprev {hprev.dtype} "
+                         f"{tuple(hprev.shape)}, expected bf16 [{m}, {n}]")
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=g.device)
+    _call("ft_gemm_dgrad", g.data_ptr(), wt.data_ptr(), m, n, g.shape[1],
+          bn, hprev.data_ptr(), scale, out.data_ptr(),
+          torch.cuda.current_stream(g.device).cuda_stream)
+    LAUNCHES["gemm_dgrad"] += 1
+    return out
 
 
 def _pad2(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -264,14 +375,10 @@ def _fused_train_cuda(ew: EvalWeights, z, xyz, sdf, num_sdf_samples,
           layer_seed(seed, 0) & 0xFFFFFFFF, thr, scale, drop, stream)
     for i in range(1, n_lin - 1):
         skip = layers[i].w_z is not None
-        out = torch.empty(N, width[i], dtype=bf, device=dev)
-        _call("ft_gemm_fwd", hs[-1].data_ptr(), width[i - 1],
-              w_h[i].data_ptr(), width[i - 1], N, width[i], width[i - 1],
-              (rows[i] if skip else bias[i]).data_ptr(),
-              width[i] if skip else 0, P, _ptr(xb) if skip else None,
-              _ptr(w_x[i]), layer_seed(seed, i) & 0xFFFFFFFF, thr, scale,
-              drop, out.data_ptr(), width[i], stream)
-        hs.append(out)
+        hs.append(gemm_fwd(hs[-1], w_h[i],
+                           rows[i] if skip else bias[i][None], P,
+                           xb if skip else None, w_x[i] if skip else None,
+                           layer_seed(seed, i), rate))
 
     # ---- final layer, loss, and its backward
     K = width[n_lin - 2]
@@ -320,11 +427,7 @@ def _fused_train_cuda(ew: EvalWeights, z, xyz, sdf, num_sdf_samples,
                   k_in, wi, k_in, N, k_split, part_w.data_ptr(), stream)
             dw = _sum_parts(part_w, stream).reshape(wi, k_in)
             gr["w_h"] = dw[:wt, :lay.w_h.shape[1]]
-            g_prev = torch.empty(N, k_in, dtype=bf, device=dev)
-            _call("ft_gemm_dgrad", g.data_ptr(), wi, w_h[i].data_ptr(), k_in,
-                  N, k_in, wi, hs[i - 1].data_ptr(), k_in, scale,
-                  g_prev.data_ptr(), k_in, stream)
-            g = g_prev
+            g = gemm_dgrad(g, w_h[i].t().contiguous(), hs[i - 1], scale)
         grads[i] = gr
     return loss, dz, grads
 

@@ -267,6 +267,100 @@ def test_training_step_on_card(use_pallas, impl, cuda):
         assert rd.LAUNCHES["relu_dropout_fwd"] == n_rd + 4 * 3
 
 
+# ---------------------- kernel #4's forward/dgrad GEMM engine (wgmma, TMA)
+
+GEMM_WIDTHS = [(512, 512), (512, 256), (256, 512), (128, 128)]   # (K, N)
+
+
+def _bf16(rng, shape, scale=1.0, cuda=None):
+    return torch.from_numpy((scale * rng.normal(size=shape)).astype(
+        np.float32)).to(torch.bfloat16).to(cuda)
+
+
+@pytest.mark.parametrize("k,n", GEMM_WIDTHS)
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("skip", [False, True])
+def test_train_gemm_fwd_matches_plain_version(k, n, rate, skip, cuda):
+    """The forward role against a float32 product of the same bf16
+    operands, then bias rows (per scene at the skip layer, with the xyz
+    term), relu and relu_dropout_reference's mask: max error <= 1e-2 of
+    the output's max, the mask bitwise, two launches bit-identical."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import fused_train as ft
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import relu_dropout as rd
+    m, p, seed = 8192 + 128 * 4, 128 * 17, -4242
+    rng = np.random.default_rng(k + n)
+    h = torch.relu(_bf16(rng, (m, k), cuda=cuda))
+    w = _bf16(rng, (n, k), 1 / np.sqrt(k), cuda)
+    rows = torch.from_numpy(rng.normal(size=(m // p if skip else 1, n))
+                            .astype(np.float32)).to(cuda)
+    xyz = _bf16(rng, (m, 3), cuda=cuda) if skip else None
+    wx = _bf16(rng, (n, 3), cuda=cuda) if skip else None
+    n0 = ft.LAUNCHES["gemm_fwd"]
+    got = ft.gemm_fwd(h, w, rows, p, xyz, wx, seed, rate)
+    again = ft.gemm_fwd(h, w, rows, p, xyz, wx, seed, rate)
+    torch.cuda.synchronize()
+    assert ft.LAUNCHES["gemm_fwd"] == n0 + 2
+    pre = h.float() @ w.float().T + rows.repeat_interleave(
+        m // rows.shape[0], 0)
+    if skip:
+        pre = pre + xyz.float() @ wx.float().T
+    want = rd.relu_dropout_reference(pre, seed, rate)
+    err = float((got.float() - want).abs().max())
+    assert err <= 1e-2 * float(want.abs().max()), err
+    keep = rd.dropout_keep_mask(m, n, seed, rate, device=cuda) if rate \
+        else torch.ones_like(pre, dtype=torch.bool)
+    assert not bool(((got != 0) & ~keep).any())
+    clear = pre > 1e-2 * float(pre.abs().max())
+    assert torch.equal((got != 0)[clear], keep[clear])
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("k,n", GEMM_WIDTHS)
+def test_train_gemm_dgrad_matches_plain_version(k, n, cuda):
+    """The dgrad role, g [M, K] x W^T [N, K] with the mask of the stored
+    activation and the dropout scale, against the float32 product of the
+    same bf16 operands: <= 1e-2 of the output's max, zeros where h_prev is
+    not positive, two launches bit-identical."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import fused_train as ft
+    m, scale = 8192 + 128 * 3, 1.25
+    rng = np.random.default_rng(k * n)
+    g = _bf16(rng, (m, k), 1e-3, cuda)
+    wt = _bf16(rng, (n, k), 1 / np.sqrt(k), cuda)
+    hprev = torch.relu(_bf16(rng, (m, n), cuda=cuda))
+    n0 = ft.LAUNCHES["gemm_dgrad"]
+    got = ft.gemm_dgrad(g, wt, hprev, scale)
+    again = ft.gemm_dgrad(g, wt, hprev, scale)
+    torch.cuda.synchronize()
+    assert ft.LAUNCHES["gemm_dgrad"] == n0 + 2
+    want = torch.where(hprev > 0, (g.float() @ wt.float().T) * scale, 0.0)
+    err = float((got.float() - want).abs().max())
+    assert err <= 1e-2 * float(want.abs().max()), err
+    assert bool((got[hprev <= 0] == 0).all())
+    assert torch.equal(got, again)
+
+
+def test_train_gemm_wrappers_check_inputs(cuda):
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import fused_train as ft
+    bf = torch.bfloat16
+    h = torch.zeros(1024, 512, dtype=bf, device=cuda)
+    w = torch.zeros(512, 512, dtype=bf, device=cuda)
+    rows = torch.zeros(1, 512, device=cuda)
+    with pytest.raises(ValueError, match="rows"):
+        ft.gemm_fwd(h[:1000], w, rows, 1000)
+    with pytest.raises(ValueError, match="width"):
+        ft.gemm_fwd(h, w[:320], rows[:, :320], 1024)
+    with pytest.raises(ValueError, match="contiguous"):
+        ft.gemm_fwd(h[:, :256], w[:, :256], rows, 1024)
+    with pytest.raises(ValueError, match="bf16"):
+        ft.gemm_fwd(h.float(), w, rows, 1024)
+    with pytest.raises(ValueError, match="rows"):
+        ft.gemm_fwd(h, w, torch.zeros(3, 512, device=cuda), 256)
+    with pytest.raises(ValueError, match="hprev"):
+        ft.gemm_dgrad(h, w, h[:, :256].contiguous(), 1.0)
+    with pytest.raises(ValueError, match="K"):
+        ft.gemm_dgrad(h[:, :96].contiguous(), w[:, :96].contiguous(), h, 1.0)
+
+
 # ------------------------------------- per-point-latent eval kernel (#2)
 
 MULTICAT = (pathlib.Path(__file__).resolve().parents[1] / "runs"
