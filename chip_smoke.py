@@ -24,12 +24,20 @@ a process pool started before CUDA is), then:
      of the plain forward) and times them;
   6. [fused_train] holds the fused train kernel (#4) against its plain
      version at 64 scenes x 16,384 points on the trained decoder, dropout
-     0 and 0.2, checks two passes are bit-identical, and times it;
+     0 and 0.2, checks two passes are bit-identical, and times it; splits
+     one traced pass into its forward, dgrad and wgrad GEMMs and side
+     kernels, each beside its bound (the forward and dgrad launches must
+     be the wgmma engine's); times the engine's forward (dropout 0.2 and
+     0) and dgrad roles alone at 2^20 x 512 x 512 beside torch.matmul of
+     the same bf16 product (a yardstick the port never calls);
   7. [train] trains config 3's `ad` block (cut to 64 scenes, 20,000
      samples per shape, 4 epochs of one step) from the committed pack
      through both kernel routes (relu+dropout kernels; fused train
-     kernel), counting launches, then writes the trained pack, reloads it
-     and serves chair 0 at 256^3; traces one step of each route;
+     kernel), and config 5's `ad` block (config 3's but data_parallel and
+     num_scenes) on the same cut, data and start through the relu+dropout
+     route, whose losses must equal config 3's bit for bit on one card;
+     counts launches, then writes the trained pack, reloads it and serves
+     chair 0 at 256^3; traces one step of each of config 3's routes;
   8. [pairs] holds the per-point-latent eval kernel (#2) against its plain
      version (bf16 fast_apply over codes[sids]) on the committed multicat
      decoder with rows of 64 codes read by shuffled shape ids at 2^19 and
@@ -273,6 +281,106 @@ def ptxas_report(source: str) -> dict:
         out[key] = int(m.group(1)) if m else None
     out["warnings"] = [ln.strip() for ln in text.splitlines()
                        if "Performance Loss" in ln or "ignored" in ln]
+    return out
+
+
+def gemm_bound(m: int, n: int, k: int, read: int, write: int) -> tuple:
+    """Least time (ms) of one GEMM launch C[m, n] from K = k that reads
+    `read` and writes `write` bytes: the larger of its products at the
+    bf16 peak and its bytes at HBM bandwidth."""
+    ops = 2.0 * m * n * k / PEAK_BF16_FLOPS
+    byt = (read + write) / PEAK_HBM_BYTES
+    return max(ops, byt) * 1e3, ("operations" if ops >= byt else "bytes")
+
+
+def train_role(name: str) -> str:
+    """Kernel #4's launch roles by kernel name: the wgmma engine's forward
+    (epilogue 0) and dgrad (epilogue 1) instantiations, the mma.sync wgrad
+    GEMM, and every other launch of the pass."""
+    import re
+    if "tn_gemm_kernel" in name:
+        return "forward" if re.search(r", 0>|ELi0E", name) else "dgrad"
+    if "gemm_kernel" in name:
+        return "wgrad"
+    return "side"
+
+
+def train_roles(ft, ft_args, card) -> dict:
+    """[fused_train] one traced pass split by role: device ms and launches
+    of each, beside the sum of its launches' bounds (each launch's bytes:
+    its operands read once, its output written once)."""
+    ew, _, xyz = ft_args[:3]
+    n_pts = xyz.shape[0] * xyz.shape[1]
+    widths = [-(-lay.b.shape[0] // 128) * 128 for lay in ew.layers[:-1]]
+    bounds = {"forward": 0.0, "dgrad": 0.0, "wgrad": 0.0}
+    k_split = 16384
+    for i in range(1, len(widths)):
+        k, n = widths[i - 1], widths[i]
+        bounds["forward"] += gemm_bound(n_pts, n, k, 2 * n_pts * k,
+                                        2 * n_pts * n)[0]
+        bounds["dgrad"] += gemm_bound(n_pts, k, n, 2 * n_pts * (n + k),
+                                      2 * n_pts * k)[0]
+        bounds["wgrad"] += gemm_bound(n, k, n_pts, 2 * n_pts * (n + k),
+                                      4 * (n_pts // k_split) * n * k)[0]
+    wall, busy, top = device_profile(lambda: ft.fused_train_loss_grads(
+        *ft_args))
+    log_profile("fused_train", "one traced pass", wall, busy, top, card)
+    roles = {r: dict(ms=0.0, launches=0) for r in
+             ("forward", "dgrad", "wgrad", "side")}
+    for name, ms, cnt in top:
+        r = roles[train_role(name)]
+        r["ms"] += ms
+        r["launches"] += cnt
+    for r, v in roles.items():
+        v["bound_ms"] = bounds.get(r)
+        log(f"[fused_train]   {r:8s} {v['ms']:8.3f} ms in {v['launches']:4d} "
+            f"launches" + (f", bound {v['bound_ms']:.3f} ms (sum of the "
+                           "launches' bounds)" if r in bounds else ""))
+    if roles["forward"]["launches"] != len(widths) - 1 or \
+            roles["dgrad"]["launches"] != len(widths) - 1:
+        raise RuntimeError(f"kernel #4's forward/dgrad launches are not the "
+                           f"wgmma engine's: {[n for n, _, _ in top]}")
+    return dict(roles, busy_ms=busy, wall_s=wall, top=top[:16])
+
+
+def train_gemms(ft, dev, card) -> dict:
+    """[fused_train] the engine's forward role (dropout 0.2 and 0) and
+    dgrad role alone at 2^20 x 512 x 512, against the plain version and
+    torch.matmul of the same bf16 product."""
+    import torch
+    m, k, n = 1 << 20, 512, 512
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf = torch.bfloat16
+    h = torch.relu(torch.randn(m, k, generator=gen, device=dev)).to(bf)
+    w = (torch.randn(n, k, generator=gen, device=dev) / k ** 0.5).to(bf)
+    rows = torch.randn(1, n, generator=gen, device=dev)
+    g = (torch.randn(m, n, generator=gen, device=dev) * 1e-3).to(bf)
+    wt = w.t().contiguous()
+    out = {}
+    fwd_b = gemm_bound(m, n, k, 2 * m * k, 2 * m * n)
+    dgrad_b = gemm_bound(m, k, n, 2 * m * (n + k), 2 * m * k)
+    for name, fn, plain, (bnd, by) in [
+            ("forward, dropout 0.2",
+             lambda: ft.gemm_fwd(h, w, rows, m, seed=9, rate=RATE),
+             lambda: ft.gemm_fwd_reference(h, w, rows, m, seed=9, rate=RATE),
+             fwd_b),
+            ("forward, dropout 0",
+             lambda: ft.gemm_fwd(h, w, rows, m),
+             lambda: ft.gemm_fwd_reference(h, w, rows, m), fwd_b),
+            ("dgrad", lambda: ft.gemm_dgrad(g, wt, h, 1.25),
+             lambda: ft.gemm_dgrad_reference(g, wt, h, 1.25), dgrad_b)]:
+        ms = time_ms(fn, 20)
+        out[name] = dict(ms=ms, plain_ms=time_ms(plain, 2), bound_ms=bnd,
+                         bound_by=by)
+    lib = {"forward": time_ms(lambda: torch.matmul(h, w.t()), 20),
+           "dgrad": time_ms(lambda: torch.matmul(g, wt.t()), 20)}
+    for name, v in out.items():
+        v["library_ms"] = lib[name.split(",")[0]]
+        log(f"[fused_train] engine {name} at 2^20 x 512 x 512: {v['ms']:.3f} "
+            f"ms ({100 * v['bound_ms'] / v['ms']:.1f}% of its bound "
+            f"{v['bound_ms']:.3f} ms, {v['bound_by']}), plain "
+            f"{v['plain_ms']:.3f} ms, torch.matmul of the bf16 product "
+            f"{v['library_ms']:.3f} ms [{card}]")
     return out
 
 
@@ -1089,7 +1197,10 @@ def main() -> int:
         f"{plain_ft:.1f} ms, bound {bound_ft:.2f} ms (operations) [{card}]")
     details["fused_train"] = dict(ms=ms_ft, plain_ms=plain_ft,
                                   bound_ms=bound_ft, max_abs_err=ft_err,
-                                  rel=ft_rel)
+                                  rel=ft_rel,
+                                  roles=train_roles(ft, ft_args, card),
+                                  gemm=train_gemms(ft, dev, card))
+    ew_layers = ew_t.layers
     del ew_t, ft_args
     torch.cuda.empty_cache()
 
@@ -1102,8 +1213,17 @@ def main() -> int:
         f"{ad0.decoder.compute_dtype}, dropout {ad0.decoder.dropout_prob}, "
         f"{S} scenes x {P} samples per step; start: the committed pack's "
         f"params and codes[:64]")
+    ad5 = ExperimentConfig.load(ROOT / "configs" / "config5_multicat_dp").ad
+    diff = {f.name for f in dataclasses.fields(ad0)
+            if getattr(ad0, f.name) != getattr(ad5, f.name)}
+    if diff != {"data_parallel", "num_scenes"} or not ad5.data_parallel:
+        raise RuntimeError(f"config 5's ad block differs from config 3's in "
+                           f"{diff}, not in data_parallel and num_scenes")
     routes = {"relu_dropout": cfg,
-              "fused_train": dataclasses.replace(cfg, use_pallas=True)}
+              "fused_train": dataclasses.replace(cfg, use_pallas=True),
+              "config5": dataclasses.replace(ad5, num_scenes=64,
+                                             num_epochs=4)}
+    n_gemm = len(ew_layers) - 2         # hidden GEMM layers: one of each
     train = {}
     for route, c in routes.items():
         state = init_ad_state(c, params=sd, codes=codes[:64], device=dev)
@@ -1116,7 +1236,8 @@ def main() -> int:
 
         for k in rd.LAUNCHES:
             rd.LAUNCHES[k] = 0
-        ft.LAUNCHES["fused_train"] = 0
+        for k in ft.LAUNCHES:
+            ft.LAUNCHES[k] = 0
         train_auto_decoder(c, dataset, state=state, device=dev,
                            on_step=on_step)
         route_launches = {**rd.LAUNCHES, **ft.LAUNCHES}
@@ -1128,9 +1249,11 @@ def main() -> int:
             f"{[round(v, 6) for v in l1]}, {ms_step:.1f} ms/step after one "
             f"warm-up step, launches {route_launches} [{card}]")
         want = ({"relu_dropout_fwd": 32, "relu_dropout_bwd": 32,
-                 "fused_train": 0} if route == "relu_dropout" else
+                 "fused_train": 0, "gemm_fwd": 0, "gemm_dgrad": 0}
+                if route != "fused_train" else
                 {"relu_dropout_fwd": 0, "relu_dropout_bwd": 0,
-                 "fused_train": 4})
+                 "fused_train": 4, "gemm_fwd": 4 * n_gemm,
+                 "gemm_dgrad": 4 * n_gemm})
         if route_launches != want:
             raise RuntimeError(f"route {route}: launches {route_launches}, "
                                f"expected {want}")
@@ -1147,6 +1270,17 @@ def main() -> int:
     log(f"[train] step-0 loss_l1, relu_dropout route vs fused route (same "
         f"batch, same masks): {train['relu_dropout']['loss_l1'][0]:.6f} vs "
         f"{train['fused_train']['loss_l1'][0]:.6f}")
+    same5 = (train["config5"]["loss_l1"] == train["relu_dropout"]["loss_l1"]
+             and train["config5"]["loss"] == train["relu_dropout"]["loss"])
+    log(f"[train] config5_multicat_dp (data_parallel, one card): step-0 "
+        f"loss_l1 {train['config5']['loss_l1'][0]:.6f}, "
+        f"{train['config5']['ms_per_step']:.1f} ms/step, vs config 3's "
+        f"relu_dropout route {train['relu_dropout']['loss_l1'][0]:.6f}, "
+        f"{train['relu_dropout']['ms_per_step']:.1f} ms/step; every loss "
+        f"equal bit for bit: {same5} [{card}]")
+    if not same5:
+        raise RuntimeError("config 5 on one card does not train as config "
+                           "3's relu_dropout route")
     details["train"] = train
 
     with tempfile.TemporaryDirectory() as td:
@@ -1169,7 +1303,8 @@ def main() -> int:
     # ---- where a training step's time goes: one traced step per route
     xyz_w = xyz_t.to(torch.bfloat16)
     details["train_trace"] = {}
-    for route, c in routes.items():
+    for route in ("relu_dropout", "fused_train"):
+        c = routes[route]
         state = trained if route == "fused_train" else init_ad_state(
             c, params=sd, codes=codes[:64], device=dev)
         step = make_ad_train_step(state.decoder, c)

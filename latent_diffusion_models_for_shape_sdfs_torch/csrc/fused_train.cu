@@ -63,16 +63,29 @@
 //     so the CTAs working at once share A's rows through L2. Both
 //     warpgroups work on one tile (cooperative); while they run a tile's
 //     epilogue the producer already fills the ring with the next tile's
-//     stages, so the loads, not the products, overlap the epilogue.
-//   * Epilogues from the accumulator registers straight to device memory:
-//     wgmma's accumulator holds, per warp w of the warpgroup, rows 16w +
-//     lane/4 (+8) and columns 8j + 2 (lane % 4) (+1): the m16n8 C fragment
-//     of mma.sync, repeated over BN/8. Forward: bias row per scene, the
-//     skip layer's xyz term, relu, Philox dropout, bf16 h; dgrad: the mask
-//     from the stored h_prev, scale, bf16 g. Lanes q and q^1 of a quad
-//     share a 4-column Philox block of a row, so lane q computes the block
-//     of row r (q even) or r + 8 (q odd) and the pair swaps the two words
-//     the other needs with __shfl_xor_sync: one Philox call per 4 elements.
+//     stages and the previous tile's TMA store drains, so the loads and
+//     stores, not the products, overlap the epilogue. (Warpgroups on
+//     separate tiles would each stream their own B: twice the L2 traffic
+//     at K = 512.)
+//   * Epilogues through shared memory: wgmma's accumulator holds, per
+//     warp w of the warpgroup, rows 16w + lane/4 (+8) and columns 8j + 2
+//     (lane % 4) (+1), the m16n8 C fragment of mma.sync repeated over
+//     BN/8. Forward: bias row per scene (read a few column blocks ahead,
+//     with the uniform choices hoisted out of the loop so it schedules as
+//     one block), the skip layer's xyz term, relu, Philox dropout; dgrad:
+//     the mask from h_prev (TMA-loaded into the output tile during the
+//     products), scale. Each warpgroup writes its 64 x BN bf16 result into
+//     an output tile in the 128-byte swizzle layout (conflict-free), and
+//     one thread stores it with TMA (boxes of 64 x 64). Written straight
+//     from registers, 16 bytes per row and instruction, the output took
+//     over twice as long.
+//   * Dropout: lanes q and q^1 of a quad share a 4-column Philox block of
+//     a row, so lane q computes the block of row r (q even) or r + 8 (q
+//     odd) and the pair swaps the two words the other needs with
+//     __shfl_xor_sync: one Philox call per 4 elements. The draws run in
+//     the epilogue, after the products (tools/train_gemm_probe.py times
+//     the forward with and without them): drawn between the wgmmas or by
+//     the producer's idle warps they were slower.
 //   * Deterministic: no atomics, fixed tile order within a tile's K loop.
 // Shape rules (the wrapper checks and raises): M a multiple of 128, K of
 // 64, N of BN, operands 16-byte aligned.
@@ -296,14 +309,19 @@ constexpr int TN_WGS = 2;                // consumer warpgroups, 64 rows each
 constexpr int TN_BM = 64 * TN_WGS;       // tile rows
 constexpr int TN_BK = 64;                // K per ring stage: one 128-byte row
 constexpr int TN_MAX_BN = 256;
-constexpr int TN_STAGES = 4;
+constexpr int TN_STAGES = 3;
 constexpr int TN_A_BYTES = TN_BM * TN_BK * 2;               // 16 KB
 constexpr int TN_STAGE_BYTES = TN_A_BYTES + TN_MAX_BN * TN_BK * 2;  // 48 KB
+constexpr int TN_BOX = 64;               // output box: 64 rows x 64 columns
+constexpr int TN_BOX_BYTES = TN_BOX * TN_BOX * 2;           // 8 KB
+constexpr int TN_OUT_BYTES = TN_BM * TN_MAX_BN * 2;         // 64 KB
 constexpr int TN_THREADS = 128 * (TN_WGS + 1);   // and the producer's warpgroup
 constexpr int TN_PRODUCER_REGS = 40;     // setmaxnreg: 128 x 40 +
 constexpr int TN_CONSUMER_REGS = 232;    //   256 x 232 <= 65,536
-// the ring, its full and empty barriers, and slack to align it to 1024
-constexpr int TN_SMEM = TN_STAGES * TN_STAGE_BYTES + 2 * TN_STAGES * 8 + 1024;
+// the ring, the output tile, the ring's full and empty barriers and one
+// h_prev barrier per warpgroup, and slack to align the ring to 1024
+constexpr int TN_SMEM = TN_STAGES * TN_STAGE_BYTES + TN_OUT_BYTES +
+                        (2 * TN_STAGES + TN_WGS) * 8 + 1024;
 
 struct TnArgs {
   int m, n, k;
@@ -316,45 +334,67 @@ struct TnArgs {
   uint32_t key, threshold;
   int drop;
   float scale;                // 1/(1-rate) (forward, dgrad) or 1
-  // dgrad epilogue
-  const bf16* hprev;          // [m][n]
-  bf16* out;                  // [m][n]
 };
 
-__device__ __forceinline__ float keep(uint32_t word, float v, const TnArgs& p) {
-  return word >= p.threshold ? v * p.scale : 0.f;
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// One warp's rows r0 = row0 + lane/4 and r1 = r0 + 8, columns n0 + 8j +
-// 2 (lane % 4) (+1), from the accumulator to device memory.
-template <int BN, int EPI>
-__device__ __forceinline__ void tn_epilogue(const float (&acc)[BN / 2],
-                                            const TnArgs& p, int row0,
-                                            int n0, int lane) {
-  const int q = lane % 4;
-  const bool odd = q & 1;
-  const long long r0 = row0 + lane / 4, r1 = r0 + 8;
-  bf16* o0 = p.out + r0 * p.n + n0 + 2 * q;
-  bf16* o1 = p.out + r1 * p.n + n0 + 2 * q;
-  if (EPI == EPI_FWD) {
-    const float* b0 = p.rows + (r0 / p.p) * p.rows_stride + n0 + 2 * q;
-    const float* b1 = p.rows + (r1 / p.p) * p.rows_stride + n0 + 2 * q;
-    float x0[3] = {0.f, 0.f, 0.f}, x1[3] = {0.f, 0.f, 0.f};
-    if (p.xyz != nullptr) {
+// The keep bits of column block j (4 bits: (r0, col), (r0, col + 1), (r0
+// + 8, col), (r0 + 8, col + 1)): lane q draws the Philox block of row r0
+// (q even) or r0 + 8 (q odd), group col >> 2, and the pair q, q^1 swaps
+// the two words the other needs (words 0-1 are the even lane's columns,
+// 2-3 the odd one's): one Philox draw per 4 elements.
+__device__ __forceinline__ uint32_t keep_nibble(int j, long long my_row,
+                                                int n0, int q, bool odd,
+                                                const TnArgs& p) {
+  const uint4 bits = philox::dropout_bits(
+      my_row, static_cast<uint32_t>((n0 + 8 * j + 2 * q) >> 2), p.key);
+  const uint32_t s0 = odd ? bits.x : bits.z, s1 = odd ? bits.y : bits.w;
+  const uint32_t t0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+  const uint32_t t1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+  return static_cast<uint32_t>((odd ? t0 : bits.x) >= p.threshold) |
+         static_cast<uint32_t>((odd ? t1 : bits.y) >= p.threshold) << 1 |
+         static_cast<uint32_t>((odd ? bits.z : t0) >= p.threshold) << 2 |
+         static_cast<uint32_t>((odd ? bits.w : t1) >= p.threshold) << 3;
+}
+
+// The forward epilogue's columns for rows r0, r1: bias rows b0, b1 (read
+// TN_CHUNK column blocks ahead of their use), the skip layer's xyz term,
+// relu, dropout; into the output tile through word(j).
+constexpr int TN_CHUNK = 4;
+
+template <int BN, bool DROP, bool XYZ, typename Word>
+__device__ __forceinline__ void fwd_columns(const float (&acc)[BN / 2],
+                                            const TnArgs& p, Word word,
+                                            const float* b0, const float* b1,
+                                            long long r0, long long r1, int n0,
+                                            int q) {
+  float x0[3] = {0.f, 0.f, 0.f}, x1[3] = {0.f, 0.f, 0.f};
+  if (XYZ) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        x0[c] = __bfloat162float(p.xyz[r0 * 3 + c]);
-        x1[c] = __bfloat162float(p.xyz[r1 * 3 + c]);
-      }
+    for (int c = 0; c < 3; ++c) {
+      x0[c] = __bfloat162float(p.xyz[r0 * 3 + c]);
+      x1[c] = __bfloat162float(p.xyz[r1 * 3 + c]);
     }
-    const long long my_row = odd ? r1 : r0;   // the Philox block this lane draws
+  }
+  const bool odd = q & 1;
+  const long long my_row = odd ? r1 : r0;   // the Philox block this lane draws
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const float2 c0 = *reinterpret_cast<const float2*>(b0 + 8 * j);
-      const float2 c1 = *reinterpret_cast<const float2*>(b1 + 8 * j);
-      float v00 = acc[4 * j] + c0.x, v01 = acc[4 * j + 1] + c0.y;
-      float v10 = acc[4 * j + 2] + c1.x, v11 = acc[4 * j + 3] + c1.y;
-      if (p.xyz != nullptr) {
+  for (int j0 = 0; j0 < BN / 8; j0 += TN_CHUNK) {
+    float2 c0[TN_CHUNK], c1[TN_CHUNK];
+#pragma unroll
+    for (int u = 0; u < TN_CHUNK; ++u) {
+      c0[u] = __ldg(reinterpret_cast<const float2*>(b0 + 8 * (j0 + u)));
+      c1[u] = __ldg(reinterpret_cast<const float2*>(b1 + 8 * (j0 + u)));
+    }
+#pragma unroll
+    for (int u = 0; u < TN_CHUNK; ++u) {
+      const int j = j0 + u;
+      float v00 = acc[4 * j] + c0[u].x, v01 = acc[4 * j + 1] + c0[u].y;
+      float v10 = acc[4 * j + 2] + c1[u].x, v11 = acc[4 * j + 3] + c1[u].y;
+      if (XYZ) {
         const bf16* w = p.wx + (n0 + 8 * j + 2 * q) * 3;
         const float w0 = __bfloat162float(w[0]), w1 = __bfloat162float(w[1]),
                     w2 = __bfloat162float(w[2]), w3 = __bfloat162float(w[3]),
@@ -368,38 +408,71 @@ __device__ __forceinline__ void tn_epilogue(const float (&acc)[BN / 2],
       v01 = fmaxf(v01, 0.f);
       v10 = fmaxf(v10, 0.f);
       v11 = fmaxf(v11, 0.f);
-      if (p.drop) {
-        // words 0-1 of a block belong to the even lane, 2-3 to the odd one
-        const uint4 bits = philox::dropout_bits(
-            my_row, static_cast<uint32_t>((n0 + 8 * j + 2 * q) >> 2), p.key);
-        const uint32_t s0 = odd ? bits.x : bits.z, s1 = odd ? bits.y : bits.w;
-        const uint32_t t0 = __shfl_xor_sync(0xffffffffu, s0, 1);
-        const uint32_t t1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-        v00 = keep(odd ? t0 : bits.x, v00, p);
-        v01 = keep(odd ? t1 : bits.y, v01, p);
-        v10 = keep(odd ? bits.z : t0, v10, p);
-        v11 = keep(odd ? bits.w : t1, v11, p);
+      if (DROP) {
+        const uint32_t nib = keep_nibble(j, my_row, n0, q, odd, p);
+        v00 = nib & 1u ? v00 * p.scale : 0.f;
+        v01 = nib & 2u ? v01 * p.scale : 0.f;
+        v10 = nib & 4u ? v10 * p.scale : 0.f;
+        v11 = nib & 8u ? v11 * p.scale : 0.f;
       }
-      *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) =
-          __floats2bfloat162_rn(v00, v01);
-      *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * j) =
-          __floats2bfloat162_rn(v10, v11);
+      uint32_t* w = word(j);
+      w[0] = pack_bf16(v00, v01);
+      w[8 * 128 / 4] = pack_bf16(v10, v11);
+    }
+  }
+}
+
+// the dgrad mask of one element: bf16 bits of h_prev (lo or hi half) > 0
+__device__ __forceinline__ float masked(uint32_t h_bits, float v, float scale) {
+  return __uint_as_float(h_bits) > 0.f ? v * scale : 0.f;
+}
+
+// One warp's rows r0 = row0 + lane/4 and r1 = r0 + 8 of the tile, columns
+// n0 + 8j + 2 (lane % 4) (+1), from the accumulator into the warpgroup's
+// output tile in shared memory: BN/64 boxes of 64 x 64 in the 128-byte
+// swizzle layout the TMA store reads (16-byte chunk c of row r at c ^ (r %
+// 8): a warp's 8 rows x 16 bytes hit 32 distinct banks). The dgrad
+// epilogue reads h_prev, which a TMA load put at the same places, and
+// overwrites it.
+template <int BN, int EPI>
+__device__ __forceinline__ void tn_epilogue(const float (&acc)[BN / 2],
+                                            const TnArgs& p,
+                                            unsigned char* obuf, int row0,
+                                            int n0, int wrow, int lane) {
+  const int q = lane % 4, g = lane / 4;
+  const long long r0 = row0 + g, r1 = r0 + 8;
+  // (row wrow + g, column 8j + 2q) is at base + box + chunk; plain C++
+  // shared-memory accesses, which the compiler may schedule around loads
+  unsigned char* base = obuf + (wrow + g) * 128 + 4 * q;
+  auto word = [&](int j) {
+    return reinterpret_cast<uint32_t*>(base + (j / 8) * TN_BOX_BYTES +
+                                       (((j % 8) ^ g) << 4));
+  };
+  if (EPI == EPI_FWD) {
+    const float* b0 = p.rows + (r0 / p.p) * p.rows_stride + n0 + 2 * q;
+    const float* b1 = p.rows + (r1 / p.p) * p.rows_stride + n0 + 2 * q;
+    // the uniform choices out of the loop, so that its iterations form
+    // one block the compiler can schedule (loads ahead of their use)
+    if (p.drop) {
+      if (p.xyz != nullptr)
+        fwd_columns<BN, true, true>(acc, p, word, b0, b1, r0, r1, n0, q);
+      else
+        fwd_columns<BN, true, false>(acc, p, word, b0, b1, r0, r1, n0, q);
+    } else {
+      if (p.xyz != nullptr)
+        fwd_columns<BN, false, true>(acc, p, word, b0, b1, r0, r1, n0, q);
+      else
+        fwd_columns<BN, false, false>(acc, p, word, b0, b1, r0, r1, n0, q);
     }
   } else {
-    const bf16* h0 = p.hprev + r0 * p.n + n0 + 2 * q;
-    const bf16* h1 = p.hprev + r1 * p.n + n0 + 2 * q;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
-      const float2 a = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(h0 + 8 * j));
-      const float2 b = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(h1 + 8 * j));
-      *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) = __floats2bfloat162_rn(
-          a.x > 0.f ? acc[4 * j] * p.scale : 0.f,
-          a.y > 0.f ? acc[4 * j + 1] * p.scale : 0.f);
-      *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * j) = __floats2bfloat162_rn(
-          b.x > 0.f ? acc[4 * j + 2] * p.scale : 0.f,
-          b.y > 0.f ? acc[4 * j + 3] * p.scale : 0.f);
+      uint32_t* w = word(j);
+      const uint32_t h0 = w[0], h1 = w[8 * 128 / 4];
+      w[0] = pack_bf16(masked(h0 << 16, acc[4 * j], p.scale),
+                       masked(h0 & 0xffff0000u, acc[4 * j + 1], p.scale));
+      w[8 * 128 / 4] = pack_bf16(masked(h1 << 16, acc[4 * j + 2], p.scale),
+                                 masked(h1 & 0xffff0000u, acc[4 * j + 3], p.scale));
     }
   }
 }
@@ -408,11 +481,15 @@ template <int BN, int EPI>
 __global__ void __launch_bounds__(TN_THREADS, 1)
     tn_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                    const __grid_constant__ CUtensorMap map_b,
+                   const __grid_constant__ CUtensorMap map_o,
+                   const __grid_constant__ CUtensorMap map_h,
                    const TnArgs p) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t full = ring + TN_STAGES * TN_STAGE_BYTES;
+  const uint32_t out = ring + TN_STAGES * TN_STAGE_BYTES;
+  const uint32_t full = out + TN_OUT_BYTES;
   const uint32_t empty = full + TN_STAGES * 8;
+  const uint32_t hbar = empty + TN_STAGES * 8;
   const int tid = threadIdx.x, lane = tid % 32;
   // warp-uniform to the compiler (no divergent path around the wgmmas)
   const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
@@ -424,6 +501,7 @@ __global__ void __launch_bounds__(TN_THREADS, 1)
       mbar_init(full + s * 8, 1);
       mbar_init(empty + s * 8, TN_WGS);     // one arrival per consumer warpgroup
     }
+    for (int w = 0; w < TN_WGS; ++w) mbar_init(hbar + w * 8, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -454,14 +532,29 @@ __global__ void __launch_bounds__(TN_THREADS, 1)
     }
   } else {
     // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each tile
+    // and its 64 x BN part of the output tile in shared memory
     setmaxnreg_inc<TN_CONSUMER_REGS>();
     const int wg = warp / 4;
     const uint32_t leader = (tid % 128) == 0;
+    const uint32_t obuf = out + wg * TN_BOX * TN_MAX_BN * 2;
+    const uint32_t my_hbar = hbar + wg * 8;
+    unsigned char* obuf_p = smem_raw + (obuf - smem_u32(smem_raw));
     int stage = 0;
-    uint32_t phase = 0;
+    uint32_t phase = 0, hphase = 0;
     float acc[BN / 2];
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int m0 = (t / n_tiles) * TN_BM, n0 = (t % n_tiles) * BN;
+      const int wm0 = m0 + wg * TN_BOX;
+      if (EPI == EPI_DGRAD && leader) {
+        // h_prev of this tile into the output tile, once the previous
+        // tile's store has read it
+        bulk_wait_read<0>();
+        mbar_expect_tx(my_hbar, TN_BOX * BN * 2);
+#pragma unroll
+        for (int b = 0; b < BN / TN_BOX; ++b)
+          tma_load_2d(obuf + b * TN_BOX_BYTES, &map_h, n0 + b * TN_BOX, wm0,
+                      my_hbar);
+      }
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
       int prev = -1;
@@ -489,8 +582,25 @@ __global__ void __launch_bounds__(TN_THREADS, 1)
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
       mbar_arrive(empty + prev * 8, leader);
-      tn_epilogue<BN, EPI>(acc, p, m0 + wg * 64 + 16 * (warp % 4), n0, lane);
+      if (EPI == EPI_DGRAD) {
+        mbar_wait(my_hbar, hphase);
+        hphase ^= 1u;
+      } else {
+        if (leader) bulk_wait_read<0>();   // the previous store has read it
+        named_sync(2 + wg, 128);
+      }
+      tn_epilogue<BN, EPI>(acc, p, obuf_p, wm0 + 16 * (warp % 4), n0,
+                           16 * (warp % 4), lane);
+      fence_async_smem();                  // the tile, visible to the TMA store
+      named_sync(2 + wg, 128);
+      if (leader) {
+#pragma unroll
+        for (int b = 0; b < BN / TN_BOX; ++b)
+          tma_store_2d(&map_o, obuf + b * TN_BOX_BYTES, n0 + b * TN_BOX, wm0);
+        bulk_commit();
+      }
     }
+    if (leader) bulk_wait_read<0>();       // shared memory outlives the store
   }
 }
 
@@ -521,16 +631,17 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a row-major [rows][k] bf16 operand: box TN_BK x box_rows,
-// 128-byte swizzle. False if the encoder is missing or refuses.
-bool tile_map(CUtensorMap* map, const void* ptr, int rows, int k,
-              int box_rows) {
+// The map of a row-major [rows][cols] bf16 matrix: box box_cols (64: one
+// 128-byte row) x box_rows, 128-byte swizzle. False if the encoder is
+// missing or refuses.
+bool tile_map(CUtensorMap* map, const void* ptr, int rows, int cols,
+              int box_cols, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k),
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(TN_BK),
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
@@ -552,8 +663,8 @@ int sm_count() {
 }
 
 template <int BN, int EPI>
-int launch_tn(const void* a, const void* b, const TnArgs& p,
-              cudaStream_t stream) {
+int launch_tn(const void* a, const void* b, const void* h, void* out,
+              const TnArgs& p, cudaStream_t stream) {
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -562,29 +673,36 @@ int launch_tn(const void* a, const void* b, const TnArgs& p,
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
-  CUtensorMap ma, mb;
-  if (!tile_map(&ma, a, p.m, p.k, TN_BM) || !tile_map(&mb, b, p.n, p.k, BN))
+  CUtensorMap ma, mb, mo, mh;
+  if (!tile_map(&ma, a, p.m, p.k, TN_BK, TN_BM) ||
+      !tile_map(&mb, b, p.n, p.k, TN_BK, BN) ||
+      !tile_map(&mo, out, p.m, p.n, TN_BOX, TN_BOX) ||
+      !tile_map(&mh, h != nullptr ? h : out, p.m, p.n, TN_BOX, TN_BOX))
     return static_cast<int>(cudaErrorInvalidValue);
   const int sms = sm_count();
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   const int tiles = (p.m / TN_BM) * (p.n / BN);
   tn_gemm_kernel<BN, EPI><<<tiles < sms ? tiles : sms, TN_THREADS, TN_SMEM,
-                            stream>>>(ma, mb, p);
+                            stream>>>(ma, mb, mo, mh, p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// A [m][k] and B [n][k] into out [m][n] (h: h_prev [m][n] for dgrad), all
+// row-major, contiguous and 16-byte aligned.
 template <int EPI>
-int run_tn(const void* a, const void* b, int bn, const TnArgs& p,
-           void* stream) {
+int run_tn(const void* a, const void* b, const void* h, void* out, int bn,
+           const TnArgs& p, void* stream) {
   if (p.m <= 0 || p.n <= 0 || p.k <= 0 || p.m % TN_BM || p.k % TN_BK ||
       (bn != 128 && bn != TN_MAX_BN) || p.n % bn ||
       reinterpret_cast<uintptr_t>(a) % 16 ||
       reinterpret_cast<uintptr_t>(b) % 16 ||
-      reinterpret_cast<uintptr_t>(p.out) % 4)
+      reinterpret_cast<uintptr_t>(h) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16 ||
+      (EPI == EPI_DGRAD && h == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bn == TN_MAX_BN ? launch_tn<TN_MAX_BN, EPI>(a, b, p, s)
-                         : launch_tn<128, EPI>(a, b, p, s);
+  return bn == TN_MAX_BN ? launch_tn<TN_MAX_BN, EPI>(a, b, h, out, p, s)
+                         : launch_tn<128, EPI>(a, b, h, out, p, s);
 }
 
 // ------------------------------------------------------- small kernels
@@ -810,8 +928,7 @@ int ft_gemm_fwd(const void* h, const void* w, int m, int n, int k, int bn,
   a.threshold = threshold;
   a.drop = drop;
   a.scale = scale;
-  a.out = static_cast<bf16*>(out);
-  return run_tn<EPI_FWD>(h, w, bn, a, stream);
+  return run_tn<EPI_FWD>(h, w, nullptr, out, bn, a, stream);
 }
 
 // g_prev[M][N] = bf16(where(hprev[M][N] > 0, (g[M][K] wt[N][K]^T) * scale,
@@ -823,9 +940,7 @@ int ft_gemm_dgrad(const void* g, const void* wt, int m, int n, int k, int bn,
   a.n = n;
   a.k = k;
   a.scale = scale;
-  a.hprev = static_cast<const bf16*>(hprev);
-  a.out = static_cast<bf16*>(out);
-  return run_tn<EPI_DGRAD>(g, wt, bn, a, stream);
+  return run_tn<EPI_DGRAD>(g, wt, hprev, out, bn, a, stream);
 }
 
 // part[K / k_split][M][N] = per-chunk sums of g[K][M]^T h[K][N].
@@ -934,8 +1049,8 @@ void ft_constants(int* out) {
 
 // The forward/dgrad engine's layout (ops/train_gemm.py TN_LAYOUT): tile
 // rows, K per stage, widest tile, ring stages, swizzle bytes, the
-// descriptor's 8-row stride, bytes per stage, threads, dynamic shared
-// memory.
+// descriptor's 8-row stride, bytes per stage, output box side, threads,
+// dynamic shared memory.
 void ft_gemm_layout(int* out) {
   out[0] = TN_BM;
   out[1] = TN_BK;
@@ -944,8 +1059,9 @@ void ft_gemm_layout(int* out) {
   out[4] = 128;
   out[5] = static_cast<int>(sm90::SW128_SBO);
   out[6] = TN_STAGE_BYTES;
-  out[7] = TN_THREADS;
-  out[8] = TN_SMEM;
+  out[7] = TN_BOX;
+  out[8] = TN_THREADS;
+  out[9] = TN_SMEM;
 }
 
 }  // extern "C"

@@ -134,6 +134,27 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// TMA: the shared-memory box at `src` to element (x, y) of the 2-D tensor
+// map `map`, in this thread's bulk async-group.
+__device__ __forceinline__ void tma_store_2d(const void* map, uint32_t src,
+                                             int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(x), "r"(y)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// waits until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const void* map) {
   asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map))
                : "memory");
@@ -157,7 +178,12 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, 256;" ::: "memory");
 }
 
-// generic-proxy shared-memory writes -> visible to wgmma (async proxy)
+// named barrier `id` over `threads` threads (a multiple of 32)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// generic-proxy shared-memory writes -> visible to wgmma and TMA (async proxy)
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }

@@ -6,8 +6,9 @@ stages, wgmma products and persistent CTAs. What the card cannot debug is
 modelled here: the constants (`TN_LAYOUT`, which the wrapper checks
 against the kernel at load), the tensor maps' boxes, the persistent tile
 schedule, the swizzle the TMA copies write and the wgmma descriptors read,
-and the accumulator's (row, col) map with the Philox block exchange of the
-forward epilogue. tests/test_torch_train_gemm.py checks the models on the
+the accumulator's (row, col) map with the Philox block exchange of the
+forward epilogue, and the output tile the epilogue stores into and the
+TMA store reads. tests/test_torch_train_gemm.py checks the models on the
 CPU; nothing here runs on the card.
 """
 
@@ -17,12 +18,14 @@ from __future__ import annotations
 TN_LAYOUT = dict(bm=128,            # tile rows: 64 per consumer warpgroup
                  bk=64,             # K per ring stage (one 128-byte row)
                  max_bn=256,        # widest tile
-                 stages=4,          # ring stages
+                 stages=3,          # ring stages
                  swizzle_bytes=128,
                  sbo=1024,          # descriptor: bytes between 8-row groups
                  stage_bytes=49152,  # A 128 x 64 + B 256 x 64, bf16
+                 box=64,            # output tile: boxes of 64 x 64
                  threads=384,       # two consumer warpgroups + a producer's
-                 smem=4 * 49152 + 2 * 4 * 8 + 1024)
+                 # the ring, the 128 x 256 output tile, 8 barriers, slack
+                 smem=3 * 49152 + 65536 + 8 * 8 + 1024)
 WG_ROWS = 64                        # rows of a tile per consumer warpgroup
 
 
@@ -104,6 +107,24 @@ def wgmma_address(desc: int, row: int, k: int) -> int:
         raise ValueError(f"not a 128-byte swizzle descriptor: {f}")
     return swizzle128(f["start"] + (row // 8) * f["sbo"] + (row % 8) * 128
                       + 2 * k)
+
+
+def out_offset(warp: int, lane: int, j: int, e: int) -> int:
+    """Byte offset in a warpgroup's output tile (BN/64 boxes of 64 x 64,
+    8 KB each) at which the epilogue stores accumulator 4j + e of lane
+    `lane` of warp `warp`, as the kernel computes it: row 16 warp + lane/4
+    (+8 for e >= 2), 4-byte word (lane % 4) of 16-byte chunk (j % 8) ^
+    (lane/4) of box j // 8, half e % 2."""
+    g, q = lane // 4, lane % 4
+    return ((j // 8) * 64 * 64 * 2 + (16 * warp + g + 8 * (e // 2)) * 128
+            + (((j % 8) ^ g) << 4) + 4 * q + 2 * (e % 2))
+
+
+def box_offset(row: int, col: int) -> int:
+    """Byte offset of element (row, col) of a warpgroup's 64 x BN output
+    tile in the boxes the TMA store (and the dgrad's h_prev load) reads
+    (writes): box col // 64 in the 128-byte swizzle layout."""
+    return (col // 64) * 64 * 64 * 2 + tma_offset(row, col % 64)
 
 
 def acc_coords(warp: int, lane: int, i: int) -> tuple:

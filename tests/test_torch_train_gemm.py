@@ -23,6 +23,9 @@ WIDTHS = [(512, 512), (512, 256), (256, 512), (128, 128)]   # (K, N)
 def test_layout_fits_the_card():
     assert LAY["stage_bytes"] == (LAY["bm"] + LAY["max_bn"]) * LAY["bk"] * 2
     assert LAY["bk"] * 2 == LAY["swizzle_bytes"]
+    assert LAY["smem"] == (LAY["stages"] * LAY["stage_bytes"]
+                           + LAY["bm"] * LAY["max_bn"] * 2
+                           + (2 * LAY["stages"] + 2) * 8 + 1024)
     assert LAY["smem"] <= 232448                # an H100 block's limit
     assert LAY["bm"] == 2 * tg.WG_ROWS and LAY["threads"] == 3 * 128
 
@@ -145,6 +148,29 @@ def test_accumulator_map_and_dropout_exchange(bn):
                               (n0 + 8 * j + 2 * (lane % 4)) >> 2))
     assert held == {(r, c) for r in range(64) for c in range(bn)}
     assert len(drawn) == len(set(drawn)) == 64 * bn // 4
+
+
+@pytest.mark.parametrize("bn", [128, 256])
+def test_epilogue_stores_land_in_the_store_boxes(bn):
+    """The epilogue's shared-memory stores put accumulator (row, col) where
+    the TMA store of the output boxes reads it, cover the warpgroup's
+    output tile once, and each store instruction of a warp (fixed j and
+    row half, 32 lanes x 4 bytes) touches 32 distinct banks."""
+    seen = set()
+    for warp in range(4):
+        for j in range(bn // 8):
+            for e in range(4):
+                words = []
+                for lane in range(32):
+                    r, c = tg.acc_coords(warp, lane, 4 * j + e)
+                    off = tg.out_offset(warp, lane, j, e)
+                    assert off == tg.box_offset(r, c), (warp, lane, j, e)
+                    assert off not in seen
+                    seen.add(off)
+                    words.append(off // 4)
+                if e % 2 == 0:
+                    assert len({w % 32 for w in words}) == 32
+    assert seen == set(range(0, 64 * bn * 2, 2))
 
 
 @pytest.mark.parametrize("m,n,k,what", [(1000, 512, 512, "rows"),
