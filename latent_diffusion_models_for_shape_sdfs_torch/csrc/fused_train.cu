@@ -84,8 +84,10 @@
 //     odd) and the pair swaps the two words the other needs with
 //     __shfl_xor_sync: one Philox call per 4 elements. The draws run in
 //     the epilogue, after the products (tools/train_gemm_probe.py times
-//     the forward with and without them): drawn between the wgmmas or by
-//     the producer's idle warps they were slower.
+//     the forward with and without them). Drawn between each k step's
+//     wgmmas and the wait for them they were no faster, and drawn by the
+//     producer warpgroup's three idle warps they were slower: three warps
+//     cannot issue a tile's ~8,000 Philox blocks within its products.
 //   * Deterministic: no atomics, fixed tile order within a tile's K loop.
 // Shape rules (the wrapper checks and raises): M a multiple of 128, K of
 // 64, N of BN, operands 16-byte aligned.
@@ -328,7 +330,8 @@ struct TnArgs {
   // forward epilogue
   const float* rows;          // bias row: rows[(row / p) * rows_stride + col]
   long long rows_stride;      // 0: one row shared by all points
-  long long p;                // points per scene
+  long long p;                // points per scene, a multiple of TN_BM: a
+                              // tile's rows share one bias row
   const bf16* xyz;            // [m][3] bf16 or null (skip layer only)
   const bf16* wx;             // [n][3] bf16
   uint32_t key, threshold;
@@ -360,17 +363,16 @@ __device__ __forceinline__ uint32_t keep_nibble(int j, long long my_row,
          static_cast<uint32_t>((odd ? bits.w : t1) >= p.threshold) << 3;
 }
 
-// The forward epilogue's columns for rows r0, r1: bias rows b0, b1 (read
-// TN_CHUNK column blocks ahead of their use), the skip layer's xyz term,
-// relu, dropout; into the output tile through word(j).
+// The forward epilogue's columns for rows r0, r1: the tile's bias row b
+// (read TN_CHUNK column blocks ahead of their use), the skip layer's xyz
+// term, relu, dropout; into the output tile through word(j).
 constexpr int TN_CHUNK = 4;
 
 template <int BN, bool DROP, bool XYZ, typename Word>
 __device__ __forceinline__ void fwd_columns(const float (&acc)[BN / 2],
                                             const TnArgs& p, Word word,
-                                            const float* b0, const float* b1,
-                                            long long r0, long long r1, int n0,
-                                            int q) {
+                                            const float* b, long long r0,
+                                            long long r1, int n0, int q) {
   float x0[3] = {0.f, 0.f, 0.f}, x1[3] = {0.f, 0.f, 0.f};
   if (XYZ) {
 #pragma unroll
@@ -383,17 +385,15 @@ __device__ __forceinline__ void fwd_columns(const float (&acc)[BN / 2],
   const long long my_row = odd ? r1 : r0;   // the Philox block this lane draws
 #pragma unroll
   for (int j0 = 0; j0 < BN / 8; j0 += TN_CHUNK) {
-    float2 c0[TN_CHUNK], c1[TN_CHUNK];
+    float2 c[TN_CHUNK];
 #pragma unroll
-    for (int u = 0; u < TN_CHUNK; ++u) {
-      c0[u] = __ldg(reinterpret_cast<const float2*>(b0 + 8 * (j0 + u)));
-      c1[u] = __ldg(reinterpret_cast<const float2*>(b1 + 8 * (j0 + u)));
-    }
+    for (int u = 0; u < TN_CHUNK; ++u)
+      c[u] = __ldg(reinterpret_cast<const float2*>(b + 8 * (j0 + u)));
 #pragma unroll
     for (int u = 0; u < TN_CHUNK; ++u) {
       const int j = j0 + u;
-      float v00 = acc[4 * j] + c0[u].x, v01 = acc[4 * j + 1] + c0[u].y;
-      float v10 = acc[4 * j + 2] + c1[u].x, v11 = acc[4 * j + 3] + c1[u].y;
+      float v00 = acc[4 * j] + c[u].x, v01 = acc[4 * j + 1] + c[u].y;
+      float v10 = acc[4 * j + 2] + c[u].x, v11 = acc[4 * j + 3] + c[u].y;
       if (XYZ) {
         const bf16* w = p.wx + (n0 + 8 * j + 2 * q) * 3;
         const float w0 = __bfloat162float(w[0]), w1 = __bfloat162float(w[1]),
@@ -449,20 +449,19 @@ __device__ __forceinline__ void tn_epilogue(const float (&acc)[BN / 2],
                                        (((j % 8) ^ g) << 4));
   };
   if (EPI == EPI_FWD) {
-    const float* b0 = p.rows + (r0 / p.p) * p.rows_stride + n0 + 2 * q;
-    const float* b1 = p.rows + (r1 / p.p) * p.rows_stride + n0 + 2 * q;
+    const float* b = p.rows + (r0 / p.p) * p.rows_stride + n0 + 2 * q;
     // the uniform choices out of the loop, so that its iterations form
     // one block the compiler can schedule (loads ahead of their use)
     if (p.drop) {
       if (p.xyz != nullptr)
-        fwd_columns<BN, true, true>(acc, p, word, b0, b1, r0, r1, n0, q);
+        fwd_columns<BN, true, true>(acc, p, word, b, r0, r1, n0, q);
       else
-        fwd_columns<BN, true, false>(acc, p, word, b0, b1, r0, r1, n0, q);
+        fwd_columns<BN, true, false>(acc, p, word, b, r0, r1, n0, q);
     } else {
       if (p.xyz != nullptr)
-        fwd_columns<BN, false, true>(acc, p, word, b0, b1, r0, r1, n0, q);
+        fwd_columns<BN, false, true>(acc, p, word, b, r0, r1, n0, q);
       else
-        fwd_columns<BN, false, false>(acc, p, word, b0, b1, r0, r1, n0, q);
+        fwd_columns<BN, false, false>(acc, p, word, b, r0, r1, n0, q);
     }
   } else {
 #pragma unroll
@@ -914,7 +913,7 @@ int ft_gemm_fwd(const void* h, const void* w, int m, int n, int k, int bn,
                 const void* xyz, const void* wx, unsigned key,
                 unsigned threshold, float scale, int drop, void* out,
                 void* stream) {
-  if (p <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (p <= 0 || p % TN_BM) return static_cast<int>(cudaErrorInvalidValue);
   TnArgs a{};
   a.m = m;
   a.n = n;

@@ -251,7 +251,7 @@ def gemm_fwd(h: torch.Tensor, w: torch.Tensor, rows: torch.Tensor, p: int,
              ) -> torch.Tensor:
     """The forward GEMM role, h [M, K] x W [N, K] (bf16) -> h' [M, N] bf16
     (see gemm_fwd_reference): the plain version on CPU tensors, one launch
-    of the engine on CUDA tensors (M a multiple of 128, K of 64, N of
+    of the engine on CUDA tensors (M and p multiples of 128, K of 64, N of
     128; raises otherwise)."""
     if h.device.type == "cpu":
         return gemm_fwd_reference(h, w, rows, p, xyz, wx, seed, rate)
@@ -260,9 +260,10 @@ def gemm_fwd(h: torch.Tensor, w: torch.Tensor, rows: torch.Tensor, p: int,
     if (rows.dtype != torch.float32 or not rows.is_contiguous()
             or rows.shape[1:] != (n,) or rows.device != h.device
             or rows.shape[0] not in (1, m // max(p, 1)) or p <= 0
-            or m % p):
+            or m % p or p % TN_LAYOUT["bm"]):
         raise ValueError(f"gemm_fwd: rows {rows.dtype} {tuple(rows.shape)} "
-                         f"for {m} points, {p} per scene, width {n}")
+                         f"for {m} points, {p} per scene (a multiple of "
+                         f"{TN_LAYOUT['bm']}), width {n}")
     if xyz is not None and (
             xyz.dtype != torch.bfloat16 or tuple(xyz.shape) != (m, 3)
             or not xyz.is_contiguous() or wx is None or wx.dtype
