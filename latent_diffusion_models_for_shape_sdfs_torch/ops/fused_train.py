@@ -266,11 +266,12 @@ def gemm_fwd(h: torch.Tensor, w: torch.Tensor, rows: torch.Tensor, p: int,
                          f"{TN_LAYOUT['bm']}), width {n}")
     if xyz is not None and (
             xyz.dtype != torch.bfloat16 or tuple(xyz.shape) != (m, 3)
-            or not xyz.is_contiguous() or wx is None or wx.dtype
-            != torch.bfloat16 or tuple(wx.shape) != (n, 3)
-            or not wx.is_contiguous()):
+            or not xyz.is_contiguous() or xyz.device != h.device
+            or wx is None or wx.dtype != torch.bfloat16
+            or tuple(wx.shape) != (n, 3) or not wx.is_contiguous()
+            or wx.device != h.device):
         raise ValueError("gemm_fwd: xyz must be bf16 [M, 3] with wx bf16 "
-                         "[N, 3], both contiguous")
+                         "[N, 3], both contiguous and on h's device")
     out = torch.empty(m, n, dtype=torch.bfloat16, device=h.device)
     drop = int(rate > 0)
     _call("ft_gemm_fwd", h.data_ptr(), w.data_ptr(), m, n, h.shape[1], bn,

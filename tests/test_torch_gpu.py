@@ -357,6 +357,9 @@ def test_train_gemm_wrappers_check_inputs(cuda):
         ft.gemm_fwd(h, w, torch.zeros(3, 512, device=cuda), 256)
     with pytest.raises(ValueError, match="multiple of 128"):
         ft.gemm_fwd(h, w, torch.zeros(16, 512, device=cuda), 64)
+    with pytest.raises(ValueError, match="xyz"):
+        ft.gemm_fwd(h, w, rows, 1024, torch.zeros(1024, 3, dtype=bf),
+                    torch.zeros(512, 3, dtype=bf, device=cuda))
     with pytest.raises(ValueError, match="hprev"):
         ft.gemm_dgrad(h, w, h[:, :256].contiguous(), 1.0)
     with pytest.raises(ValueError, match="K"):
