@@ -10,10 +10,14 @@ this checkout, while it generates the training data (64 analytic chairs,
 a process pool started before CUDA is), then:
 
   1. prints the card (nvidia-smi name and power limit) and turns TF32 off;
-  2. holds the decoder-eval kernel against its plain version (bf16
-     fast_apply) on the committed trained 8x512 decoder at the serving
-     path's launch shapes and at 2^20+131 points, and on a small tanh
-     plan, and times both;
+  2. [kernel] holds the decoder-eval kernel (#1) against its plain version
+     (bf16 fast_apply) on the committed trained 8x512 decoder at the
+     serving path's launch shapes and at 2^20+131 points, and on a small
+     skip plan and a tanh plan; checks two launches are bit-identical;
+     times both per 256^3 shape and per 2^20 points, beside kernel #2
+     called with one code (S = 1) on the same points, and prints its
+     launch configuration, the SM clock and power meanwhile, and its
+     ptxas report;
   3. serves 8 trained chair latents at 256^3 through serve_meshes with the
      int8 payload and the payload-direct native mesher, counting kernel
      launches, and checks one mesh against the plain version's mesh;
@@ -834,7 +838,7 @@ def main() -> int:
         SdfDecoder)
     from latent_diffusion_models_for_shape_sdfs_torch.ops import _build
     from latent_diffusion_models_for_shape_sdfs_torch.ops.cuda_kernels import (
-        hoisted_rows, make_kernel_apply)
+        hoisted_rows, make_kernel_apply, make_kernel_apply_pairs)
     from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
         fast_apply)
     from latent_diffusion_models_for_shape_sdfs_torch.ops.isosurface import (
@@ -901,12 +905,13 @@ def main() -> int:
     log(f"[card] {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    # ---- phase 2: kernel vs plain version
+    # ---- phase 2: kernel #1 vs plain version
     sd, codes = load_stage1_pack(ROOT.joinpath(*PACK))
     decoder = SdfDecoder(DecoderConfig())
     apply = make_kernel_apply(decoder, sd)
     macs = kernel_macs_per_point(decoder)
-    wbytes = apply.w_all.nbytes + apply.wx_all.nbytes
+    # the weights, and each launch's rows, read once
+    wbytes = apply.w.nbytes + 4 * int(apply.meta[:, 1].sum())
     res = 256
     caps = _default_caps(res)
     shape_points = [(res // 16) ** 3, caps[0] * 64, caps[1] * 8,
@@ -930,45 +935,86 @@ def main() -> int:
         if err > TOL:
             raise RuntimeError(f"kernel disagrees with plain version: {err}")
     torch.manual_seed(0)
-    small = SdfDecoder(DecoderConfig(latent_size=8, hidden_dim=32,
-                                     num_layers=2, latent_in=(),
-                                     use_tanh=True, use_dropout=False))
-    apply_t = make_kernel_apply(small, small.state_dict())
-    zt = torch.randn(8, device=dev) / np.sqrt(8)
-    xt = torch.rand(4096 + 77, 3, device=dev) * 2 - 1
-    err_t = float((apply_t(zt, xt) - fast_apply(apply_t.ew, zt, xt))
-                  .abs().max())
-    log(f"[kernel] tanh plan (latent 8, 2x32, no skip): max err "
-        f"{err_t:.3e} (tol {TOL})")
-    if err_t > TOL:
-        raise RuntimeError(f"tanh plan disagrees: {err_t}")
-    max_err = max(max_err, err_t)
+    plan_errs = {}
+    for name, kw in [("small (L 16, 3x128, skip 2)",
+                      dict(latent_size=16, hidden_dim=128, num_layers=3,
+                           latent_in=(2,), use_dropout=False)),
+                     ("tanh (L 8, 2x32, no skip)",
+                      dict(latent_size=8, hidden_dim=32, num_layers=2,
+                           latent_in=(), use_tanh=True, use_dropout=False))]:
+        small = SdfDecoder(DecoderConfig(**kw))
+        apply_s = make_kernel_apply(small, small.state_dict())
+        L = small.cfg.latent_size
+        zt = torch.randn(L, device=dev) / np.sqrt(L)
+        xt = torch.rand(4096 + 77, 3, device=dev) * 2 - 1
+        err_s = float((apply_s(zt, xt) - fast_apply(apply_s.ew, zt, xt))
+                      .abs().max())
+        plan_errs[name] = err_s
+        log(f"[kernel] {name} plan, n={len(xt)}: max|kernel-plain| "
+            f"{err_s:.3e} (tol {TOL})")
+        if err_s > TOL:
+            raise RuntimeError(f"{name} plan disagrees: {err_s}")
+        max_err = max(max_err, err_s)
 
-    # timing: one 256^3 shape's four launches, and 2^20 points
+    # timing: one 256^3 shape's four launches, and 2^20 points, beside
+    # kernel #2 called with one code (S = 1) on the same points and latent
     z0 = torch.from_numpy(codes[0]).to(dev)
     rows = hoisted_rows(apply.ew, apply.meta, z0)
     pts = [torch.rand(n, 3, device=dev) * 2 - 1 for n in shape_points]
-    ms_shape = time_ms(lambda: [apply.launch(p, rows) for p in pts], 20)
+    p20 = torch.rand(1 << 20, 3, device=dev) * 2 - 1
+    first = apply.launch(p20, rows)
+    same1 = torch.equal(first, apply.launch(p20, rows))
+    log(f"[kernel] two launches at 2^20 points bit-identical: {same1}")
+    if not same1:
+        raise RuntimeError("kernel #1 is not deterministic")
+    pairs1 = make_kernel_apply_pairs(decoder, sd)
+    table1 = pairs1.table(z0[None])
+    sids1 = torch.zeros(1 << 20, dtype=torch.int32, device=dev)
+    err_k2 = float((pairs1.launch(table1, sids1, p20) - first).abs().max())
+    with SmiSampler() as smi1:
+        ms_shape = time_ms(lambda: [apply.launch(p, rows) for p in pts], 20)
+        ms_20a = time_ms(lambda: apply.launch(p20, rows), 20)
+        k2_a = time_ms(lambda: pairs1.launch(table1, sids1, p20), 20)
+        ms_20b = time_ms(lambda: apply.launch(p20, rows), 20)
+        k2_b = time_ms(lambda: pairs1.launch(table1, sids1, p20), 20)
+    ms_20, ms_k2 = (ms_20a + ms_20b) / 2, (k2_a + k2_b) / 2
     plain_shape = time_ms(lambda: [fast_apply(apply.ew, z0, p)
                                    for p in pts], 5)
     bound_shape, bound_by = bound(sum(shape_points), macs, wbytes)
-    p20 = torch.rand(1 << 20, 3, device=dev) * 2 - 1
-    ms_20 = time_ms(lambda: apply.launch(p20, rows), 20)
     plain_20 = time_ms(lambda: fast_apply(apply.ew, z0, p20), 5)
     bound_20, _ = bound(1 << 20, macs, wbytes)
     tflops = 2.0 * macs * (1 << 20) / (ms_20 * 1e-3) / 1e12
+    cfg1 = apply.config()
+    ptx1 = ptxas_report("fused_eval.cu")
     log(f"[kernel] one 256^3 shape ({sum(shape_points)} points in "
-        f"{len(shape_points)} launches): kernel {ms_shape:.3f} ms, plain "
+        f"{len(shape_points)} launches): kernel {ms_shape:.3f} ms "
+        f"({100 * bound_shape / ms_shape:.1f}% of its bound), plain "
         f"{plain_shape:.3f} ms, bound {bound_shape:.3f} ms ({bound_by}) "
         f"[{card}]")
-    log(f"[kernel] 2^20 points: kernel {ms_20:.3f} ms ({tflops:.1f} "
-        f"TFLOP/s), plain {plain_20:.3f} ms, bound {bound_20:.3f} ms "
-        f"[{card}]")
+    log(f"[kernel] 2^20 points: kernel {ms_20:.3f} ms ({ms_20a:.3f}, "
+        f"{ms_20b:.3f}; {tflops:.1f} TFLOP/s), plain {plain_20:.3f} ms, "
+        f"bound {bound_20:.3f} ms; kernel #2 with one code (S = 1) on the "
+        f"same points {ms_k2:.3f} ms ({k2_a:.3f}, {k2_b:.3f}), max|#2-#1| "
+        f"{err_k2:.3e} [{card}]")
+    log(f"[kernel] during the timed launches: {smi1.text()}")
+    log(f"[kernel] launch: cluster {cfg1['cluster']} CTAs, {cfg1['stages']} "
+        f"ring stages of 2 x 16 KB slabs, {cfg1['smem']} B shared memory, "
+        f"{cfg1['max_clusters']} clusters resident; ptxas: "
+        f"{ptx1['registers']} registers a thread at launch (before "
+        f"setmaxnreg), {ptx1['stack_bytes']} B stack, spills "
+        f"{ptx1['spill_stores']}/{ptx1['spill_loads']} B; warnings "
+        f"{ptx1['warnings'] or 'none'}")
+    if err_k2 > 1e-2:
+        raise RuntimeError(f"kernel #2 with one code vs kernel #1: {err_k2}")
     details["kernel"] = dict(
-        max_abs_err=max_err, tanh_err=err_t, shape_points=shape_points,
-        ms_shape=ms_shape, plain_ms_shape=plain_shape,
-        bound_ms_shape=bound_shape, ms_2p20=ms_20, plain_ms_2p20=plain_20,
-        bound_ms_2p20=bound_20, tflops_2p20=tflops, macs_per_point=macs)
+        max_abs_err=max_err, plan_errs=plan_errs, shape_points=shape_points,
+        bit_identical=same1, ms_shape=ms_shape, plain_ms_shape=plain_shape,
+        bound_ms_shape=bound_shape, ms_2p20=ms_20, ms_2p20_runs=[ms_20a,
+                                                                 ms_20b],
+        plain_ms_2p20=plain_20, bound_ms_2p20=bound_20, tflops_2p20=tflops,
+        macs_per_point=macs, k2_s1_ms_2p20=ms_k2, k2_s1_runs=[k2_a, k2_b],
+        k2_s1_vs_k1=err_k2, config=cfg1, ptxas=ptx1, smi=smi1.summary())
+    del pairs1, table1, sids1, first
 
     # ---- phase 3: serve 8 trained chairs at 256^3 (the main path)
     lat = list(codes[::768])

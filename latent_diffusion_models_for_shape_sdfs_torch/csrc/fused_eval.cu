@@ -1,266 +1,232 @@
-// Fused SDF-decoder evaluation for one latent over a batch of points.
+// Fused SDF-decoder evaluation for one latent over a batch of points,
+// designed for Hopper (sm_90a): wgmma, a shared-memory weight ring fed by
+// bulk copies that a thread-block cluster shares, and persistent CTAs.
 //
 // Replaces the TPU kernel `_build_eval_kernel` / `make_pallas_apply` in
-// latent_diffusion_models_for_shape_sdfs_tpu/ops/pallas_kernels.py.
+// latent_diffusion_models_for_shape_sdfs_tpu/ops/pallas_kernels.py:46, the
+// evaluator under every single-latent grid decode (serve_meshes,
+// watch_and_serve, generate_meshes, the per-shape decode).
 //
-// What it computes, for a tile of TILE_M points (xyz [N,3] f32, rows >= N
-// masked):
-//   layer 0      : h = bf16(relu(bf16(xyz) . w_x + row0))        CUDA cores (K=3)
-//   hidden layer : h = bf16(relu(h @ W^T [+ bf16(xyz) . w_x] + row))  tensor cores
-//   final layer  : sdf = h . w + row, optional tanh               CUDA cores
-// `row` is the layer's f32 bias row; for layer 0 and the skip layer the
-// wrapper has already added the hoisted latent product b + bf16(z) @ w_z
-// (as the TPU kernel's caller does), so the kernel sees only per-point
-// math. Products are bf16 x bf16 with f32 accumulation (mma.sync
-// m16n8k16), and every hidden activation is re-rounded to bf16, exactly
-// the arithmetic of ops/fused_decoder.py::fast_apply in bf16 (the plain
-// version this kernel is tested against).
+// What it computes, for points p < N (xyz [N,3] f32), x = bf16(xyz[p]):
+//   layer 0      : h = bf16(relu(x . w_x + row))
+//   hidden layer : h = bf16(relu(h @ W_h^T [+ x . w_x] + row))
+//   final layer  : sdf = h . w + row, optional tanh
+// `row` is the layer's f32 bias row, given per launch: for layer 0 and the
+// skip layers the wrapper has added the hoisted latent product b + bf16(z)
+// @ W_z (as the TPU kernel's caller does, pallas_kernels.py:137-142), so
+// the kernel runs only per-point products. Products are bf16 x bf16 with
+// f32 accumulation and every hidden activation is re-rounded to bf16: the
+// arithmetic of ops/fused_decoder.py::fast_apply in bf16 (the plain
+// version this kernel is held against), summed in another order (one
+// accumulator holds the hidden product, then the xyz product, then the
+// row is added).
 //
-// Bound on this card: ~3.15 MFLOP per point for the canonical 8x512
-// decoder against 24 bytes of input/output per point, so the work is
-// compute-bound (989 TFLOP/s bf16 -> ~3.2 ms per 2^20 points).
+// Bound on this card: the canonical 8x512 plan (L = 256, latent_in 4)
+// needs 1,573,376 multiply-adds per point against 16 bytes of input and
+// output per point plus the weights once, so it is operations-bound: 3.34
+// ms per 2^20 points at 989 TFLOP/s bf16. With its padding (each xyz term
+// one k16 slab and a zero slab, 253 -> 256) the tensor cores run ~1.61M.
 //
-// Design:
-//  * Activations stay on chip: the tile's activations live in two
-//    ping-pong buffers in dynamic shared memory (2 x 64 x 520 bf16 =
-//    130 KB; rows padded by 8 elements so ldmatrix and the epilogue's
-//    stores are free of bank conflicts). Nothing between layers touches
-//    device memory.
-//  * Weights are streamed, not resident: one 512x512 bf16 layer (512 KB)
-//    is larger than a block's shared memory, but all folded weights
-//    (~3.1 MB) stay hot in the 50 MB L2. The wrapper stores each hidden
-//    weight in mma fragment order, so each lane reads its B fragments for
-//    two n8 tiles with one coalesced 16-byte load straight into registers,
-//    prefetched two k-steps ahead. No shared memory and no barrier is
-//    spent on weights.
-//  * Each of the 8 warps owns a strip of output columns for all 64 rows,
-//    so every weight element is read once per tile; the A fragments come
-//    from shared memory through ldmatrix.
-//  * Widths are padded by the wrapper to multiples of 64 with zero rows and
-//    columns (253 -> 256): relu(0) = 0 contributes nothing downstream.
+// What bound the previous design (64-point tiles, mma.sync, 8 warps, each
+// warp reading its weight fragments from L2 into registers for every
+// tile): each byte of weights read from L2 fed only 64 points, 64 FLOP per
+// L2 byte, so the kernel ran at ~290 TFLOP/s, about all that L2 delivers
+// (11.4 ms per 2^20 points).
 //
-// What bounds it today: the weights are re-read from L2 for every 64-point
-// tile (64 FLOP per L2 byte), so L2 bandwidth, not the tensor cores, is the
-// expected limit. Larger tiles (wgmma, clusters sharing weights through
-// TMA multicast) are later work.
+// Design: the engine of csrc/eval_engine.cuh (shared with kernel #2,
+// csrc/fused_eval_pairs.cu): a cluster of 2 CTAs multicasting 16 KB k16
+// weight slabs into a shared-memory ring, so each weight byte read from L2
+// feeds 128 points; two consumer warpgroups of wgmma on 64-point tiles
+// whose activations stay in shared memory; a producer warpgroup.
+//  * The per-point tile is xyz alone: [64, 16] bf16 (x, y, z, then
+//    zeros), loaded into registers a tile ahead and written at the start
+//    of the tile. Layer 0 and the skip layers carry one [W_x | 0] slab
+//    and a zero slab that pads it to a whole ring stage; no latent tile,
+//    codes table or ids: the rows carry the latent products.
+//  * Persistent: the grid is the number of co-resident clusters, or fewer
+//    when the tiles need fewer (a 4,096-point launch has 64 tiles: 32
+//    clusters, none idle); clusters walk the tiles, and the producer runs
+//    ahead into the next tile's slabs while the last layers finish.
+//    Points at or past N are computed from zeros and never stored.
+//  * Widths pad to 64, 128, 256 or 512 (wgmma N per warpgroup 32-256).
+// Shared memory: 65,536 (activations) + 2,048 (xyz tile) + 512 (layer
+// table) + 5 x 32,784 (stages and barriers) = 232,016 of 232,448 bytes.
+// Without #2's 34,816-byte latent tile the ring holds 5 stages of 2 slabs
+// (#2: 4), the most that fit: tools/eval_probe.py measured 3 and 4 stages
+// slower (H100, 2^20 points: 5.36 and 5.65 ms against 5.00).
+//
+// What bounds it (tools/eval_probe.py, H100 80GB HBM3 at 700 W, 2^20
+// points): 5.00 ms, 67% of the bound. Without its wgmmas and bulk copies
+// it still takes 2.23 ms, without its wgmmas 3.77, without the hidden
+// layers' epilogues 4.56, without its bulk copies 4.70: the per-stage
+// barrier rounds and the syncs and epilogues between layers, on the
+// tensor cores' critical path, bind more than the products or the weight
+// stream, as in #2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "eval_engine.cuh"
+
 namespace {
 
-constexpr int TILE_M = 64;
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int MAX_WIDTH = 512;
-constexpr int ACT_STRIDE = MAX_WIDTH + 8;  // bf16 elements per smem row
-constexpr int MAX_LAYERS = 16;
-constexpr size_t SMEM_BYTES =
-    2 * TILE_M * ACT_STRIDE * sizeof(__nv_bfloat16) + TILE_M * 3 * sizeof(float);
+using namespace eval_engine;
 
-struct LayerDesc {
-  int k;             // padded input width of the hidden product (0: layer 0)
-  int n;             // padded output width (1: final layer)
-  long long w_off;   // bf16 offset of the weights in w_all
-  long long row_off; // f32 offset of the bias row in rows
-  long long x_off;   // bf16 offset of w_x [n,3] in wx_all, or -1
-};
+constexpr int XYZ_COLS = 16;      // the xyz tile: bf16 x, y, z, then zeros
+constexpr int STAGES = 5;         // ring stages: the most shared memory holds
+constexpr int XYZ_BYTES = TILE_M * XYZ_COLS * 2;
 
 struct Plan {
-  int n_layers;
-  int use_tanh;
-  LayerDesc layers[MAX_LAYERS];
+  int n_layers, use_tanh;
+  Layer layers[MAX_LAYERS];   // k2: XYZ_COLS for layer 0 and the skip layers
 };
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// activations, xyz tile, the layer table, then the ring's stages and their
+// full and empty barriers
+constexpr int SMEM_BYTES =
+    ACT_BYTES + XYZ_BYTES + TABLE_BYTES + STAGES * (STAGE_BYTES + 16);
+static_assert(SMEM_BYTES <= SMEM_LIMIT, "the ring does not fit");
+
+// xyz of this thread's point in the tile at m0 (one thread a point, tid <
+// TILE_M; zeros past N and for the other threads), loaded a tile ahead of
+// store_xyz, which rounds it to bf16.
+__device__ __forceinline__ float3 point_xyz(const float* xyz, long long m0,
+                                            long long n_points, int tid) {
+  const long long p = m0 + tid;
+  float3 v = make_float3(0.f, 0.f, 0.f);
+  if (tid < TILE_M && p < n_points)
+    v = make_float3(__ldg(xyz + p * 3), __ldg(xyz + p * 3 + 1),
+                    __ldg(xyz + p * 3 + 2));
+  return v;
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ float xterm(const float* xs, int m,
-                                       const __nv_bfloat16* wx, int col) {
-  return xs[m * 3] * __bfloat162float(wx[col * 3]) +
-         xs[m * 3 + 1] * __bfloat162float(wx[col * 3 + 1]) +
-         xs[m * 3 + 2] * __bfloat162float(wx[col * 3 + 2]);
-}
-
-// B fragments of NT n8 tiles (NT/2 tile pairs) for k-step kt. Weight layout
-// (wrapper-made): [n/16 pairs][k/16 steps][32 lanes] of uint4, where a lane's
-// uint4 holds {b0, b1} of the even tile and {b0, b1} of the odd tile.
-template <int NT>
-__device__ __forceinline__ void load_b(uint4 (&b)[NT / 2], const uint4* wp,
-                                       int kt, int kts) {
-#pragma unroll
-  for (int p = 0; p < NT / 2; ++p) b[p] = __ldg(wp + ((size_t)p * kts + kt) * 32);
-}
-
-template <int NT>
-__device__ __forceinline__ void mma_kstep(float (&acc)[4][NT][4],
-                                          const __nv_bfloat16* a_s, int kt,
-                                          const uint4 (&b)[NT / 2], int lane) {
-  const __nv_bfloat16* base =
-      a_s + (lane % 16) * ACT_STRIDE + kt * 16 + (lane / 16) * 8;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    uint32_t a[4];
-    ldmatrix_x4(a, base + mt * 16 * ACT_STRIDE);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const uint4& q = b[nt / 2];
-      if (nt % 2 == 0)
-        mma_bf16(acc[mt][nt], a, q.x, q.y);
-      else
-        mma_bf16(acc[mt][nt], a, q.z, q.w);
-    }
+// Columns 0-7 of the point's xyz tile row: bf16 x, y, z, zeros (columns
+// 8-15 stay as zeroed at the start).
+__device__ __forceinline__ void store_xyz(__nv_bfloat16* xt, float3 v,
+                                          int tid) {
+  if (tid < TILE_M) {
+    const __nv_bfloat162 xy = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 z0 = __floats2bfloat162_rn(v.z, 0.f);
+    *reinterpret_cast<uint4*>(xt + tile_off(tid, 0)) =
+        make_uint4(*reinterpret_cast<const uint32_t*>(&xy),
+                   *reinterpret_cast<const uint32_t*>(&z0), 0u, 0u);
   }
 }
 
-// One hidden layer: d_s[64, n] = bf16(relu(a_s[64, k] @ W^T (+ xterm) + row)).
-// Warps walk strips of NT*8 output columns.
-template <int NT>
-__device__ void hidden_layer(const __nv_bfloat16* a_s, __nv_bfloat16* d_s,
-                             const uint4* w, const float* row,
-                             const __nv_bfloat16* wx, const float* xs, int k,
-                             int n, int warp, int lane) {
-  const int kts = k / 16;
-  const int strips = n / (NT * 8);
-  const int g = lane / 4, q = lane % 4;
-  for (int s = warp; s < strips; s += WARPS) {
-    float acc[4][NT][4];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-    const uint4* wp = w + (size_t)s * (NT / 2) * kts * 32 + lane;
-    uint4 b0[NT / 2], b1[NT / 2];
-    load_b<NT>(b0, wp, 0, kts);
-    if (kts > 1) load_b<NT>(b1, wp, 1, kts);
-    for (int kt = 0; kt < kts; kt += 2) {
-      mma_kstep<NT>(acc, a_s, kt, b0, lane);
-      if (kt + 2 < kts) load_b<NT>(b0, wp, kt + 2, kts);
-      if (kt + 1 < kts) {
-        mma_kstep<NT>(acc, a_s, kt + 1, b1, lane);
-        if (kt + 3 < kts) load_b<NT>(b1, wp, kt + 3, kts);
-      }
-    }
-
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int col = s * NT * 8 + nt * 8 + q * 2;
-      const float r0 = row[col], r1 = row[col + 1];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = mt * 16 + g + h * 8;
-          float v0 = acc[mt][nt][h * 2], v1 = acc[mt][nt][h * 2 + 1];
-          if (wx != nullptr) {
-            v0 += xterm(xs, m, wx, col);
-            v1 += xterm(xs, m, wx, col + 1);
-          }
-          v0 = fmaxf(v0 + r0, 0.f);
-          v1 = fmaxf(v1 + r1, 0.f);
-          *reinterpret_cast<__nv_bfloat162*>(d_s + m * ACT_STRIDE + col) =
-              __floats2bfloat162_rn(v0, v1);
-        }
-      }
-    }
+// One hidden layer of the tile. The last one (wf: the final layer's
+// weight) leaves its partial sdf sums in `red` (the start of the then free
+// activation tile) instead of writing h.
+template <int NW>
+__device__ __forceinline__ void run_layer(__nv_bfloat16* act, uint32_t xt,
+                                          const Layer& L, const float* rows,
+                                          int wg, int warp, int lane,
+                                          uint32_t leader, Ring& ring,
+                                          const __nv_bfloat16* wf) {
+  float acc[NW / 2];
+  layer_products<NW>(acc, smem_u32(act), xt, L.k, L.k2, wg, leader, ring);
+  consumer_sync();                  // both warpgroups have read act
+  if (wf != nullptr) {
+    final_fold<NW>(acc, rows + L.row_off, wf, reinterpret_cast<float*>(act),
+                   wg, warp, lane);
+  } else {
+    layer_epilogue<NW>(acc, smem_u32(act), rows + L.row_off, wg, warp, lane);
+    fence_async_smem();
   }
+  consumer_sync();
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
     fused_eval_kernel(const float* __restrict__ xyz, float* __restrict__ out,
-                      int n_points, const __nv_bfloat16* __restrict__ w_all,
+                      long long n_points, const __nv_bfloat16* __restrict__ w,
                       const float* __restrict__ rows,
-                      const __nv_bfloat16* __restrict__ wx_all, Plan plan) {
+                      const __grid_constant__ Plan plan) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* act0 = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* act1 = act0 + TILE_M * ACT_STRIDE;
-  float* xs = reinterpret_cast<float*>(act1 + TILE_M * ACT_STRIDE);
+  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* xt = act + TILE_M * MAX_WIDTH;   // xyz tile [64, 16]
+  Layer* layers = reinterpret_cast<Layer*>(smem + ACT_BYTES + XYZ_BYTES);
+  unsigned char* slots = reinterpret_cast<unsigned char*>(layers) + TABLE_BYTES;
+  Ring ring;
+  ring.stages = STAGES;
+  ring.slots = smem_u32(slots);
+  ring.full = ring.slots + STAGES * STAGE_BYTES;
+  ring.empty = ring.full + STAGES * 8;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const long long m0 = (long long)blockIdx.x * TILE_M;
-
-  // xyz tile, rounded to bf16 (kept as f32 values); masked past N
-  if (tid < TILE_M * 3) {
-    const long long p = m0 + tid / 3;
-    const float v = p < n_points ? xyz[m0 * 3 + tid] : 0.f;
-    xs[tid] = __bfloat162float(__float2bfloat16_rn(v));
-  }
-  __syncthreads();
-
-  // layer 0: K = 3 on CUDA cores, + hoisted row, relu, bf16
-  {
-    const LayerDesc& L = plan.layers[0];
-    const float* row = rows + L.row_off;
-    const __nv_bfloat16* wx = wx_all + L.x_off;
-    const int pairs = L.n / 2;
-    for (int e = tid; e < TILE_M * pairs; e += THREADS) {
-      const int m = e / pairs, col = (e % pairs) * 2;
-      const float v0 = fmaxf(xterm(xs, m, wx, col) + row[col], 0.f);
-      const float v1 = fmaxf(xterm(xs, m, wx, col + 1) + row[col + 1], 0.f);
-      *reinterpret_cast<__nv_bfloat162*>(act0 + m * ACT_STRIDE + col) =
-          __floats2bfloat162_rn(v0, v1);
+  const int tid = threadIdx.x, lane = tid % 32;
+  // warp-uniform to the compiler (no divergent path around the wgmmas)
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const uint32_t rank = cluster_rank();
+  if (tid < plan.n_layers) layers[tid] = plan.layers[tid];
+  if (tid < XYZ_BYTES / 16)         // the xyz tile's zeros
+    reinterpret_cast<uint4*>(xt)[tid] = make_uint4(0u, 0u, 0u, 0u);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(ring.full + s * 8, 1);
+      mbar_init(ring.empty + s * 8, 2 * CLUSTER);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  __syncthreads();
+  cluster_sync();
 
-  __nv_bfloat16* cur = act0;
-  __nv_bfloat16* nxt = act1;
-  for (int li = 1; li < plan.n_layers - 1; ++li) {
-    const LayerDesc& L = plan.layers[li];
-    const uint4* w = reinterpret_cast<const uint4*>(w_all + L.w_off);
-    const float* row = rows + L.row_off;
-    const __nv_bfloat16* wx = L.x_off >= 0 ? wx_all + L.x_off : nullptr;
-    if (L.n >= WARPS * 64)
-      hidden_layer<8>(cur, nxt, w, row, wx, xs, L.k, L.n, warp, lane);
-    else
-      hidden_layer<4>(cur, nxt, w, row, wx, xs, L.k, L.n, warp, lane);
-    __syncthreads();
-    __nv_bfloat16* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
+  // clusters walk the tiles; the CTAs of one cluster stay in lock step
+  const long long n_tiles = (n_points + TILE_M - 1) / TILE_M;
+  const long long stride = static_cast<long long>(gridDim.x);
+  const long long base0 =
+      static_cast<long long>(blockIdx.x / CLUSTER) * CLUSTER;
 
-  // final layer: one dot product per point, + bias, optional tanh
-  {
-    const LayerDesc& L = plan.layers[plan.n_layers - 1];
-    const __nv_bfloat16* w = w_all + L.w_off;
-    const float bias = rows[L.row_off];
-    for (int m = warp; m < TILE_M; m += WARPS) {
-      float s = 0.f;
-      for (int k = lane * 2; k < L.k; k += 64) {
-        const float2 a = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(cur + m * ACT_STRIDE + k));
-        const float2 b = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(w + k));
-        s += a.x * b.x + a.y * b.y;
+  if (warp >= CONSUMERS / 32) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == CONSUMERS / 32 && lane == 0)
+      produce(layers, plan.n_layers, w, rank, base0, n_tiles, stride, ring);
+    __syncwarp();
+    cluster_sync();   // no CTA leaves while its cluster may still write to it
+  } else {
+    // consumers: two warpgroups
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = warp / 4, wwarp = warp % 4;
+    const uint32_t leader = (tid % 128) == 0;
+    const Layer& F = layers[plan.n_layers - 1];
+    const __nv_bfloat16* wf = w + F.w_off;
+    float3 next = point_xyz(xyz, (base0 + rank) * TILE_M, n_points, tid);
+    for (long long base = base0; base < n_tiles; base += stride) {
+      const long long m0 = (base + rank) * TILE_M;
+      // this tile's xyz (the previous tile's layers have read the tile),
+      // then the next tile's into registers
+      store_xyz(xt, next, tid);
+      next = point_xyz(xyz, (base + stride + rank) * TILE_M, n_points, tid);
+      fence_async_smem();
+      consumer_sync();
+      for (int li = 0; li < plan.n_layers - 1; ++li) {
+        const Layer& L = layers[li];
+        const __nv_bfloat16* f = li == plan.n_layers - 2 ? wf : nullptr;
+        switch (L.n) {
+          case 512:
+            run_layer<256>(act, smem_u32(xt), L, rows, wg, wwarp, lane,
+                           leader, ring, f);
+            break;
+          case 256:
+            run_layer<128>(act, smem_u32(xt), L, rows, wg, wwarp, lane,
+                           leader, ring, f);
+            break;
+          case 128:
+            run_layer<64>(act, smem_u32(xt), L, rows, wg, wwarp, lane,
+                          leader, ring, f);
+            break;
+          default:
+            run_layer<32>(act, smem_u32(xt), L, rows, wg, wwarp, lane,
+                          leader, ring, f);
+            break;
+        }
       }
-#pragma unroll
-      for (int o = 16; o > 0; o /= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0 && m0 + m < n_points) {
-        float v = s + bias;
+      // final layer: the two warpgroups' partial sums, the row, tanh
+      if (tid < TILE_M && m0 + tid < n_points) {
+        const float* red = reinterpret_cast<const float*>(act);
+        float v = red[tid] + red[TILE_M + tid] + rows[F.row_off];
         if (plan.use_tanh) v = tanhf(v);
-        out[m0 + m] = v;
+        out[m0 + tid] = v;
       }
     }
+    cluster_sync();
   }
 }
 
@@ -268,42 +234,81 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 extern "C" {
 
-// meta: n_layers rows of 5 int64 (k, n, w_off, row_off, x_off), host memory.
+// The launch configuration: ring stages, dynamic shared memory, the
+// clusters that fit on the card at once (0 if none) and their size.
+// Returns the cudaError_t of the query.
+int fused_eval_config(int* stages, int* smem, int* max_clusters,
+                      int* cluster) {
+  *stages = STAGES;
+  *smem = SMEM_BYTES;
+  *cluster = CLUSTER;
+  static int cached_clusters = -1;
+  if (cached_clusters < 0) {
+    int n = 0;
+    const int e = resident_clusters(fused_eval_kernel, SMEM_BYTES, &n);
+    if (e != 0) return e;
+    cached_clusters = n;
+  }
+  *max_clusters = cached_clusters;
+  return 0;
+}
+
+// xyz [n_points, 3] f32; w: the slab stream of pack_weights, 16-byte
+// aligned; rows: every layer's f32 row (hoisted_rows), 8-byte aligned;
+// meta: n_layers rows of 5 int64 (k, n, k2, w_off, row_off), host memory.
 // Returns the cudaError_t of the launch (0 = success).
 int fused_eval_launch(const float* xyz, float* out, long long n_points,
-                      const void* w_all, const float* rows, const void* wx_all,
-                      const long long* meta, int n_layers, int use_tanh,
-                      void* stream) {
-  if (n_layers < 2 || n_layers > MAX_LAYERS || n_points > 0x7fffffffLL)
+                      const void* w, const float* rows, const long long* meta,
+                      int n_layers, int use_tanh, void* stream) {
+  if (n_layers < 2 || n_layers > MAX_LAYERS || n_points < 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(rows) % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_points == 0) return 0;
+  int stages = 0, smem = 0, max_clusters = 0, cluster = 0;
+  int e = fused_eval_config(&stages, &smem, &max_clusters, &cluster);
+  if (e != 0) return e;
+  if (max_clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   Plan plan;
   plan.n_layers = n_layers;
   plan.use_tanh = use_tanh;
+  int prev_n = 0;
   for (int i = 0; i < n_layers; ++i) {
     const long long* r = meta + 5 * i;
-    plan.layers[i] = LayerDesc{static_cast<int>(r[0]), static_cast<int>(r[1]),
-                               r[2], r[3], r[4]};
+    Layer L{static_cast<int>(r[0]), static_cast<int>(r[1]),
+            static_cast<int>(r[2]), r[3], r[4]};
+    const bool final = i == n_layers - 1;
+    const bool width_ok = final ? L.n == 1
+                                : (L.n == 64 || L.n == 128 || L.n == 256 ||
+                                   L.n == MAX_WIDTH);
+    if (!width_ok || L.k != prev_n || (L.k2 != 0 && L.k2 != XYZ_COLS) ||
+        (!final && (L.k / 16) % STAGE_SLABS != 0) ||
+        (final && L.k2 != 0) || (i == 0 && L.k2 == 0) || L.w_off % 8 != 0 ||
+        L.row_off % 2 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    plan.layers[i] = L;
+    prev_n = L.n;
   }
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(SMEM_BYTES));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
-  const unsigned blocks =
-      static_cast<unsigned>((n_points + TILE_M - 1) / TILE_M);
-  fused_eval_kernel<<<blocks, THREADS, SMEM_BYTES,
-                      static_cast<cudaStream_t>(stream)>>>(
-      xyz, out, static_cast<int>(n_points),
-      static_cast<const __nv_bfloat16*>(w_all), rows,
-      static_cast<const __nv_bfloat16*>(wx_all), plan);
-  return static_cast<int>(cudaGetLastError());
+  if (n_points == 0) return 0;
+  return launch_clusters(fused_eval_kernel, n_points, max_clusters,
+                         SMEM_BYTES, stream, xyz, out, n_points,
+                         static_cast<const __nv_bfloat16*>(w), rows, plan);
 }
 
-// Widest padded layer the shared-memory activation buffers hold.
+// Widest padded layer the shared-memory activation tile holds.
 int fused_eval_max_width() { return MAX_WIDTH; }
+
+// The shared-memory layout the wrapper packs for: slab bytes per slot, the
+// core-matrix strides of slabs and tiles (LBO, SBO), the slabs per ring
+// stage (each xyz slab is padded with zero slabs to a multiple of it) and
+// the xyz tile's width (the xyz slab's inputs).
+void fused_eval_layout(int* out) {
+  out[0] = SLOT_BYTES;
+  out[1] = SLAB_LBO;
+  out[2] = SLAB_SBO;
+  out[3] = TILE_LBO;
+  out[4] = TILE_SBO;
+  out[5] = STAGE_SLABS;
+  out[6] = XYZ_COLS;
+}
 
 }  // extern "C"

@@ -3,25 +3,28 @@
 Counterpart of the JAX package's `ops/pallas_kernels.py`.
 
 ``make_kernel_apply`` (replaces ``make_pallas_apply``): fused SDF-decoder
-evaluation, `csrc/fused_eval.cu`. Weight-norm folding happens once at
-closure time; per call the wrapper computes the two hoisted latent rows
-(b + bf16(z) @ w_z, plain GEMVs, as the TPU kernel's caller does) and
-launches one kernel that runs every layer for a tile of points with the
-activations in shared memory. Its plain version is
+evaluation for one latent, `csrc/fused_eval.cu` (wgmma, weights streamed
+through shared memory and shared by a thread-block cluster). Weight-norm
+folding happens once at closure time; per call the wrapper computes every
+layer's row, with the latent products of layer 0 and the skip layers
+hoisted into it (b + bf16(z) @ w_z, plain GEMVs, as the TPU kernel's
+caller does), and launches one kernel that runs every layer for a tile of
+points with the activations in shared memory; only the xyz products run
+per point. `pack_weights` packs the weights as the slab stream the kernel
+copies into shared memory as it is. Its plain version is
 `ops.fused_decoder.fast_apply` in bf16: a wrapper given CPU tensors runs
 that; given CUDA tensors it launches the kernel or raises.
 
 ``make_kernel_apply_pairs`` (replaces ``make_pallas_apply_pairs``): the same
 evaluation where every point carries its own latent row,
-`csrc/fused_eval_pairs.cu` (wgmma, weights streamed through shared memory
-and shared by a thread-block cluster). Nothing is hoisted: the latent and
-xyz products of layer 0 and the skip layers run inside the kernel, and
-every layer's row is its bias, uploaded once. The kernel reads each
-point's latent row itself, from a codes table [S, L] and an int32 shape
-id per point (`KernelApplyPairs.indexed`); the (z_rows, xyz) call is the
-case S = N, ids 0..N-1. `pack_weights_pairs` packs the weights as the
-slab stream the kernel copies into shared memory as it is. Its plain
-version is `fast_apply` in bf16 over codes[sids].
+`csrc/fused_eval_pairs.cu` (the same engine with a latent tile). Nothing
+is hoisted: the latent and xyz products of layer 0 and the skip layers run
+inside the kernel, and every layer's row is its bias, uploaded once. The
+kernel reads each point's latent row itself, from a codes table [S, L]
+and an int32 shape id per point (`KernelApplyPairs.indexed`); the
+(z_rows, xyz) call is the case S = N, ids 0..N-1. `pack_weights_pairs`
+packs its slab stream. Its plain version is `fast_apply` in bf16 over
+codes[sids].
 """
 
 from __future__ import annotations
@@ -40,11 +43,10 @@ from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
 from latent_diffusion_models_for_shape_sdfs_torch.utils.device import (
     resolve_device)
 
-_PAD = 64          # the kernel takes widths that are multiples of 64
-MAX_WIDTH = 512    # csrc/fused_eval.cu MAX_WIDTH (checked at load)
-MAX_LAYERS = 16    # csrc/fused_eval.cu MAX_LAYERS
+MAX_WIDTH = 512    # both eval kernels' MAX_WIDTH (checked at load)
+MAX_LAYERS = 16    # both eval kernels' MAX_LAYERS
 MAX_LATENT = 512   # csrc/fused_eval_pairs.cu MAX_LATENT (checked at load)
-PAIRS_WIDTHS = (64, 128, 256, 512)   # the pairs kernel's padded widths
+EVAL_WIDTHS = (64, 128, 256, 512)    # both eval kernels' padded widths
 # csrc/fused_eval_pairs.cu's shared-memory layout (checked at load): bytes
 # of a ring slot (one slab), the byte strides between 8x8 core matrices of
 # a weight slab and of an activation or latent tile (wgmma's K-major layout
@@ -52,73 +54,71 @@ PAIRS_WIDTHS = (64, 128, 256, 512)   # the pairs kernel's padded widths
 # slabs per ring stage (every layer's slab count is a multiple of it)
 PAIRS_LAYOUT = dict(slot_bytes=16384, slab_lbo=128, slab_sbo=256,
                     tile_lbo=1024, tile_sbo=128, stage_slabs=2)
-
-
-def _pad_to(n: int) -> int:
-    return -(-n // _PAD) * _PAD
+# csrc/fused_eval.cu's (checked at load): the same, and the width of its
+# xyz tile (bf16 x, y, z, then zeros), the inputs of an xyz slab
+EVAL_LAYOUT = dict(PAIRS_LAYOUT, xyz_cols=16)
 
 
 def _pad2(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return F.pad(w, (0, cols - w.shape[1], 0, rows - w.shape[0]))
 
 
-def fragment_order(w: torch.Tensor) -> torch.Tensor:
-    """[N, K] bf16 weight (N, K multiples of 16) -> flat mma.sync B-fragment
-    order [N/16][K/16][32 lanes][8]: lane (g, q) of an m16n8k16 product
-    holds W[n0 + g, k0 + 2q + {0,1}] and W[n0 + g, k0 + 8 + 2q + {0,1}] for
-    the even n8 tile, then the same for the odd one, so one 16-byte load
-    gives it both tiles' fragments."""
-    n, k = w.shape
-    # (ntp, pair, g, kt, khalf, q, kk) -> (ntp, kt, g, q, pair, khalf, kk)
-    return (w.reshape(n // 16, 2, 8, k // 16, 2, 4, 2)
-            .permute(0, 3, 2, 5, 1, 4, 6).contiguous().reshape(-1))
-
-
-def pack_weights(ew: EvalWeights) -> tuple:
-    """The kernel's view of a folded decoder: (w_all bf16, wx_all bf16,
-    meta int64 [n_layers, 5]). Hidden weights are zero-padded to widths
-    that are multiples of 64 and stored in fragment order, the final
-    layer's weight as a plain padded vector after them, each layer's w_x
-    as [n, 3]; meta rows are (k, n, w_off, row_off, x_off) with x_off -1
-    for layers without an xyz term. Raises on a plan the kernel does not
-    take."""
+def _check_plan(ew: EvalWeights, what: str) -> list:
+    """The padded widths of a plan's layers (1 for the final one); raises
+    unless it has a latent first layer, hidden layers and a plain scalar
+    final layer, at most MAX_LAYERS of width <= MAX_WIDTH."""
     layers = ew.layers
     last = layers[-1]
     if (layers[0].w_h is not None or last.w_z is not None
             or last.b.shape[0] != 1
-            or any(lay.w_h is None for lay in layers[1:])):
-        raise ValueError("fused kernel: unsupported layer plan (needs a "
-                         "latent first layer, hidden layers, and a plain "
-                         "scalar final layer)")
-    widths = [_pad_to(lay.b.shape[0]) for lay in layers[:-1]]
-    if max(widths) > MAX_WIDTH or len(layers) > MAX_LAYERS:
-        raise ValueError(f"fused kernel: {len(layers)} layers of padded "
-                         f"width up to {max(widths)}; takes at most "
-                         f"{MAX_LAYERS} of width {MAX_WIDTH}")
+            or any(lay.w_h is None for lay in layers[1:])
+            or any((lay.w_z is None) != (lay.w_x is None) for lay in layers)):
+        raise ValueError(f"{what}: unsupported layer plan (needs a latent "
+                         "first layer, hidden layers, and a plain scalar "
+                         "final layer)")
+    widest = max(lay.b.shape[0] for lay in layers[:-1])
+    if widest > MAX_WIDTH or len(layers) > MAX_LAYERS:
+        raise ValueError(f"{what}: {len(layers)} layers of width up to "
+                         f"{widest}; takes at most {MAX_LAYERS} of width "
+                         f"{MAX_WIDTH}")
+    return [next(w for w in EVAL_WIDTHS if lay.b.shape[0] <= w)
+            for lay in layers[:-1]] + [1]
+
+
+def pack_weights(ew: EvalWeights) -> tuple:
+    """Kernel #1's view of a folded decoder: (w bf16, meta int64
+    [n_layers, 5]).
+
+    `w` is the slab stream the kernel walks for every tile: for each layer
+    but the last, its hidden slabs (slab_order of W_h, widths padded to 64,
+    128, 256 or 512), then for layer 0 and the skip layers one xyz slab
+    (slab_order of [W_x | 0], 16 inputs) followed by zero slabs up to a
+    whole ring stage; then the final layer's weight as a plain padded
+    vector. The latent products are not in it: hoisted_rows adds them to
+    the rows per launch. meta rows are (k, n, kx, w_off, row_off): padded
+    hidden input width, output width (1 for the final layer), xyz input
+    width (16 or 0), bf16 offset in w, f32 offset of the layer's row in
+    hoisted_rows. Raises on a plan the kernel does not take."""
+    widths = _check_plan(ew, "fused kernel")
+    xk, g = EVAL_LAYOUT["xyz_cols"], EVAL_LAYOUT["stage_slabs"]
     # every part's size is a multiple of 64 elements, so each layer's
-    # weights start 16-byte aligned (the kernel's uint4 loads)
-    w_parts, x_parts, meta = [], [], []
-    w_off = row_off = x_off = 0
-    for i, lay in enumerate(layers):
-        n = widths[i] if i < len(layers) - 1 else 1
-        k = widths[i - 1] if i > 0 else 0
-        wo, xo = w_off, -1
-        if lay.w_x is not None:
-            xo = x_off
-            x_parts.append(_pad2(lay.w_x, n, 3).reshape(-1))
-            x_off += n * 3
-        if i == len(layers) - 1:
-            w_parts.append(_pad2(lay.w_h, 1, k).reshape(-1))
-            w_off += k
-        elif i > 0:
-            w_parts.append(fragment_order(_pad2(lay.w_h, n, k)))
-            w_off += n * k
-        meta.append((k, n, wo, row_off, xo))
+    # slabs start 16-byte aligned (the bulk copies' source alignment)
+    parts, meta = [], []
+    w_off = row_off = 0
+    for i, lay in enumerate(ew.layers):
+        n, k = widths[i], widths[i - 1] if i else 0
+        kx = xk if lay.w_x is not None else 0
+        meta.append((k, n, kx, w_off, row_off))
+        if n == 1:
+            parts.append(_pad2(lay.w_h, 1, k).reshape(-1))
+        elif k:
+            parts.append(slab_order(_pad2(lay.w_h, n, k)))
+        if kx:
+            parts.append(slab_order(_pad2(lay.w_x, n, g * xk)))
+        w_off = sum(p.numel() for p in parts)
         row_off += n
-    bf = torch.bfloat16
-    return (torch.cat(w_parts).to(bf).contiguous(),
-            torch.cat(x_parts).to(bf).contiguous(),
-            np.ascontiguousarray(meta, np.int64))
+    return (torch.cat([p.to(torch.bfloat16) for p in parts]).contiguous(),
+            np.asarray(meta, np.int64))
 
 
 def hoisted_rows(ew: EvalWeights, meta: np.ndarray,
@@ -154,13 +154,6 @@ def pairs_latent_widths(latent_size: int) -> tuple:
     return lt, -(-(lt + 3) // 16) * 16
 
 
-def _pairs_width(n: int) -> int:
-    for w in PAIRS_WIDTHS:
-        if n <= w:
-            return w
-    raise ValueError(f"fused pairs kernel: layer width {n} > {MAX_WIDTH}")
-
-
 def pack_weights_pairs(ew: EvalWeights) -> tuple:
     """The pairs kernel's view of a folded decoder: (w bf16, rows f32, meta
     int64 [n_layers, 5], lt, lzx).
@@ -176,35 +169,22 @@ def pack_weights_pairs(ew: EvalWeights) -> tuple:
     (1 for the final layer), latent + xyz width (lzx or 0), bf16 offset in
     w, f32 offset of the padded bias in rows. Raises on a plan the kernel
     does not take."""
-    layers = ew.layers
-    last = layers[-1]
-    if (layers[0].w_h is not None or last.w_z is not None
-            or last.b.shape[0] != 1
-            or any(lay.w_h is None for lay in layers[1:])
-            or any((lay.w_z is None) != (lay.w_x is None) for lay in layers)):
-        raise ValueError("fused pairs kernel: unsupported layer plan (needs "
-                         "a latent first layer, hidden layers, and a plain "
-                         "scalar final layer)")
+    widths = _check_plan(ew, "fused pairs kernel")
     if ew.latent_size > MAX_LATENT:
         raise ValueError(f"fused pairs kernel: latent size {ew.latent_size} "
                          f"> {MAX_LATENT}")
-    if len(layers) > MAX_LAYERS:
-        raise ValueError(f"fused pairs kernel: {len(layers)} layers; takes "
-                         f"at most {MAX_LAYERS}")
     lt, lzx = pairs_latent_widths(ew.latent_size)
-    widths = [_pairs_width(lay.b.shape[0]) for lay in layers[:-1]]
     # every part's size is a multiple of 64 elements, so each layer's
     # slabs start 16-byte aligned (the bulk copies' source alignment)
     parts, meta, rows = [], [], []
     w_off = row_off = 0
-    for i, lay in enumerate(layers):
-        n = widths[i] if i < len(layers) - 1 else 1
-        k = widths[i - 1] if i > 0 else 0
+    for i, lay in enumerate(ew.layers):
+        n, k = widths[i], widths[i - 1] if i else 0
         kz = lzx if lay.w_z is not None else 0
         meta.append((k, n, kz, w_off, row_off))
-        if i == len(layers) - 1:
+        if n == 1:
             parts.append(_pad2(lay.w_h, 1, k).reshape(-1))
-        if i < len(layers) - 1 and k:
+        elif k:
             parts.append(slab_order(_pad2(lay.w_h, n, k)))
         if kz:
             wz = _pad2(lay.w_z, lay.w_z.shape[0], lt)
@@ -223,17 +203,24 @@ def pack_weights_pairs(ew: EvalWeights) -> tuple:
 def _fused_eval_lib():
     lib = _build.load("fused_eval.cu")
     if not getattr(lib, "_argtypes_set", False):
-        vp = ctypes.c_void_p
-        lib.fused_eval_launch.restype = ctypes.c_int
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.fused_eval_launch.restype = i32
         lib.fused_eval_launch.argtypes = [
-            vp, vp, ctypes.c_longlong, vp, vp, vp,
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
-            vp]
-        lib.fused_eval_max_width.restype = ctypes.c_int
+            vp, vp, i64, vp, vp, ctypes.POINTER(i64), i32, i32, vp]
+        lib.fused_eval_config.restype = i32
+        lib.fused_eval_config.argtypes = [ip, ip, ip, ip]
+        lib.fused_eval_layout.restype = None
+        lib.fused_eval_layout.argtypes = [ip]
+        lib.fused_eval_max_width.restype = i32
         lib.fused_eval_max_width.argtypes = []
-        if lib.fused_eval_max_width() != MAX_WIDTH:
+        layout = (ctypes.c_int * len(EVAL_LAYOUT))()
+        lib.fused_eval_layout(layout)
+        if (lib.fused_eval_max_width() != MAX_WIDTH
+                or list(layout) != list(EVAL_LAYOUT.values())):
             raise RuntimeError("csrc/fused_eval.cu and cuda_kernels.py "
-                               "disagree on the widest layer")
+                               "disagree on the widest layer or on the "
+                               "shared-memory layout")
         lib._argtypes_set = True
     return lib
 
@@ -250,9 +237,19 @@ class KernelApply:
         self.launches = 0
         if device.type == "cuda":
             _fused_eval_lib()
-            w_all, wx_all, self.meta = pack_weights(ew)
-            self.w_all = w_all.to(device)
-            self.wx_all = wx_all.to(device)
+            w, self.meta = pack_weights(ew)
+            self.w = w.to(device)
+
+    def config(self) -> dict:
+        """The launch configuration on this card: ring stages, dynamic
+        shared memory (bytes), clusters resident at once, CTAs a cluster."""
+        out = [ctypes.c_int() for _ in range(4)]
+        rc = _fused_eval_lib().fused_eval_config(
+            *[ctypes.byref(o) for o in out])
+        if rc != 0:
+            raise RuntimeError(f"fused_eval_config failed: cudaError {rc}")
+        return dict(zip(("stages", "smem", "max_clusters", "cluster"),
+                        (o.value for o in out)))
 
     def launch(self, xyz: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
         """One kernel launch on the current stream: xyz [N,3] f32 and the
@@ -262,12 +259,18 @@ class KernelApply:
             raise ValueError("fused kernel: xyz must be a contiguous "
                              f"float32 [N, 3] tensor, got {xyz.dtype} "
                              f"{tuple(xyz.shape)}")
+        n_rows = int(self.meta[:, 1].sum())
+        if (rows.dtype != torch.float32 or tuple(rows.shape) != (n_rows,)
+                or not rows.is_contiguous() or rows.device != xyz.device):
+            raise ValueError(f"fused kernel: rows must be a contiguous "
+                             f"float32 [{n_rows}] tensor on {xyz.device}, "
+                             f"got {rows.dtype} {tuple(rows.shape)} on "
+                             f"{rows.device}")
         out = torch.empty(xyz.shape[0], dtype=torch.float32,
                           device=xyz.device)
         rc = _fused_eval_lib().fused_eval_launch(
-            xyz.data_ptr(), out.data_ptr(), xyz.shape[0],
-            self.w_all.data_ptr(), rows.data_ptr(),
-            self.wx_all.data_ptr(),
+            xyz.data_ptr(), out.data_ptr(), xyz.shape[0], self.w.data_ptr(),
+            rows.data_ptr(),
             self.meta.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
             len(self.meta), int(self.ew.use_tanh),
             torch.cuda.current_stream(xyz.device).cuda_stream)

@@ -85,7 +85,57 @@ def test_kernel_wrapper_checks_inputs(cuda):
     with pytest.raises(ValueError, match="xyz must be"):
         apply.launch(torch.zeros(4, 4, device=cuda),
                      torch.zeros(1, device=cuda))
+    with pytest.raises(ValueError, match="rows must be"):
+        apply.launch(torch.zeros(4, 3, device=cuda),
+                     torch.zeros(1, device=cuda))
     assert apply(zt, torch.zeros(0, 3, device=cuda)).shape == (0,)
+
+
+@pytest.mark.parametrize("name", ["small", "trained"])
+def test_kernel_launches_are_bit_identical(name, cuda):
+    """No atomics and a fixed summation order: two launches on the same
+    points and rows give the same bits."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.cuda_kernels import (
+        hoisted_rows)
+    dec, sd, z = _decoder(name)
+    apply = make_kernel_apply(dec, sd, device=cuda)
+    rows = hoisted_rows(apply.ew, apply.meta, torch.from_numpy(z).to(cuda))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    xyz = torch.rand(100_003, 3, generator=gen, device=cuda) * 2 - 1
+    first = apply.launch(xyz, rows)
+    second = apply.launch(xyz, rows)
+    torch.cuda.synchronize()
+    assert apply.launches == 2 and torch.equal(first, second)
+
+
+def test_kernel_serve_launch_sizes_match_plain_version(cuda):
+    """One 256^3 shape's four launch sizes (serve's default caps: 4,096 +
+    65,536 + 131,072 + 524,288 points), the small first launch included,
+    on the trained decoder against bf16 fast_apply (5e-3)."""
+    from latent_diffusion_models_for_shape_sdfs_torch.serve import (
+        _default_caps)
+    dec, sd, z = _decoder("trained")
+    apply = make_kernel_apply(dec, sd, device=cuda)
+    zt = torch.from_numpy(z).to(cuda)
+    caps = _default_caps(256)
+    sizes = [16 ** 3, caps[0] * 64, caps[1] * 8, caps[2] * 8]
+    assert sizes == [4096, 65536, 131072, 524288]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for n in sizes:
+        xyz = torch.rand(n, 3, generator=gen, device=cuda) * 2 - 1
+        got = apply(zt, xyz)
+        torch.testing.assert_close(got, fast_apply(apply.ew, zt, xyz),
+                                   atol=5e-3, rtol=0)
+    assert apply.launches == 4
+
+
+def test_kernel_launch_config(cuda):
+    """The ring and cluster the kernel reports: 5 stages of 2 slabs in at
+    most 227 KB of shared memory, clusters of 2, at least one resident."""
+    dec, sd, _ = _decoder("trained")
+    cfg = make_kernel_apply(dec, sd, device=cuda).config()
+    assert cfg["stages"] == 5 and cfg["cluster"] == 2
+    assert cfg["smem"] <= 232448 and cfg["max_clusters"] >= 1
 
 
 def snapped_cube(z, xyz):
