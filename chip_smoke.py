@@ -7,7 +7,8 @@ Builds the port's CUDA kernels (csrc/fused_eval.cu, csrc/relu_dropout.cu,
 csrc/fused_train.cu, csrc/fused_eval_pairs.cu: one nvcc each for sm_90a,
 all started together) and the native mesher (native/, cmake or g++) from
 this checkout, while it generates the training data (64 analytic chairs,
-a process pool started before CUDA is), then:
+and the 6,136 multicat scenes' observation banks, process pools started
+before CUDA is), then:
 
   1. prints the card (nvidia-smi name and power limit) and turns TF32 off;
   2. [kernel] holds the decoder-eval kernel (#1) against its plain version
@@ -57,11 +58,23 @@ a process pool started before CUDA is), then:
      holds it against the plain version's flat decode and, as meshes of 4
      shapes of 4 classes, against serve_meshes with kernel #1; times the
      same 64 codes through the per-shape decode;
- 10. [generate] samples config 4's 64 conditioned latents (CondDenoiser at
-     full width with seeded weights, CFG 2.0, DDIM-50 and DPM-10; same seed,
-     same latents), decodes them through the flat decode and two through
-     generate_meshes;
- 11. prints one JSON line per ported kernel and, last, the device line.
+ 10. [train_diff] trains config 4's stage 2 (CondDenoiser 1024x6, 13
+     classes, 512 observation points, batch 128) on the 6,136 committed
+     multicat codes with the conditioning banks `pipeline._cond_banks`
+     builds (made while the kernels build): one chunk eager and the same
+     chunk replayed from its CUDA graph must be equal bit for bit, then
+     10,000 steps in graphed chunks of 100; prints steps/s eager and
+     graphed, one traced graphed chunk, the first and last chunk's loss;
+ 11. [generate] samples 64 conditioned latents from the trained EMA weights
+     (CFG 2.0, DDIM-50 and DPM-10; same seed, same latents), decodes them
+     through the flat decode (at least one must have a surface) and two
+     through generate_meshes;
+ 12. [cli] runs the CLI in process on config 4's specs, cut in scale:
+     init-experiment, train-ad (150 epochs), train-diff, train-diff
+     --resume, sample at
+     256^3 and eval, timing each stage and counting the launches of kernels
+     #3/#3b in train-ad and #1 in sample and eval;
+ 13. prints one JSON line per ported kernel and, last, the device line.
 
 Any failure raises and exits non-zero; without a card (or outside a
 checkout of the repository) it exits non-zero before printing a result.
@@ -695,11 +708,13 @@ def flat_phase(dev, card, pairs, sd_m, codes_m) -> dict:
                 per_shape_ms=per_ms, apply1=apply1)
 
 
-def generate_phase(dev, card, pairs, apply1, codes_m) -> dict:
+def generate_phase(dev, card, pairs, apply1, trained) -> dict:
     """[generate] config 4's conditional generation at full width: DDIM-50
-    with CFG 2.0 over class + 512 observed points, 64 latents, seeded
-    weights; deterministic per seed; DPM-10; the latents through the flat
-    decode (kernel #2) and two through generate_meshes (kernel #1)."""
+    with CFG 2.0 over class + 512 observed points, 64 latents, from the EMA
+    weights [train_diff] trained (`trained`: state, mu, sigma);
+    deterministic per seed; DPM-10; the latents through the flat decode
+    (kernel #2: how many have a surface) and two through generate_meshes
+    (kernel #1)."""
     import numpy as np
     import torch
     from latent_diffusion_models_for_shape_sdfs_torch.config import (
@@ -716,20 +731,16 @@ def generate_phase(dev, card, pairs, apply1, codes_m) -> dict:
     from latent_diffusion_models_for_shape_sdfs_torch.serve import (
         generate_meshes)
     from latent_diffusion_models_for_shape_sdfs_torch.train.diffusion import (
-        normalize_codes, unnormalize_codes)
+        unnormalize_codes)
 
     exp = ExperimentConfig.load(ROOT / "configs" / "config4_conditional")
     dc, sc = exp.diff.denoiser, exp.sample
-    torch.manual_seed(0)
-    model = CondDenoiser(dc).to(dev).eval()
-    # seeded weights; out_proj (zero at init, as flax's) gets a small
-    # seeded normal init so that guidance has something to combine
-    g = torch.Generator(device=dev).manual_seed(1)
-    with torch.no_grad():
-        model.body.out_proj.weight.normal_(0.0, 0.02, generator=g)
+    state, mu, sigma = trained
+    model = CondDenoiser(dc).to(dev)
+    model.load_state_dict(state.ema)
+    model.eval()
     sched = DiffusionSchedule.create(exp.diff.timesteps, exp.diff.beta_start,
                                      exp.diff.beta_end, device=dev)
-    _, mu, sigma = normalize_codes(torch.from_numpy(codes_m).to(dev))
     n = sc.num_samples
     split = analytic.make_synthetic_split("classes13", 6136, seed=5)[:n]
     rng = np.random.default_rng(7)
@@ -763,7 +774,8 @@ def generate_phase(dev, card, pairs, apply1, codes_m) -> dict:
         steps = sc.ddim_steps if which == "ddim" else sc.dpm_steps
         log(f"[generate] {which.upper()}-{steps}, CFG {sc.guidance_scale}, "
             f"{n} latents (CondDenoiser mlp {dc.hidden_dim}x{dc.num_blocks}, "
-            f"{dc.num_classes} classes, {dc.partial_points} obs points): "
+            f"{dc.num_classes} classes, {dc.partial_points} obs points, "
+            f"trained EMA weights): "
             f"{ms:.1f} ms, {n / (ms * 1e-3):.0f} samples/s; same seed "
             f"identical: {same}, other seed differs: {other}; max|z| "
             f"{out[which]['z_abs_max']:.2f} [{card}]")
@@ -777,18 +789,44 @@ def generate_phase(dev, card, pairs, apply1, codes_m) -> dict:
                         top, card)
             out["ddim"]["trace"] = dict(wall_s=wall, device_busy_ms=busy,
                                         top=top[:12])
-    lat = unnormalize_codes(z_ddim, mu, sigma).to(torch.bfloat16)
-    caps = flat_caps(pairs, lat)
+    # the same DDIM-50 from the raw (not averaged) weights, for comparison
+    raw = CondDenoiser(dc).to(dev)
+    raw.load_state_dict(state.model.state_dict())
+    raw.eval()
+    z_raw = ddim_sample(guided_denoise_fn(raw, sc.guidance_scale, class_id=cid,
+                                          obs_xyz=obs_xyz, obs_sdf=obs_sdf),
+                        sched, torch.Generator(device=dev).manual_seed(0), n,
+                        L, steps=sc.ddim_steps)
+    del raw
+
+    def surfaces(z):
+        """Flat decode of normalized latents z; (grids, stats, caps, how
+        many shapes have both signs in their grid)."""
+        lat_ = unnormalize_codes(z, mu, sigma).to(torch.bfloat16)
+        caps_ = flat_caps(pairs, lat_)
+        grids_, st_ = decode_grid_hierarchical3_batch_flat(
+            pairs, lat_, RES, 16, 4, 2, *caps_, out_dtype="bfloat16",
+            **FLAT_KW)
+        g2 = grids_.flatten(1)
+        return (grids_, st_, caps_,
+                int(((g2 < 0).any(1) & (g2 > 0).any(1)).sum()))
+
+    raw_surfaced = surfaces(z_raw)[3]
+    log(f"[generate] DDIM-{sc.ddim_steps} from the raw (not EMA) weights: "
+        f"max|z| {float(z_raw.abs().max()):.2f}, {raw_surfaced} of {n} "
+        f"flat-decoded shapes with a surface (reported only)")
     n0 = pairs.launches
-    grids, st = decode_grid_hierarchical3_batch_flat(
-        pairs, lat, RES, 16, 4, 2, *caps, out_dtype="bfloat16", **FLAT_KW)
+    grids, st, caps, surfaced = surfaces(z_ddim)
     ok = bool(torch.isfinite(grids.float()).all())
     log(f"[generate] {n} generated latents through the flat decode: caps "
         f"{caps}, actives {[st['active_l1'], st['active_l2'], st['active_l3']]}"
         f", kernel #2 launches {pairs.launches - n0}, grid "
-        f"{tuple(grids.shape)} finite: {ok}")
-    if st["capacity_exceeded"] or not ok or pairs.launches == n0:
-        raise RuntimeError(f"flat decode of generated latents: {st}")
+        f"{tuple(grids.shape)} finite: {ok}; shapes with a surface (both "
+        f"signs in the grid): {surfaced} of {n} (gate >= 1)")
+    if (st["capacity_exceeded"] or not ok or pairs.launches == n0
+            or surfaced < 1):
+        raise RuntimeError(f"flat decode of generated latents: {st}, "
+                           f"{surfaced} shapes with a surface")
     del grids
     fn2 = guided_denoise_fn(model, sc.guidance_scale, class_id=cid[:2],
                             obs_xyz=obs_xyz[:2], obs_sdf=obs_sdf[:2])
@@ -806,9 +844,242 @@ def generate_phase(dev, card, pairs, apply1, codes_m) -> dict:
         f"escalations {[st2['escalations'] for _, _, st2 in meshes]}")
     if len(meshes) != 2 or apply1.launches == n1:
         raise RuntimeError("generate_meshes did not serve through kernel #1")
-    out.update(flat_caps=caps, flat_actives=[st["active_l1"], st["active_l2"],
-                                             st["active_l3"]],
+    out.update(flat_caps=caps, surfaced=surfaced, raw_surfaced=raw_surfaced,
+               flat_actives=[st["active_l1"], st["active_l2"],
+                             st["active_l3"]],
                meshes=[(len(v), len(f)) for v, f, _ in meshes])
+    return out
+
+
+BANK_SAMPLES = 1024          # samples a multicat scene for the banks (cut)
+# [train_diff] steps (config 4: 300,000). After 2,000 steps the EMA (decay
+# 0.999) still carries 13.5% of the init and most of the early trajectory;
+# sampled, such weights gave no surface in 64 shapes (max |z| 131.6)
+DIFF_STEPS = 10_000
+
+
+def multicat_banks() -> tuple:
+    """Config 4's conditioning banks over the 6,136 multicat scenes the
+    committed pack was trained on (tools/multicat6k_run.py:
+    make_synthetic_split("classes13", 6136, seed=5)), built as
+    pipeline._cond_banks builds them (4 x 512 observation rows a scene),
+    from a store of BANK_SAMPLES samples a shape instead of 100,000."""
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        ExperimentConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.data import analytic
+    from latent_diffusion_models_for_shape_sdfs_torch.data.sdf_dataset import (
+        SdfDataset)
+    from latent_diffusion_models_for_shape_sdfs_torch.pipeline import (
+        _cond_banks)
+    exp = ExperimentConfig.load(ROOT / "configs" / "config4_conditional")
+    ds = SdfDataset.from_analytic(
+        analytic.make_synthetic_split("classes13", 6136, seed=5),
+        BANK_SAMPLES, seed=0, workers=8)
+    return _cond_banks(exp, ds)
+
+
+def diff_tensors(state) -> list:
+    """Every tensor of a stage-2 state: params, EMA, Adam's moments and
+    step counts."""
+    out = []
+    for k, p in state.model.named_parameters():
+        s = state.optimizer.state[p]
+        out += [p.detach(), state.ema[k], s["exp_avg"], s["exp_avg_sq"],
+                s["step"]]
+    return out
+
+
+def train_diff_phase(dev, card, codes_m, banks) -> dict:
+    """[train_diff] config 4's stage 2 at full width on the multicat codes:
+    a chunk eager vs the same chunk from the CUDA graph, bit for bit (two
+    chunks), steps/s of each, one traced graphed chunk, then DIFF_STEPS
+    steps through train_diffusion (graphed chunks of scan_chunk)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        ExperimentConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.diffusion.schedule import (
+        DiffusionSchedule)
+    from latent_diffusion_models_for_shape_sdfs_torch.train import (
+        diffusion as ttd)
+    from latent_diffusion_models_for_shape_sdfs_torch.utils.logging import (
+        MetricLogger)
+
+    exp = ExperimentConfig.load(ROOT / "configs" / "config4_conditional")
+    cfg = dataclasses.replace(exp.diff, num_steps=DIFF_STEPS,
+                              snapshot_every=0)
+    dc = cfg.denoiser
+    class_ids, obs_xyz, obs_sdf = banks
+    n, bank_n = len(codes_m), obs_xyz.shape[1]
+    log(f"[train_diff] config4_conditional diff block: CondDenoiser "
+        f"{dc.arch} {dc.hidden_dim}x{dc.num_blocks}, time embed "
+        f"{dc.time_embed_dim}, {dc.num_classes} classes, {dc.partial_points} "
+        f"observation points (bank {bank_n}), batch {cfg.batch_size}, T "
+        f"{cfg.timesteps}, lr {cfg.lr} constant (config asks "
+        f"{cfg.lr_schedule}), chunks of {cfg.scan_chunk}; cut: num_steps "
+        f"{exp.diff.num_steps} -> {DIFF_STEPS}, bank store {BANK_SAMPLES} "
+        f"samples a shape (100000); data: {n} multicat codes [{card}]")
+    codes_t = torch.from_numpy(codes_m).to(dev)
+    codes_n, mu, sigma = ttd.normalize_codes(codes_t)
+    sched = DiffusionSchedule.create(cfg.timesteps, cfg.beta_start,
+                                     cfg.beta_end, device=dev)
+    cids = torch.as_tensor(class_ids, dtype=torch.long, device=dev)
+    oxyz = torch.as_tensor(obs_xyz, device=dev)
+    osdf = torch.as_tensor(obs_sdf, device=dev)
+
+    def fresh():
+        st = ttd.init_diff_state(cfg, seed=cfg.seed, device=dev)
+        return st, ttd.DiffStep(cfg, st, sched, codes_n, cids, oxyz, osdf)
+
+    a, step_a = fresh()
+    b, step_b = fresh()
+    chunk = cfg.scan_chunk
+    times = {"eager": [], "graphed": []}
+    same = True
+    for start in (0, chunk):
+        draws = ttd.draw_chunk(cfg, n, bank_n, start, dev)
+        for name, fn in (("eager", step_a.eager), ("graphed", step_b.graphed)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(fn(draws))
+            times[name].append(time.perf_counter() - t0)
+            if name == "eager":
+                la = loss
+        same = same and la == loss and all(
+            torch.equal(x, y) for x, y in zip(diff_tensors(a),
+                                              diff_tensors(b)))
+    sps = {k: chunk / v[-1] for k, v in times.items()}
+    log(f"[train_diff] chunk of {chunk} steps from the same state and draws, "
+        f"twice: eager and graphed equal bit for bit (params, EMA, Adam "
+        f"moments and counts, loss): {same}; second chunk: eager "
+        f"{sps['eager']:.1f} steps/s ({1e3 / sps['eager']:.3f} ms a step), "
+        f"graphed {sps['graphed']:.1f} steps/s ({1e3 / sps['graphed']:.3f} ms "
+        f"a step); the first graphed chunk (capture included) "
+        f"{times['graphed'][0]:.2f} s [{card}]")
+    if not same:
+        raise RuntimeError("the graphed chunk differs from the eager chunk")
+    draws = ttd.draw_chunk(cfg, n, bank_n, 2 * chunk, dev)
+    wall, busy, top = device_profile(lambda: float(step_b.graphed(draws)))
+    log_profile("train_diff", f"one traced graphed chunk of {chunk} steps",
+                wall, busy, top, card)
+    del a, b, step_a, step_b
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as td:
+        path = pathlib.Path(td) / "diff.jsonl"
+        logger = MetricLogger(path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, state, (mu_t, sigma_t), last = ttd.train_diffusion(
+            cfg, codes_m, class_ids=class_ids, obs_xyz=obs_xyz,
+            obs_sdf=obs_sdf, logger=logger, device=dev)
+        run_s = time.perf_counter() - t0
+        logger.close()
+        recs = [json.loads(x) for x in path.read_text().splitlines()]
+    chunks = [r for r in recs if r["event"] == "diff_chunk"]
+    losses = [r["loss"] for r in chunks]
+    log(f"[train_diff] train_diffusion, {state.step} steps in {len(chunks)} "
+        f"graphed chunks: {run_s:.2f} s ({state.step / run_s:.1f} steps/s, "
+        f"one host wait a chunk); loss first chunk {losses[0]:.4f}, last "
+        f"{losses[-1]:.4f} (an untrained zero-head denoiser reads 1.0; "
+        f"gate < 0.5) [{card}]")
+    if not (np.isfinite(last) and last < 0.5 and state.step == DIFF_STEPS
+            and torch.equal(mu_t, mu)):
+        raise RuntimeError(f"stage-2 training: last loss {last}, step "
+                           f"{state.step}")
+    return dict(trained=(state, mu_t, sigma_t), out=dict(
+        steps_per_s=sps, chunk_s=times, bit_equal=same,
+        trace=dict(wall_s=wall, device_busy_ms=busy, top=top[:12]),
+        run_s=run_s, steps=state.step, losses=losses,
+        lr_record=[r for r in recs if r["event"] == "lr_schedule"]))
+
+
+def cli_phase(dev, card) -> dict:
+    """[cli] the CLI in process on config 4's specs (every field passed
+    with --set), cut in scale: init-experiment, train-ad, train-diff,
+    train-diff --resume, sample at 256^3, eval; each stage's wall time and
+    the launches of kernels #3/#3b (train-ad) and #1 (sample, eval)."""
+    import contextlib
+    import io
+    import torch
+    from latent_diffusion_models_for_shape_sdfs_torch import cli
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        cuda_kernels as ck, relu_dropout as rd)
+
+    specs = json.loads((ROOT / "configs" / "config4_conditional"
+                        / "specs.json").read_text())
+
+    def sets(d, prefix=""):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                yield from sets(v, prefix + k + ".")
+            elif prefix or k not in ("name", "data_source"):
+                yield from ("--set", f"{prefix}{k}={json.dumps(v)}")
+
+    # 150 epochs of one step: enough for the decoder to reach the surfaces
+    # from its init (2 epochs left every eval mesh empty)
+    cuts = {"ad.num_scenes": 64, "ad.num_epochs": 150, "diff.num_steps": 1000,
+            "diff.snapshot_every": 500, "sample.num_samples": 8,
+            "sample.grid_res": 128}
+    out: dict = {"cuts": cuts, "stages": {}}
+    with tempfile.TemporaryDirectory() as td:
+        exp = str(pathlib.Path(td) / "config4_cli")
+        points = 2000
+        stages = [
+            ("init-experiment", ["init-experiment", exp, "--data",
+                                 specs["data_source"], *sets(specs),
+                                 *(a for k, v in cuts.items()
+                                   for a in ("--set", f"{k}={v}"))]),
+            ("train-ad", ["train-ad", exp]),
+            ("train-diff", ["train-diff", exp]),
+            ("train-diff --resume", ["train-diff", exp, "--resume"]),
+            ("sample", ["sample", exp, "--res", str(RES)]),
+            ("eval", ["eval", exp, "--points", str(points)])]
+        for name, argv in stages:
+            for d in (rd.LAUNCHES, ck.LAUNCHES):
+                for k in d:
+                    d[k] = 0
+            text = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                cli.main(["--device", str(dev), *argv])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {**rd.LAUNCHES, "fused_eval": ck.LAUNCHES["fused_eval"]}
+            out["stages"][name] = dict(s=wall, launches=launches)
+            log(f"[cli] {name}: {wall:.2f} s, launches {launches}")
+        ev = json.loads((pathlib.Path(exp) / "evals" / "chamfer.json")
+                        .read_text())
+        samples = sorted((pathlib.Path(exp) / "samples").glob("*.obj"))
+        n_faces = [sum(1 for ln in p.open() if ln.startswith("f "))
+                   for p in samples]
+        diff_ckpts = sorted(int(p.stem) for p in (
+            pathlib.Path(exp) / "checkpoints" / "diffusion").glob("*.pt"))
+        ad_last = [json.loads(x) for x in (pathlib.Path(exp) / "logs" /
+                                           "train_ad.jsonl").open()][-1]
+    st = out["stages"]
+    log(f"[cli] config4_conditional through the CLI, cut {cuts} (eval "
+        f"--points {points}): train-ad's last loss_l1 "
+        f"{ad_last['loss_l1']:.5f}; eval over {len(ev['chamfer_l2'])} scenes: mean "
+        f"chamfer-L2 {ev['mean']:.3e}, F-score@{ev['fscore_tau']} "
+        f"{ev['fscore_mean']:.3f}, normal consistency "
+        f"{ev.get('normal_consistency_mean', float('nan')):.3f}, failed "
+        f"{ev['num_failed']}; {len(samples)} samples at {RES}^3, faces "
+        f"{n_faces}; stage-2 checkpoints {diff_ckpts} [{card}]")
+    ok = (st["train-ad"]["launches"]["relu_dropout_fwd"] > 0
+          and st["train-ad"]["launches"]["relu_dropout_bwd"] > 0
+          and st["sample"]["launches"]["fused_eval"] > 0
+          and st["eval"]["launches"]["fused_eval"] > 0
+          and len(samples) == cuts["sample.num_samples"]
+          and diff_ckpts == [500, 1000])
+    if not ok:
+        raise RuntimeError(f"CLI run: {out}")
+    out.update(ad_loss_l1=ad_last["loss_l1"], eval_mean=ev["mean"],
+               fscore_mean=ev["fscore_mean"],
+               nc_mean=ev.get("normal_consistency_mean"),
+               num_failed=ev["num_failed"], sample_faces=n_faces)
     return out
 
 
@@ -875,6 +1146,7 @@ def main() -> int:
         SdfDataset)
     dataset = SdfDataset.from_analytic(train_split(), 20_000, seed=0,
                                        workers=8)
+    banks = multicat_banks()
     details["data_s"] = time.perf_counter() - t0
     for th in threads:
         th.join()
@@ -1380,10 +1652,21 @@ def main() -> int:
     details["flat"] = fl
     torch.cuda.empty_cache()
 
-    # ---- phase 10: [generate] config 4's conditional generation
-    details["generate"] = generate_phase(dev, card, pairs, apply1, codes_m)
+    # ---- phase 10: [train_diff] config 4's stage 2 on the multicat codes
+    td = train_diff_phase(dev, card, codes_m, banks)
+    details["train_diff"] = td["out"]
+    del banks
+    torch.cuda.empty_cache()
 
-    # ---- phase 11: summary
+    # ---- phase 11: [generate] config 4's generation, trained weights
+    details["generate"] = generate_phase(dev, card, pairs, apply1,
+                                         td.pop("trained"))
+    torch.cuda.empty_cache()
+
+    # ---- phase 12: [cli] the main path through the CLI
+    details["cli"] = cli_phase(dev, card)
+
+    # ---- phase 13: summary
     t512 = drop_t[512]
     kernels = [{
         "name": "fused_decoder_eval",

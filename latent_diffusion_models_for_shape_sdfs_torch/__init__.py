@@ -14,8 +14,11 @@ training: `losses`, `models.latent_table`, `data.analytic`,
 kernel pair, `csrc/relu_dropout.cu`), `ops.fused_train` (the fused train
 kernel, `csrc/fused_train.cu`) and `train.auto_decoder`. Config 4's
 generation: `diffusion.schedule`, `diffusion.sampler`, `models.denoiser`,
-`train.diffusion` (code normalization), `serve.generate_meshes`, and the
-flat batched decode in `ops.grid_eval` with the per-point-latent eval
-kernel (`ops.cuda_kernels.make_kernel_apply_pairs`,
-`csrc/fused_eval_pairs.cu`).
+`serve.generate_meshes`, and the flat batched decode in `ops.grid_eval`
+with the per-point-latent eval kernel
+(`ops.cuda_kernels.make_kernel_apply_pairs`, `csrc/fused_eval_pairs.cu`).
+The main path `train-ad -> train-diff -> sample -> eval`: `train.diffusion`
+(stage-2 training, one CUDA graph a step on a card), the stage
+checkpoints of `utils.checkpoint`, `pipeline` and `cli` (`python -m
+latent_diffusion_models_for_shape_sdfs_torch`).
 """

@@ -1,0 +1,285 @@
+"""CLI of the port: the main path's subcommands.
+
+    python -m latent_diffusion_models_for_shape_sdfs_torch [--device cpu] <cmd> ...
+
+Counterpart of the JAX package's `cli.py`, with its flags, for
+`init-experiment`, `train-ad`, `train-diff`, `sample`, `eval`, `decode`
+and `serve-daemon`. Every training and eval command takes an experiment
+directory holding specs.json (write one with `init-experiment`; override
+fields with --set dotted.key=value). `--device` (default cuda) picks the
+device every command runs on; JAX picks its platform from the
+environment instead.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import sys
+
+
+def _parse_value(s: str):
+    try:
+        return json.loads(s)
+    except json.JSONDecodeError:
+        return s
+
+
+def cmd_init(args):
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        ExperimentConfig, override)
+    cfg = ExperimentConfig(name=pathlib.Path(args.exp_dir).name,
+                           data_source=args.data)
+    overrides = {"ad.num_scenes": args.scenes} if args.scenes else {}
+    for kv in args.set or []:
+        k, v = kv.split("=", 1)
+        overrides[k] = _parse_value(v)
+    if overrides:
+        cfg = override(cfg, **overrides)
+    path = cfg.save(args.exp_dir)
+    print(f"wrote {path}")
+
+
+def cmd_train_ad(args):
+    from latent_diffusion_models_for_shape_sdfs_torch.pipeline import (
+        run_train_ad)
+    run_train_ad(args.exp_dir, resume=args.resume,
+                 fault_inject_epoch=args.fault_inject,
+                 debug_nans=args.debug_nans, tensorboard=args.tensorboard,
+                 device=args.device)
+    print("stage-1 training complete")
+
+
+def cmd_train_diff(args):
+    from latent_diffusion_models_for_shape_sdfs_torch.pipeline import (
+        run_train_diff)
+    run_train_diff(args.exp_dir, resume=args.resume,
+                   tensorboard=args.tensorboard, device=args.device)
+    print("stage-2 training complete")
+
+
+def _load_obs_rows(path: str):
+    """.npz with pos/neg [N,4] rows (native preprocess format) or a single
+    [N,4] array -> (xyz [N,3], sdf [N])."""
+    import numpy as np
+    with np.load(path) as z:
+        rows = (np.concatenate([z["pos"], z["neg"]])
+                if "pos" in z.files else z[z.files[0]])
+    rows = np.asarray(rows, np.float32)
+    return rows[:, :3], rows[:, 3]
+
+
+def cmd_sample(args):
+    from latent_diffusion_models_for_shape_sdfs_torch.pipeline import (
+        run_sample)
+    obs_xyz = obs_sdf = None
+    if args.obs:
+        obs_xyz, obs_sdf = _load_obs_rows(args.obs)
+    meshes = run_sample(args.exp_dir, num=args.num, res=args.res,
+                        class_id=args.class_id, seed=args.seed,
+                        obs_xyz=obs_xyz, obs_sdf=obs_sdf,
+                        mesh_format=args.format,
+                        simplify_ratio=args.simplify,
+                        simplify_faces=args.simplify_faces,
+                        device=args.device)
+    print(f"wrote {len(meshes)} meshes under "
+          f"{pathlib.Path(args.exp_dir) / 'samples'}")
+
+
+def cmd_eval(args):
+    from latent_diffusion_models_for_shape_sdfs_torch.pipeline import (
+        run_eval)
+    out = run_eval(args.exp_dir, num_points=args.points,
+                   fscore_tau=args.fscore_tau, device=args.device)
+    print(json.dumps(out, indent=2))
+
+
+def _add_lod_flags(s):
+    """--simplify / --simplify-faces on every mesh-producing command."""
+    s.add_argument("--simplify", type=float, default=None,
+                   help="LOD: QEM-decimate each mesh to this fraction "
+                   "of its face count (native lib required)")
+    s.add_argument("--simplify-faces", type=int, default=None,
+                   help="LOD: QEM-decimate to an absolute face budget")
+
+
+def cmd_decode(args):
+    """Latent codes -> meshes: the serving path for 16-divisible
+    resolutions >= 64, the adaptive decode otherwise. Codes come from
+    --codes file.npy ([L] or [N, L]) or --scene ids (rows of the stage-1
+    latent table)."""
+    import numpy as np
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.cuda_kernels import (
+        make_kernel_apply)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.grid_eval import (
+        decode_grid_adaptive)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.isosurface import (
+        extract_mesh, simplify_mesh)
+    from latent_diffusion_models_for_shape_sdfs_torch.pipeline import (
+        decoder_params, load_ad_state)
+    from latent_diffusion_models_for_shape_sdfs_torch.serve import (
+        serve_meshes)
+    from latent_diffusion_models_for_shape_sdfs_torch.utils import meshio
+    import torch
+
+    if args.normals:
+        raise NotImplementedError("decode --normals needs the meshio "
+                                  "vertex normals, not ported yet")
+    decoder, ad_state = load_ad_state(args.exp_dir, device=args.device)
+    if args.codes:
+        zs = np.asarray(np.load(args.codes), np.float32)
+        zs = zs[None] if zs.ndim == 1 else zs
+        names = [f"code_{i:03d}" for i in range(len(zs))]
+    elif args.scene:
+        zs = ad_state.codes.detach().cpu().numpy()[np.asarray(args.scene)]
+        names = [f"scene_{i:03d}" for i in args.scene]
+    else:
+        sys.exit("decode needs --codes FILE.npy or --scene IDs")
+    apply_fn = make_kernel_apply(decoder, decoder_params(ad_state),
+                                 device=args.device)
+    dev = apply_fn.device
+    out_dir = pathlib.Path(args.out or
+                           pathlib.Path(args.exp_dir) / "decoded")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    res = args.res
+    if res >= 64 and res % 16 == 0:
+        meshes = ((v, f) for v, f, _st in
+                  serve_meshes(apply_fn, list(zs), res=res,
+                               simplify_ratio=args.simplify,
+                               simplify_faces=args.simplify_faces,
+                               device=dev))
+    else:
+        def one(z):
+            v, f = extract_mesh(decode_grid_adaptive(
+                apply_fn, torch.as_tensor(z, device=dev), res))
+            if args.simplify is None and args.simplify_faces is None:
+                return v, f
+            return simplify_mesh(v, f, target_faces=args.simplify_faces,
+                                 ratio=args.simplify)
+        meshes = (one(z) for z in zs)
+    for name, (v, f) in zip(names, meshes):
+        meshio.write_mesh(out_dir / f"{name}.{args.format}", v, f)
+        print(f"{name}: {len(v)} verts, {len(f)} faces -> "
+              f"{out_dir / name}.{args.format}")
+
+
+def cmd_serve_daemon(args):
+    """Watch-folder serving loop: latent .npy requests in, meshes out
+    (serve.watch_and_serve); stop with a STOP file or --max-idle."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.cuda_kernels import (
+        make_kernel_apply)
+    from latent_diffusion_models_for_shape_sdfs_torch.pipeline import (
+        decoder_params, load_ad_state)
+    from latent_diffusion_models_for_shape_sdfs_torch.serve import (
+        watch_and_serve)
+
+    if args.reconstruct != "none":
+        raise NotImplementedError(
+            f"--reconstruct {args.reconstruct}: observation requests need "
+            "serve.make_obs_reconstruct_fn, not ported yet")
+    decoder, ad_state = load_ad_state(args.exp_dir, device=args.device)
+    apply_fn = make_kernel_apply(decoder, decoder_params(ad_state),
+                                 device=args.device)
+    n = watch_and_serve(apply_fn, args.in_dir, args.out_dir,
+                        res=args.res, poll=args.poll,
+                        mesh_format=args.format, max_idle=args.max_idle,
+                        device=apply_fn.device,
+                        simplify_faces=args.simplify_faces,
+                        simplify_ratio=args.simplify)
+    print(f"served {n} request files")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="ldm-sdf-torch", description=__doc__)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of every command (default cuda; "
+                   "cpu runs the kernels' plain versions)")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    s = sub.add_parser("init-experiment", help="write specs.json")
+    s.add_argument("exp_dir")
+    s.add_argument("--data", default="analytic:sphere")
+    s.add_argument("--scenes", type=int, default=None)
+    s.add_argument("--set", action="append", metavar="KEY=VAL")
+    s.set_defaults(fn=cmd_init)
+
+    s = sub.add_parser("train-ad", help="stage-1 auto-decoder training")
+    s.add_argument("exp_dir")
+    s.add_argument("--resume", action="store_true")
+    s.add_argument("--fault-inject", type=int, default=None,
+                   metavar="EPOCH", help="debug: die after EPOCH's ckpt")
+    s.add_argument("--debug-nans", action="store_true",
+                   help="run under torch.autograd.detect_anomaly")
+    s.add_argument("--tensorboard", action="store_true",
+                   help="not ported (raises)")
+    s.set_defaults(fn=cmd_train_ad)
+
+    s = sub.add_parser("train-diff", help="stage-2 diffusion training")
+    s.add_argument("exp_dir")
+    s.add_argument("--resume", action="store_true")
+    s.add_argument("--tensorboard", action="store_true",
+                   help="not ported (raises)")
+    s.set_defaults(fn=cmd_train_diff)
+
+    s = sub.add_parser("sample", help="sample latents -> meshes")
+    s.add_argument("exp_dir")
+    s.add_argument("--num", type=int, default=None)
+    s.add_argument("--res", type=int, default=None)
+    s.add_argument("--class-id", type=int, default=None)
+    s.add_argument("--seed", type=int, default=None)
+    s.add_argument("--obs", default=None, metavar="NPZ",
+                   help="observed SDF samples (.npz, pos/neg or [N,4] rows)"
+                        " for partial-SDF-conditioned sampling (config 4)")
+    s.add_argument("--format", choices=("obj", "ply"), default="obj",
+                   help="mesh output format (ply = binary little-endian)")
+    _add_lod_flags(s)
+    s.set_defaults(fn=cmd_sample)
+
+    s = sub.add_parser("eval", help="chamfer-L2 + F-score@tau + normal "
+                       "consistency vs the analytic ground truth")
+    s.add_argument("exp_dir")
+    s.add_argument("--points", type=int, default=30_000)
+    s.add_argument("--fscore-tau", type=float, default=0.01,
+                   help="F-score distance threshold (unit-sphere frame)")
+    s.set_defaults(fn=cmd_eval)
+
+    s = sub.add_parser("decode", help="latent codes -> meshes (serving "
+                       "path)")
+    s.add_argument("exp_dir")
+    s.add_argument("--codes", help=".npy of [L] or [N,L] latents")
+    s.add_argument("--scene", type=int, nargs="+",
+                   help="stage-1 latent-table row ids")
+    s.add_argument("--res", type=int, default=128)
+    s.add_argument("--out", help="output dir (default <exp>/decoded)")
+    s.add_argument("--format", choices=("obj", "ply"), default="obj",
+                   help="mesh output format (ply = binary little-endian)")
+    s.add_argument("--normals", action="store_true",
+                   help="not ported (raises)")
+    _add_lod_flags(s)
+    s.set_defaults(fn=cmd_decode)
+
+    s = sub.add_parser("serve-daemon", help="watch-folder serving loop: "
+                       "latent .npy requests -> meshes")
+    s.add_argument("exp_dir")
+    s.add_argument("--in", dest="in_dir", required=True,
+                   help="request dir (drop .npy latents; STOP to quit)")
+    s.add_argument("--out", dest="out_dir", required=True)
+    s.add_argument("--res", type=int, default=256)
+    s.add_argument("--poll", type=float, default=0.5)
+    s.add_argument("--max-idle", type=float, default=None,
+                   help="exit after this many idle seconds (default: "
+                   "run until STOP)")
+    s.add_argument("--format", choices=("obj", "ply"), default="ply")
+    s.add_argument("--reconstruct", choices=("none", "latent-opt",
+                                             "encoder"), default="none",
+                   help="observation requests: not ported (only 'none')")
+    _add_lod_flags(s)
+    s.set_defaults(fn=cmd_serve_daemon)
+
+    args = p.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -228,3 +228,34 @@ class ExperimentConfig:
     @classmethod
     def load(cls, exp_dir: str | pathlib.Path) -> "ExperimentConfig":
         return cls.from_json((pathlib.Path(exp_dir) / "specs.json").read_text())
+
+
+def override(cfg: Any, **kwargs: Any) -> Any:
+    """Functional field override for frozen configs (dotted keys allowed)."""
+    flat: dict = {}
+    nested: dict = {}
+    for k, v in kwargs.items():
+        if "." in k:
+            head, rest = k.split(".", 1)
+            nested.setdefault(head, {})[rest] = v
+        else:
+            flat[k] = v
+    for head, sub in nested.items():
+        flat[head] = override(getattr(cfg, head), **sub)
+    return dataclasses.replace(cfg, **flat)
+
+
+def experiment_layout(exp_dir: str | pathlib.Path) -> dict:
+    """Canonical experiment-dir layout (lineage workspace convention)."""
+    p = pathlib.Path(exp_dir)
+    return {
+        "specs": p / "specs.json",
+        "checkpoints": p / "checkpoints",
+        "latents": p / "latents",
+        "logs": p / "logs",
+        "reconstructions": p / "reconstructions",
+        "samples": p / "samples",
+        "evals": p / "evals",
+        "interpolations": p / "interpolations",
+        "renders": p / "renders",
+    }

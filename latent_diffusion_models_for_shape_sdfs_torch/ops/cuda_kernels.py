@@ -57,6 +57,10 @@ PAIRS_LAYOUT = dict(slot_bytes=16384, slab_lbo=128, slab_sbo=256,
 # csrc/fused_eval.cu's (checked at load): the same, and the width of its
 # xyz tile (bf16 x, y, z, then zeros), the inputs of an xyz slab
 EVAL_LAYOUT = dict(PAIRS_LAYOUT, xyz_cols=16)
+# launches of each kernel over every wrapper in the process (each wrapper
+# also counts its own in `launches`): what a caller that does not hold the
+# wrapper, such as a CLI run, reads
+LAUNCHES = {"fused_eval": 0, "fused_eval_pairs": 0}
 
 
 def _pad2(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -277,6 +281,7 @@ class KernelApply:
         if rc != 0:
             raise RuntimeError(f"fused_eval_launch failed: cudaError {rc}")
         self.launches += 1
+        LAUNCHES["fused_eval"] += 1
         return out
 
     def __call__(self, z: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
@@ -399,6 +404,7 @@ class KernelApplyPairs:
         if rc != 0:
             raise RuntimeError(f"fused_eval_pairs_launch failed: cudaError {rc}")
         self.launches += 1
+        LAUNCHES["fused_eval_pairs"] += 1
         return out
 
     def table(self, codes: torch.Tensor) -> torch.Tensor:

@@ -274,6 +274,37 @@ def _decode_grid_hier3_impl(apply_fn: ApplyFn, z: torch.Tensor, res: int,
             n1, n2, n3)
 
 
+def decode_grid_adaptive(apply_fn: ApplyFn, z: torch.Tensor, res: int,
+                         chunk: int = 262_144) -> np.ndarray:
+    """Production single-shape decode to a host x-major [res,res,res]
+    float32 grid: the three-level sparse decode (float32 payload, margins
+    1.2 / 2.0) with capacity-escalation retries, reconstructed on the
+    host (sparse2_to_grid: the values of the JAX package's block-layout
+    grid); the dense decode for grids under 64 or not 16-divisible, and
+    for a shape whose shell still overflows after four escalations."""
+    if res < 64 or res % 16 != 0:
+        return decode_grid(apply_fn, z, res, chunk=chunk).cpu().numpy()
+    nb1 = res // 16
+    cap1 = max(256, nb1 ** 3 // 4)
+    cap2 = max(2048, res ** 2 // 4)   # ~surface-shell scale at b2=4
+    cap3 = max(8192, res ** 2)        # ~surface-shell scale at b3=2
+    for _ in range(4):
+        arrs, st = decode_grid_hierarchical3_sparse2(
+            apply_fn, z, res, 16, 4, 2, cap1, cap2, cap3, safety=1.2,
+            safety3=2.0, check_overflow=True, out_dtype="float32")
+        if not st["capacity_exceeded"]:
+            return sparse2_to_grid(*(a.cpu().numpy() for a in arrs),
+                                   st["active_l1"], st["active_l2"], res,
+                                   16, 4)
+        if st["active_l1"] > st["cap1"]:
+            cap1 *= 2
+        if st["active_l2"] > st["cap2"]:
+            cap2 *= 2
+        if st["active_l3"] > st["cap3"]:
+            cap3 *= 2
+    return decode_grid(apply_fn, z, res, chunk=chunk).cpu().numpy()
+
+
 def hier3_int8_scale(res: int, b2: int = 4, safety: float = 1.2) -> float:
     """Quantization scale of the int8 sparse payload: tau2 of the decode
     program (payload value = round(sdf * 127 / scale), sign-preserved).

@@ -10,6 +10,10 @@ JAX: the keys parse back into nested dicts of numpy arrays, and
 The JAX decoder stores each layer as `v [in, out]`, `g [out]`, `b [out]`;
 the port keeps torch's `nn.Linear` layout `v [out, in]`. `params_from_jax`
 and `params_to_jax` are the only code that converts between the two.
+
+Full training state is checkpointed per stage as torch files
+(`StageCheckpointer`; the JAX package's orbax trees cannot be read without
+JAX); the npz packs stay the exchange format with the JAX package.
 """
 
 from __future__ import annotations
@@ -173,3 +177,136 @@ def denoiser_params_to_jax(state_dict: dict) -> dict:
             node = node.setdefault(s, {})
         node[leaf] = a
     return tree
+
+
+# ------------------------------------------------- stage checkpoints
+
+
+class StageCheckpointer:
+    """Full-state checkpoints of one stage of an experiment as torch files,
+    `<exp>/checkpoints/<stage>/<step>.pt` (the JAX package keeps orbax
+    trees in the same place; those cannot be read without JAX). A save is
+    written to a temporary name and renamed, so a crash leaves the last
+    complete file; the newest `max_to_keep` steps are kept."""
+
+    def __init__(self, exp_dir: str | pathlib.Path, stage: str,
+                 max_to_keep: int = 3):
+        self.root = pathlib.Path(exp_dir).resolve() / "checkpoints" / stage
+        self.root.mkdir(parents=True, exist_ok=True)
+        self.max_to_keep = max_to_keep
+
+    def steps(self) -> list:
+        return sorted(int(p.stem) for p in self.root.glob("*.pt")
+                      if p.stem.isdigit())
+
+    def latest_step(self):
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, tree: dict) -> pathlib.Path:
+        """Tensors in `tree` are saved from host copies."""
+        path = self.root / f"{int(step)}.pt"
+        tmp = path.with_suffix(".pt.tmp")
+        torch.save(_to_host(tree), tmp)
+        tmp.replace(path)
+        for old in self.steps()[:-self.max_to_keep]:
+            (self.root / f"{old}.pt").unlink(missing_ok=True)
+        return path
+
+    def restore(self, step=None) -> dict:
+        """The saved tree of `step` (default: the latest), on the CPU."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {self.root}")
+        return torch.load(self.root / f"{int(step)}.pt", map_location="cpu",
+                          weights_only=True)
+
+
+def _to_host(tree):
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    return tree
+
+
+def load_adam_state(optimizer: torch.optim.Optimizer, saved: dict) -> None:
+    """Load a saved Adam state dict, keeping this optimizer's own
+    `capturable`/`foreach`/`fused` settings (torch would take the saved
+    ones), so a capturable optimizer gets its step counts on its
+    parameters' device whatever device the checkpoint was written on."""
+    groups = optimizer.param_groups
+    saved = dict(saved, param_groups=[
+        dict(sg, **{k: g[k] for k in ("capturable", "foreach", "fused")
+                    if k in g})
+        for sg, g in zip(saved["param_groups"], groups)])
+    optimizer.load_state_dict(saved)
+    for group in groups:
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            step = st.get("step")
+            if group.get("capturable") and step is not None \
+                    and step.device != p.device:
+                raise RuntimeError("capturable Adam restored with its step "
+                                   f"on {step.device}, params on {p.device}")
+
+
+def ad_state_tree(state, epoch: int) -> dict:
+    """Stage 1's full state (train.auto_decoder.AdTrainState): decoder
+    state dict, latent codes, the Adam state of both groups, the epoch."""
+    return {"decoder": state.decoder.state_dict(), "codes": state.codes,
+            "optimizer": state.optimizer.state_dict(), "epoch": int(epoch)}
+
+
+def restore_ad_state(state, tree: dict) -> int:
+    """Load a stage-1 tree into `state` in place; returns its epoch."""
+    state.decoder.load_state_dict(tree["decoder"])
+    with torch.no_grad():
+        state.codes.copy_(tree["codes"])
+    load_adam_state(state.optimizer, tree["optimizer"])
+    return int(tree["epoch"])
+
+
+def diff_state_tree(state, mu, sigma) -> dict:
+    """Stage 2's full state (train.diffusion.DiffTrainState): params, EMA,
+    Adam, step, and the code moments mu/sigma sampling needs."""
+    return {"params": state.model.state_dict(), "ema": dict(state.ema),
+            "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step), "mu": mu, "sigma": sigma}
+
+
+def restore_diff_state(state, tree: dict) -> tuple:
+    """Load a stage-2 tree into `state` in place; returns (mu, sigma) on
+    the state's device."""
+    state.model.load_state_dict(tree["params"])
+    with torch.no_grad():
+        for k, v in state.ema.items():
+            v.copy_(tree["ema"][k])
+    load_adam_state(state.optimizer, tree["optimizer"])
+    state.step = int(tree["step"])
+    dev = next(state.model.parameters()).device
+    return tree["mu"].to(dev), tree["sigma"].to(dev)
+
+
+def save_stage2_pack(path: str | pathlib.Path, state, mu, sigma) -> None:
+    """Stage-2 exchange pack `{params, ema_params, mu, sigma}` under the
+    flax CondDenoiser's keys, in `pack_tree_npz` format: the JAX package's
+    `restore_tree_npz` reads it into a flax template."""
+    ema_sd = {k: state.ema.get(k, v) for k, v in
+              state.model.state_dict().items()}
+    pack_tree_npz(path, {
+        "params": denoiser_params_to_jax(state.model.state_dict()),
+        "ema_params": denoiser_params_to_jax(ema_sd),
+        "mu": mu, "sigma": sigma})
+
+
+def load_stage2_pack(path: str | pathlib.Path) -> tuple:
+    """Stage-2 pack -> (params state dict, EMA state dict, mu, sigma),
+    float32 CPU tensors."""
+    tree = load_tree_npz(path)
+    return (denoiser_params_from_jax(tree["params"]),
+            denoiser_params_from_jax(tree["ema_params"]),
+            torch.from_numpy(np.asarray(tree["mu"], np.float32)),
+            torch.from_numpy(np.asarray(tree["sigma"], np.float32)))

@@ -609,3 +609,107 @@ def test_flat_decode_through_pairs_kernel_matches_plain_version(cuda):
     assert float((g - gp)[near].abs().max()) <= 1e-2
     far = torch.minimum(g.abs(), gp.abs()) >= 1e-2
     assert torch.equal(g[far] < 0, gp[far] < 0)
+
+
+# ---------------------------------------------- stage-2 trainer on the card
+
+def _diff_setup(cuda, capturable=True, seed=0):
+    """A small class + partial config (bank wider than partial_points),
+    its state on the card, the DiffStep and one chunk's draws."""
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        DenoiserConfig, DiffConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.diffusion.schedule \
+        import DiffusionSchedule
+    from latent_diffusion_models_for_shape_sdfs_torch.train import (
+        diffusion as ttd)
+    cfg = DiffConfig(denoiser=DenoiserConfig(
+        latent_size=32, hidden_dim=128, num_blocks=2, time_embed_dim=32,
+        num_classes=5, partial_sdf_cond=True, partial_points=24),
+        timesteps=100, batch_size=16, lr=1e-3, scan_chunk=10, num_steps=30,
+        snapshot_every=10)
+    rng = np.random.default_rng(seed)
+    banks = (torch.from_numpy(rng.normal(size=(12, 32)).astype(np.float32)),
+             torch.from_numpy(rng.integers(0, 5, 12)),
+             torch.from_numpy(rng.uniform(-1, 1, (12, 64, 3)).astype(
+                 np.float32)),
+             torch.from_numpy((0.1 * rng.normal(size=(12, 64))).astype(
+                 np.float32)))
+    state = ttd.init_diff_state(cfg, seed=seed, device=cuda)
+    if not capturable:
+        for g in state.optimizer.param_groups:
+            g["capturable"] = False
+    step = ttd.DiffStep(cfg, state, DiffusionSchedule.create(
+        100, device=cuda), *(b.to(cuda) for b in banks))
+    return cfg, state, step, banks, ttd
+
+
+def _state_tensors(state):
+    out = []
+    for (k, p) in state.model.named_parameters():
+        s = state.optimizer.state[p]
+        out += [p.detach(), state.ema[k], s["exp_avg"], s["exp_avg_sq"],
+                s["step"]]
+    return out
+
+
+def test_diff_graphed_chunk_equals_eager_chunk(cuda):
+    """Two chunks replayed from the captured graph equal the same chunks
+    of the eager step from the same state and draws, bit for bit."""
+    cfg, a, step_a, _, ttd = _diff_setup(cuda)
+    _, b, step_b, _, _ = _diff_setup(cuda)
+    for start in (0, 10):
+        draws = ttd.draw_chunk(cfg, 12, 64, start, cuda)
+        la = step_a.eager(draws)
+        lb = step_b.graphed(draws)
+        assert torch.equal(la, lb)
+    assert a.step == b.step == 20
+    for x, y in zip(_state_tensors(a), _state_tensors(b)):
+        assert torch.equal(x, y)
+
+
+def test_diff_chunk_waits_on_the_device_once(cuda):
+    """A graphed chunk (after the capture) enqueues its draws, copies and
+    replays without a host sync; reading its mean loss is the one wait."""
+    cfg, state, step, _, ttd = _diff_setup(cuda)
+    step.graphed(ttd.draw_chunk(cfg, 12, 64, 0, cuda))     # captures
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = step.graphed(ttd.draw_chunk(cfg, 12, 64, 10, cuda))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(loss)) and state.step == 20
+
+
+def test_diff_capture_failure_raises(cuda):
+    """A step that cannot be captured (Adam without capturable) raises;
+    the chunk does not fall back to the eager loop."""
+    cfg, state, step, _, ttd = _diff_setup(cuda, capturable=False)
+    with pytest.raises(RuntimeError, match="capturable"):
+        step.graphed(ttd.draw_chunk(cfg, 12, 64, 0, cuda))
+    assert state.step == 0 and step.graph is None
+
+
+def test_diff_capturable_checkpoint_resumes_on_card(cuda, tmp_path):
+    """train_diffusion (graphed) to step 10, save, restore into a fresh
+    state on the card (Adam's step counts back on the card), train on to
+    30 == 30 straight steps, bit for bit."""
+    from latent_diffusion_models_for_shape_sdfs_torch.utils.checkpoint import (
+        StageCheckpointer, diff_state_tree, restore_diff_state)
+    import dataclasses
+    cfg, _, _, banks, ttd = _diff_setup(cuda)
+    codes, cids, oxyz, osdf = banks
+    kw = dict(class_ids=cids, obs_xyz=oxyz, obs_sdf=osdf, device=cuda)
+    straight = ttd.train_diffusion(cfg, codes, **kw)[1]
+    _, a, (mu, sigma), _ = ttd.train_diffusion(
+        dataclasses.replace(cfg, num_steps=10), codes, **kw)
+    ckpt = StageCheckpointer(tmp_path, "diffusion")
+    ckpt.save(a.step, diff_state_tree(a, mu, sigma))
+    b = ttd.init_diff_state(cfg, seed=7, device=cuda)
+    restore_diff_state(b, ckpt.restore())
+    for p in b.model.parameters():
+        assert b.optimizer.state[p]["step"].device == p.device
+    b = ttd.train_diffusion(cfg, codes, state=b, **kw)[1]
+    assert b.step == straight.step == 30
+    for x, y in zip(_state_tensors(straight), _state_tensors(b)):
+        assert torch.equal(x, y)
