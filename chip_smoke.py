@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check, serve,
-train, generate.
+train, generate, reconstruct.
 
     python3 chip_smoke.py [--details PATH]
 
@@ -69,12 +69,29 @@ before CUDA is), then:
      (CFG 2.0, DDIM-50 and DPM-10; same seed, same latents), decodes them
      through the flat decode (at least one must have a surface) and two
      through generate_meshes;
- 12. [cli] runs the CLI in process on config 4's specs, cut in scale:
+ 12. [unet] trains config 2-unet's stage 2 (the 1-D conv UNet, batch 256)
+     on the 6,144 committed chair codes: one chunk eager == graphed bit for
+     bit (two chunks), ms a step of each, one traced graphed chunk, 10,000
+     steps (last loss < 0.5), then DDIM-50 on 16 latents from the EMA
+     decoded at 128^3 through serve_meshes and kernel #1 (>= 1 with a
+     surface);
+ 13. [recon] reconstructs chairs 0-3 and the held-out chair 6144 from
+     8,000 observations on the committed decoder at cfg.reconstruct's
+     defaults: MAP, 4 restarts, the SDS prior of [unet]'s EMA, and the
+     encoder (trained here at full width on a bank from the device chair
+     sampler, cut to 3,000 steps) one-shot and refined by 100 steps; a
+     graphed run == the eager run bit for bit (MAP, restarts, SDS) and a
+     graphed encoder chunk == the eager chunk; each mesh dense at 256^3
+     through kernel #1 with its Chamfer-L2 (gates: MAP l1_last < 0.005,
+     SDS < 0.01, encoder loss < 0.6, every mesh non-empty);
+ 14. [cli] runs the CLI in process on config 4's specs, cut in scale:
      init-experiment, train-ad (150 epochs), train-diff, train-diff
-     --resume, sample at
-     256^3 and eval, timing each stage and counting the launches of kernels
-     #3/#3b in train-ad and #1 in sample and eval;
- 13. prints one JSON line per ported kernel and, last, the device line.
+     --resume, sample at 256^3, eval, train-encoder (500 steps), reconstruct
+     (MAP, --diffusion-prior, --encoder --refine-steps 0, --encoder) and
+     serve-daemon --reconstruct encoder on one observation request, timing
+     each stage and counting the launches of kernels #3/#3b in train-ad and
+     #1 in the stages that decode;
+ 15. prints one JSON line per ported kernel and, last, the device line.
 
 Any failure raises and exits non-zero; without a card (or outside a
 checkout of the repository) it exits non-zero before printing a result.
@@ -995,6 +1012,446 @@ def train_diff_phase(dev, card, codes_m, banks) -> dict:
         lr_record=[r for r in recs if r["event"] == "lr_schedule"]))
 
 
+UNET = ("configs", "config2_latent_ddpm_unet")
+# [unet] steps (config 2-unet: 20,000); 10,000 is where config 4's EMA
+# (decay 0.999) first sampled surfaces in [train_diff]
+UNET_STEPS = 10_000
+UNET_SAMPLES = 16
+
+
+def unet_phase(dev, card) -> dict:
+    """[unet] config 2-unet's `diff` block at full width (UNet base 64,
+    batch 256, T 1000, the reference's constant lr 1e-4) on the 6,144
+    committed chair codes: a chunk eager vs the same chunk from the CUDA
+    graph, bit for bit (two chunks), ms a step of each, one traced graphed
+    chunk, UNET_STEPS steps through train_diffusion, then DDIM-50 on
+    UNET_SAMPLES latents from the EMA decoded at the config's grid_res
+    through serve_meshes and kernel #1."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        DecoderConfig, ExperimentConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.diffusion.sampler import (
+        ddim_sample, guided_denoise_fn)
+    from latent_diffusion_models_for_shape_sdfs_torch.diffusion.schedule import (
+        DiffusionSchedule)
+    from latent_diffusion_models_for_shape_sdfs_torch.models.decoder import (
+        SdfDecoder)
+    from latent_diffusion_models_for_shape_sdfs_torch.models.denoiser import (
+        CondDenoiser)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        cuda_kernels as ck)
+    from latent_diffusion_models_for_shape_sdfs_torch.serve import (
+        serve_meshes)
+    from latent_diffusion_models_for_shape_sdfs_torch.train import (
+        diffusion as ttd)
+    from latent_diffusion_models_for_shape_sdfs_torch.utils.checkpoint import (
+        load_stage1_pack)
+    from latent_diffusion_models_for_shape_sdfs_torch.utils.logging import (
+        MetricLogger)
+
+    exp = ExperimentConfig.load(ROOT.joinpath(*UNET))
+    cfg = dataclasses.replace(exp.diff, num_steps=UNET_STEPS,
+                              snapshot_every=0)
+    dc = cfg.denoiser
+    sd, codes = load_stage1_pack(ROOT.joinpath(*PACK))
+    n = len(codes)
+    model0 = CondDenoiser(dc)
+    body = model0.body
+    log(f"[unet] config2_latent_ddpm_unet diff block: {dc.arch} (tokens "
+        f"{body.tokens}, base {body.stem.out_channels}, "
+        f"{sum(p.numel() for p in model0.parameters())} params), batch "
+        f"{cfg.batch_size}, T {cfg.timesteps}, lr {cfg.lr} constant "
+        f"(config asks {cfg.lr_schedule}), chunks of {cfg.scan_chunk}; cut: "
+        f"num_steps {exp.diff.num_steps} -> {UNET_STEPS}; data: {n} "
+        f"committed chair codes [{card}]")
+    codes_n, mu, sigma = ttd.normalize_codes(torch.from_numpy(codes).to(dev))
+    sched = DiffusionSchedule.create(cfg.timesteps, cfg.beta_start,
+                                     cfg.beta_end, device=dev)
+    cids = torch.zeros(n, dtype=torch.long, device=dev)
+    oxyz = torch.zeros((n, 1, 3), device=dev)
+    osdf = torch.zeros((n, 1), device=dev)
+
+    def fresh():
+        st = ttd.init_diff_state(cfg, seed=cfg.seed, device=dev)
+        return st, ttd.DiffStep(cfg, st, sched, codes_n, cids, oxyz, osdf)
+
+    a, step_a = fresh()
+    b, step_b = fresh()
+    chunk = cfg.scan_chunk
+    times = {"eager": [], "graphed": []}
+    same = True
+    for start in (0, chunk):
+        draws = ttd.draw_chunk(cfg, n, 1, start, dev)
+        for name, fn in (("eager", step_a.eager), ("graphed", step_b.graphed)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(fn(draws))
+            times[name].append(time.perf_counter() - t0)
+            if name == "eager":
+                la = loss
+        same = same and la == loss and all(
+            torch.equal(x, y) for x, y in zip(diff_tensors(a),
+                                              diff_tensors(b)))
+    ms = {k: 1e3 * v[-1] / chunk for k, v in times.items()}
+    log(f"[unet] chunk of {chunk} steps from the same state and draws, twice: "
+        f"eager and graphed equal bit for bit (params, EMA, Adam moments "
+        f"and counts, loss): {same}; second chunk: eager {ms['eager']:.3f} "
+        f"ms a step, graphed {ms['graphed']:.3f} ms a step; the first "
+        f"graphed chunk (capture included) {times['graphed'][0]:.2f} s "
+        f"[{card}]")
+    if not same:
+        raise RuntimeError("[unet] the graphed chunk differs from the eager "
+                           "chunk")
+    draws = ttd.draw_chunk(cfg, n, 1, 2 * chunk, dev)
+    wall, busy, top = device_profile(lambda: float(step_b.graphed(draws)))
+    log_profile("unet", f"one traced graphed chunk of {chunk} steps", wall,
+                busy, top, card)
+    del a, b, step_a, step_b
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as td:
+        path = pathlib.Path(td) / "diff.jsonl"
+        logger = MetricLogger(path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, (mu_t, sigma_t), last = ttd.train_diffusion(
+            cfg, codes, logger=logger, device=dev)
+        run_s = time.perf_counter() - t0
+        logger.close()
+        recs = [json.loads(x) for x in path.read_text().splitlines()]
+    losses = [r["loss"] for r in recs if r["event"] == "diff_chunk"]
+    log(f"[unet] train_diffusion, {state.step} steps in {len(losses)} graphed "
+        f"chunks: {run_s:.2f} s ({1e3 * run_s / state.step:.3f} ms a step); "
+        f"loss first chunk {losses[0]:.4f}, last {losses[-1]:.4f} (gate < "
+        f"0.5) [{card}]")
+    if not (np.isfinite(last) and last < 0.5 and state.step == UNET_STEPS
+            and torch.equal(mu_t, mu)):
+        raise RuntimeError(f"[unet] training: last loss {last}, step "
+                           f"{state.step}")
+
+    ema = CondDenoiser(dc).to(dev)
+    ema.load_state_dict(state.ema)
+    ema.eval()
+    sc = exp.sample
+    fn = guided_denoise_fn(ema, sc.guidance_scale)
+    gen = torch.Generator(device=dev).manual_seed(sc.seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zs = ttd.unnormalize_codes(ddim_sample(fn, sched, gen, UNET_SAMPLES,
+                                           dc.latent_size,
+                                           steps=sc.ddim_steps), mu_t, sigma_t)
+    torch.cuda.synchronize()
+    ddim_ms = (time.perf_counter() - t0) * 1e3
+    apply = ck.make_kernel_apply(SdfDecoder(DecoderConfig()), sd, device=dev)
+    ck.LAUNCHES["fused_eval"] = 0
+    t0 = time.perf_counter()
+    meshes = list(serve_meshes(apply, list(zs), res=sc.grid_res, device=dev))
+    serve_s = time.perf_counter() - t0
+    launches = ck.LAUNCHES["fused_eval"]
+    faces = [len(f) for _, f, _ in meshes]
+    surfaced = sum(f > 0 for f in faces)
+    log(f"[unet] DDIM-{sc.ddim_steps} of {UNET_SAMPLES} latents from the EMA: "
+        f"{ddim_ms:.1f} ms, max|z| {float(zs.abs().max()):.2f}; decoded at "
+        f"{sc.grid_res}^3 through serve_meshes in {serve_s:.2f} s, kernel #1 "
+        f"{launches} launches; {surfaced} of {UNET_SAMPLES} with a surface "
+        f"(gate >= 1), faces {faces} [{card}]")
+    if surfaced < 1 or launches == 0:
+        raise RuntimeError("[unet] no sampled shape has a surface")
+    return dict(trained=(state, mu_t, sigma_t), out=dict(
+        ms_per_step=ms, chunk_s=times, bit_equal=same,
+        trace=dict(wall_s=wall, device_busy_ms=busy, top=top[:12]),
+        run_s=run_s, steps=state.step, losses=losses, ddim_ms=ddim_ms,
+        serve_s=serve_s, fused_eval_launches=launches, faces=faces,
+        surfaced=surfaced))
+
+
+RECON_TARGETS = (0, 1, 2, 3, 6144)   # 6144: held out of the committed pack
+RECON_POINTS = 8000                  # observations a target (the CLI's)
+RECON_RES = 256                      # the meshes' dense grid
+ENC_STEPS = 3000                     # the encoder's cut (20,000)
+REFINE_STEPS = 100
+
+
+def recon_phase(dev, card, unet) -> dict:
+    """[recon] reconstruction from 8,000 observations of chairs 0-3 and the
+    held-out chair 6144 of the committed pack's split, on its 8x512
+    decoder, at cfg.reconstruct's defaults: (a) MAP, (b) 4 restarts, (c)
+    the SDS prior of [unet]'s EMA at weight 1e-3, (d) the encoder trained
+    here at full width (cut to ENC_STEPS steps) one-shot and refined by
+    REFINE_STEPS steps. Graphed == eager bit for bit for a-c and for an
+    encoder chunk; each mesh decoded dense at 256^3 through kernel #1 and
+    held by Chamfer-L2 against the analytic surface."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from latent_diffusion_models_for_shape_sdfs_torch import reconstruct as rec
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        DecoderConfig, EncConfig, ExperimentConfig, ReconstructConfig,
+        override)
+    from latent_diffusion_models_for_shape_sdfs_torch.data import analytic
+    from latent_diffusion_models_for_shape_sdfs_torch.diffusion.sampler import (
+        guided_denoise_fn)
+    from latent_diffusion_models_for_shape_sdfs_torch.diffusion.schedule import (
+        DiffusionSchedule)
+    from latent_diffusion_models_for_shape_sdfs_torch.evaluation import (
+        chamfer_l2, sample_mesh_surface)
+    from latent_diffusion_models_for_shape_sdfs_torch.models.decoder import (
+        SdfDecoder)
+    from latent_diffusion_models_for_shape_sdfs_torch.models.denoiser import (
+        CondDenoiser)
+    from latent_diffusion_models_for_shape_sdfs_torch.models.encoder import (
+        encode_latent)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        cuda_kernels as ck)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.grid_eval import (
+        decode_grid)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.isosurface import (
+        extract_mesh)
+    from latent_diffusion_models_for_shape_sdfs_torch.pipeline import (
+        _enc_bank)
+    from latent_diffusion_models_for_shape_sdfs_torch.train import (
+        encoder as ten)
+    from latent_diffusion_models_for_shape_sdfs_torch.train.diffusion import (
+        normalize_codes)
+    from latent_diffusion_models_for_shape_sdfs_torch.utils.checkpoint import (
+        load_stage1_pack)
+    from latent_diffusion_models_for_shape_sdfs_torch.utils.logging import (
+        MetricLogger)
+
+    rcfg = ReconstructConfig()
+    sd, codes = load_stage1_pack(ROOT.joinpath(*PACK))
+    decoder = SdfDecoder(DecoderConfig())
+    decoder.load_state_dict(sd)
+    decoder.to(dev)
+    apply = ck.make_kernel_apply(SdfDecoder(DecoderConfig()), sd, device=dev)
+    shapes = analytic.make_synthetic_split("chair", 6145, seed=11)
+    targets = {}
+    for i in RECON_TARGETS:
+        ox, od = analytic.sample_sdf_points(shapes[i], RECON_POINTS,
+                                            np.random.default_rng(1000 + i))
+        gt = analytic.sample_surface(shapes[i], 30_000,
+                                     np.random.default_rng(2000 + i))
+        targets[i] = (torch.from_numpy(ox).to(dev),
+                      torch.from_numpy(od).to(dev), gt)
+    ref = json.loads((ROOT / "runs" / "scale_chairs6k" /
+                      "heldout_eval.json").read_text())["held_out"]["rows"]
+    log(f"[recon] committed 8x512 chair decoder (fp32, TF32 off), targets "
+        f"chairs {RECON_TARGETS} of make_synthetic_split('chair', 6145, "
+        f"seed=11), 8,000 observations each; cfg.reconstruct {rcfg}; the "
+        f"reference's own held-out rows (runs/scale_chairs6k/"
+        f"heldout_eval.json, {len(ref)} chairs): l1_last "
+        f"{min(r['l1_last'] for r in ref):.5f}-"
+        f"{max(r['l1_last'] for r in ref):.5f}, Chamfer "
+        f"{min(r['chamfer'] for r in ref):.2e}-"
+        f"{max(r['chamfer'] for r in ref):.2e} [{card}]")
+
+    def mesh_chamfer(z, gt):
+        grid = decode_grid(apply, z, RECON_RES, chunk=1 << 20).cpu().numpy()
+        v, f = extract_mesh(grid)
+        if len(f) == 0:
+            return 0, float("inf")
+        return len(f), chamfer_l2(sample_mesh_surface(v, f, 30_000, seed=1),
+                                  gt)
+
+    # the prior: [unet]'s EMA weights and code moments
+    state_u, mu_u, sigma_u = unet
+    exp_u = ExperimentConfig.load(ROOT.joinpath(*UNET))
+    den = CondDenoiser(exp_u.diff.denoiser).to(dev)
+    den.load_state_dict(state_u.ema)
+    den.eval()
+    sched = DiffusionSchedule.create(exp_u.diff.timesteps,
+                                     exp_u.diff.beta_start,
+                                     exp_u.diff.beta_end, device=dev)
+    prior = {"denoise_fn": guided_denoise_fn(den, 0.0), "sched": sched,
+             "mu": mu_u, "sigma": sigma_u, "weight": 1e-3, "t_lo": 0.02,
+             "t_hi": 0.98, "anneal": True}
+    modes = {"a_map": (rcfg, None),
+             "b_restarts4": (dataclasses.replace(rcfg, num_inits=4), None),
+             "c_sds": (rcfg, prior)}
+    out: dict = {"modes": {}}
+    ck.LAUNCHES["fused_eval"] = 0
+
+    def run_targets(mode, fn):
+        """fn(ox, od) -> (z, l1_last) on every target: ms (host clock, the
+        result read included; chair 0's includes the capture of its
+        graph), l1_last, the RECON_RES^3 mesh's faces and Chamfer-L2."""
+        rows = {}
+        for i, (ox, od, gt) in targets.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            z, l1_last = fn(ox, od)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            faces, cham = mesh_chamfer(z, gt)
+            rows[i] = dict(ms=ms, l1_last=l1_last, faces=faces,
+                           chamfer=cham)
+            log(f"[recon]   ({mode}) chair {i}: {ms:.1f} ms, l1_last "
+                f"{l1_last:.5f}, {RECON_RES}^3 mesh {faces} faces, Chamfer-L2 "
+                f"{cham:.3e}")
+        return rows
+
+    for mode, (cfg, sp) in modes.items():
+        k = cfg.num_inits
+        # chair 0: a graphed run == the eager run from the same draws; the
+        # graphed one timed on its second replay (the first captures)
+        ox, od, _ = targets[0]
+        draws = rec.draw_recon(cfg, k, decoder.cfg.latent_size, dev,
+                               sds_prior=sp)
+        opts, secs = {}, {}
+        for how in ("eager", "graphed"):
+            opts[how] = rec.LatentOpt(decoder, cfg, k, RECON_POINTS,
+                                      sds_prior=sp)
+            for _ in range(1 if how == "eager" else 2):
+                opts[how].load(ox, od, draws)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                getattr(opts[how], how)()
+                torch.cuda.synchronize()
+                secs[how] = time.perf_counter() - t0
+        e, g = opts["eager"], opts["graphed"]
+        same = all(torch.equal(x, y) for x, y in
+                   ((e.z, g.z), (e.hist, g.hist), (e.l1, g.l1)))
+        per_step = 1e3 * secs["graphed"] / cfg.num_steps
+        log(f"[recon] ({mode}) k {k}, {cfg.num_steps} steps, chair 0 from "
+            f"the same draws: eager {1e3 * secs['eager']:.1f} ms, graphed "
+            f"{1e3 * secs['graphed']:.1f} ms ({per_step:.3f} ms a step), "
+            f"equal bit for bit (z, both histories): {same} [{card}]")
+        if not same:
+            raise RuntimeError(f"[recon] {mode}: graphed != eager")
+        trace = None
+        if k == 1:              # where a run's time goes: one traced run
+            g.load(ox, od, draws)
+            wall, busy, top = device_profile(g.graphed)
+            log_profile("recon", f"({mode}) one traced graphed run of "
+                        f"{cfg.num_steps} steps", wall, busy, top, card)
+            trace = dict(wall_s=wall, device_busy_ms=busy, top=top[:12])
+        del opts, e, g
+        cache: dict = {}
+
+        def fn(ox, od, cfg=cfg, sp=sp, cache=cache):
+            z, info = rec.reconstruct_latent(decoder, ox, od, cfg,
+                                             sds_prior=sp, cache=cache)
+            return z, info["l1_last"]
+        out["modes"][mode] = dict(eager_ms=1e3 * secs["eager"],
+                                  graphed_ms=1e3 * secs["graphed"],
+                                  bit_equal=same, trace=trace,
+                                  rows=run_targets(mode, fn))
+        torch.cuda.empty_cache()
+
+    # (d) the encoder at full width on the committed codes, its bank from
+    # the device sampler through pipeline._enc_bank
+    ecfg = dataclasses.replace(EncConfig(), num_steps=ENC_STEPS)
+    exp = override(ExperimentConfig(data_source="analytic:chair"),
+                   **{"ad.num_scenes": len(codes), "ad.seed": 11})
+    exp = dataclasses.replace(exp, encoder=ecfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bx, bs = _enc_bank(exp, None, device=dev)
+    torch.cuda.synchronize()
+    bank_s = time.perf_counter() - t0
+    mib = (bx.numel() + bs.numel()) * 4 / 2**20
+    log(f"[recon] (d) encoder bank: {tuple(bx.shape)} points from the device "
+        f"chair sampler in {bank_s:.2f} s ({mib:.0f} MiB); encoder widths "
+        f"{ecfg.encoder.point_widths} / "
+        f"head {ecfg.encoder.head_widths}, batch {ecfg.batch_scenes} x "
+        f"{ecfg.n_obs}, lr {ecfg.lr} {ecfg.lr_schedule} (warmup "
+        f"{ecfg.warmup_steps}); cut: num_steps 20000 -> {ENC_STEPS} [{card}]")
+    codes_n, _, _ = normalize_codes(torch.from_numpy(codes).to(dev))
+    bank = ten.make_bank(bx, bs, dev)
+    st_a = ten.init_enc_state(ecfg, seed=ecfg.seed, device=dev)
+    st_b = ten.init_enc_state(ecfg, seed=ecfg.seed, device=dev)
+    step_a = ten.EncStep(ecfg, st_a, bank, codes_n)
+    step_b = ten.EncStep(ecfg, st_b, bank, codes_n)
+    draws = ten.draw_chunk(ecfg, len(codes), bank.shape[1], 0, dev)
+    enc_t = {}
+    for name, fn in (("eager", step_a.eager), ("graphed", step_b.graphed)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(fn(draws))
+        enc_t[name] = time.perf_counter() - t0
+    same = float(step_a.last) == loss and all(
+        torch.equal(p, q) and all(torch.equal(st_a.optimizer.state[p][k],
+                                              st_b.optimizer.state[q][k])
+                                  for k in st_a.optimizer.state[p])
+        for p, q in zip(st_a.model.parameters(), st_b.model.parameters()))
+    draws = ten.draw_chunk(ecfg, len(codes), bank.shape[1], ecfg.scan_chunk,
+                           dev)
+    t0 = time.perf_counter()
+    float(step_b.graphed(draws))
+    enc_t["graphed_replay"] = time.perf_counter() - t0
+    wall, busy, top = device_profile(lambda: float(step_b.graphed(
+        ten.draw_chunk(ecfg, len(codes), bank.shape[1],
+                       2 * ecfg.scan_chunk, dev))))
+    log(f"[recon] (d) encoder chunk of {ecfg.scan_chunk} steps from the same "
+        f"state and draws: eager {1e3 * enc_t['eager'] / ecfg.scan_chunk:.3f}"
+        f" ms a step, graphed (capture included) "
+        f"{1e3 * enc_t['graphed'] / ecfg.scan_chunk:.3f}, graphed replay "
+        f"{1e3 * enc_t['graphed_replay'] / ecfg.scan_chunk:.3f}; equal bit "
+        f"for bit (params, Adam, loss): {same} [{card}]")
+    log_profile("recon", "one traced graphed encoder chunk", wall, busy, top,
+                card)
+    if not same:
+        raise RuntimeError("[recon] the graphed encoder chunk differs from "
+                           "the eager chunk")
+    del step_a, step_b, st_a, st_b
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as td:
+        path = pathlib.Path(td) / "enc.jsonl"
+        logger = MetricLogger(path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc, est, (emu, esig), enc_loss = ten.train_encoder(
+            ecfg, codes, bx, bs, logger=logger, device=dev)
+        enc_s = time.perf_counter() - t0
+        logger.close()
+        enc_losses = [json.loads(x)["loss"] for x in
+                      path.read_text().splitlines()]
+    log(f"[recon] (d) train_encoder, {est.step} steps in {len(enc_losses)} "
+        f"graphed chunks: {enc_s:.2f} s ({1e3 * enc_s / est.step:.3f} ms a "
+        f"step); loss first chunk {enc_losses[0]:.4f}, last {enc_loss:.4f} "
+        f"(gate < 0.6; the reference read 0.42 at step 2,000) [{card}]")
+    if not (np.isfinite(enc_loss) and enc_loss < 0.6):
+        raise RuntimeError(f"[recon] encoder last loss {enc_loss}")
+    del bx, bs, bank
+    enc.eval()
+    rcfg_d = dataclasses.replace(rcfg, num_steps=REFINE_STEPS,
+                                 lr_decay_at=REFINE_STEPS // 2)
+    cache_d: dict = {}
+
+    def one_shot(ox, od):
+        return encode_latent(enc, ox, od, emu, esig), float("nan")
+
+    def refined(ox, od):
+        z0 = encode_latent(enc, ox, od, emu, esig)
+        z, info = rec.reconstruct_latent(decoder, ox, od, rcfg_d, z_init=z0,
+                                         cache=cache_d)
+        return z, info["l1_last"]
+
+    out["modes"]["d_encoder"] = dict(
+        bank_s=bank_s, chunk_s=enc_t, bit_equal=same, train_s=enc_s,
+        losses=enc_losses, trace=dict(wall_s=wall, device_busy_ms=busy,
+                                      top=top[:12]),
+        one_shot=run_targets("d_one_shot", one_shot),
+        refined=run_targets(f"d_refined_{REFINE_STEPS}", refined))
+    out["fused_eval_launches"] = ck.LAUNCHES["fused_eval"]
+    m = out["modes"]
+    meshes = [r["faces"] for v in m.values() for rows in (
+        [v["rows"]] if "rows" in v else [v["one_shot"], v["refined"]])
+        for r in rows.values()]
+    bad = [i for i, r in m["a_map"]["rows"].items() if not r["l1_last"] < 5e-3]
+    sds_bad = [i for i, r in m["c_sds"]["rows"].items()
+               if not r["l1_last"] < 1e-2]
+    log(f"[recon] gates: MAP l1_last < 0.005 on every chair (fails: {bad}); "
+        f"SDS l1_last < 0.01 (fails: {sds_bad}); every mesh non-empty "
+        f"({sum(f > 0 for f in meshes)} of {len(meshes)}); kernel #1 "
+        f"{out['fused_eval_launches']} launches [{card}]")
+    if bad or sds_bad or min(meshes) == 0 or out["fused_eval_launches"] == 0:
+        raise RuntimeError(f"[recon] gates failed: {bad} {sds_bad} {meshes}")
+    return out
+
+
 def cli_phase(dev, card) -> dict:
     """[cli] the CLI in process on config 4's specs (every field passed
     with --set), cut in scale: init-experiment, train-ad, train-diff,
@@ -1018,14 +1475,21 @@ def cli_phase(dev, card) -> dict:
                 yield from ("--set", f"{prefix}{k}={json.dumps(v)}")
 
     # 150 epochs of one step: enough for the decoder to reach the surfaces
-    # from its init (2 epochs left every eval mesh empty)
-    cuts = {"ad.num_scenes": 64, "ad.num_epochs": 150, "diff.num_steps": 1000,
-            "diff.snapshot_every": 500, "sample.num_samples": 8,
-            "sample.grid_res": 128}
+    # from its init (2 epochs left every eval mesh empty); 10,000 stage-2
+    # steps: after 1,000 the EMA (decay 0.999) still weighed the init by
+    # 37% and every sample was empty; the encoder's warmup cut with its
+    # steps (500 of 20,000)
+    cuts = {"ad.num_scenes": 64, "ad.num_epochs": 150,
+            "diff.num_steps": 10_000, "diff.snapshot_every": 5000,
+            "sample.num_samples": 8,
+            "sample.grid_res": 128, "encoder.num_steps": 500,
+            "encoder.warmup_steps": 12}
     out: dict = {"cuts": cuts, "stages": {}}
     with tempfile.TemporaryDirectory() as td:
         exp = str(pathlib.Path(td) / "config4_cli")
         points = 2000
+        queue, served = pathlib.Path(td) / "q", pathlib.Path(td) / "served"
+        recon = ["reconstruct", exp, "--analytic", "chair", "--name"]
         stages = [
             ("init-experiment", ["init-experiment", exp, "--data",
                                  specs["data_source"], *sets(specs),
@@ -1035,7 +1499,25 @@ def cli_phase(dev, card) -> dict:
             ("train-diff", ["train-diff", exp]),
             ("train-diff --resume", ["train-diff", exp, "--resume"]),
             ("sample", ["sample", exp, "--res", str(RES)]),
-            ("eval", ["eval", exp, "--points", str(points)])]
+            ("eval", ["eval", exp, "--points", str(points)]),
+            ("train-encoder", ["train-encoder", exp]),
+            ("reconstruct", [*recon, "map"]),
+            ("reconstruct --diffusion-prior", [*recon, "prior",
+                                               "--diffusion-prior"]),
+            ("reconstruct --encoder --refine-steps 0",
+             [*recon, "one_shot", "--encoder", "--refine-steps", "0"]),
+            ("reconstruct --encoder", [*recon, "refined", "--encoder"]),
+            ("serve-daemon --reconstruct encoder",
+             ["serve-daemon", exp, "--in", str(queue), "--out", str(served),
+              "--poll", "0.1", "--max-idle", "1.0", "--reconstruct",
+              "encoder"])]
+        queue.mkdir()
+        from latent_diffusion_models_for_shape_sdfs_torch.data import analytic
+        import numpy as np
+        ox, od = analytic.sample_sdf_points(
+            analytic.make_shape("chair", np.random.default_rng(3)), 8000,
+            np.random.default_rng(4))
+        np.savez(queue / "obs.npz", obs_xyz=ox, obs_sdf=od)
         for name, argv in stages:
             for d in (rd.LAUNCHES, ck.LAUNCHES):
                 for k in d:
@@ -1059,7 +1541,18 @@ def cli_phase(dev, card) -> dict:
             pathlib.Path(exp) / "checkpoints" / "diffusion").glob("*.pt"))
         ad_last = [json.loads(x) for x in (pathlib.Path(exp) / "logs" /
                                            "train_ad.jsonl").open()][-1]
+        enc_last = [json.loads(x) for x in (pathlib.Path(exp) / "logs" /
+                                            "train_enc.jsonl").open()][-1]
+        recon_faces = {p.stem: sum(1 for ln in p.open()
+                                   if ln.startswith("f "))
+                       for p in sorted((pathlib.Path(exp) /
+                                        "reconstructions").glob("*.obj"))}
+        daemon = json.loads((served / "obs.stats.json").read_text())
     st = out["stages"]
+    log(f"[cli] train-encoder's last loss {enc_last['loss']:.4f} at step "
+        f"{enc_last['step']}; reconstructions at {cuts['sample.grid_res']}^3"
+        f", faces {recon_faces}; the daemon's encoder reconstruction at "
+        f"{RES}^3: {daemon[0]['faces']} faces [{card}]")
     log(f"[cli] config4_conditional through the CLI, cut {cuts} (eval "
         f"--points {points}): train-ad's last loss_l1 "
         f"{ad_last['loss_l1']:.5f}; eval over {len(ev['chamfer_l2'])} scenes: mean "
@@ -1073,13 +1566,20 @@ def cli_phase(dev, card) -> dict:
           and st["sample"]["launches"]["fused_eval"] > 0
           and st["eval"]["launches"]["fused_eval"] > 0
           and len(samples) == cuts["sample.num_samples"]
-          and diff_ckpts == [500, 1000])
+          and min(n_faces) > 0
+          and diff_ckpts == [5000, 10_000]
+          and all(st[n]["launches"]["fused_eval"] > 0 for n in st
+                  if n.startswith(("reconstruct", "serve-daemon")))
+          and len(recon_faces) == 4 and min(recon_faces.values()) > 0
+          and daemon[0]["faces"] > 0)
     if not ok:
         raise RuntimeError(f"CLI run: {out}")
     out.update(ad_loss_l1=ad_last["loss_l1"], eval_mean=ev["mean"],
                fscore_mean=ev["fscore_mean"],
                nc_mean=ev.get("normal_consistency_mean"),
-               num_failed=ev["num_failed"], sample_faces=n_faces)
+               num_failed=ev["num_failed"], sample_faces=n_faces,
+               enc_loss=enc_last["loss"], recon_faces=recon_faces,
+               daemon_faces=daemon[0]["faces"])
     return out
 
 
@@ -1663,10 +2163,19 @@ def main() -> int:
                                          td.pop("trained"))
     torch.cuda.empty_cache()
 
-    # ---- phase 12: [cli] the main path through the CLI
+    # ---- phase 12: [unet] config 2-unet's stage 2 on the chair codes
+    un = unet_phase(dev, card)
+    details["unet"] = un["out"]
+    torch.cuda.empty_cache()
+
+    # ---- phase 13: [recon] reconstruction from observations, 4 modes
+    details["recon"] = recon_phase(dev, card, un.pop("trained"))
+    torch.cuda.empty_cache()
+
+    # ---- phase 14: [cli] the main path through the CLI
     details["cli"] = cli_phase(dev, card)
 
-    # ---- phase 13: summary
+    # ---- phase 15: summary
     t512 = drop_t[512]
     kernels = [{
         "name": "fused_decoder_eval",

@@ -20,5 +20,10 @@ with the per-point-latent eval kernel
 The main path `train-ad -> train-diff -> sample -> eval`: `train.diffusion`
 (stage-2 training, one CUDA graph a step on a card), the stage
 checkpoints of `utils.checkpoint`, `pipeline` and `cli` (`python -m
-latent_diffusion_models_for_shape_sdfs_torch`).
+latent_diffusion_models_for_shape_sdfs_torch`). Reconstruction from
+observations: `reconstruct` (latent optimisation, one CUDA graph a step
+on a card, with restarts and the diffusion prior), `models.encoder` and
+`train.encoder` (the amortized encoder), `data.analytic_device` (chairs
+sampled on the device), `train.graph` (the capture the graphed loops
+share); and config 2-unet's UNet body in `models.denoiser`.
 """

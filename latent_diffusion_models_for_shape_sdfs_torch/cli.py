@@ -3,8 +3,8 @@
     python -m latent_diffusion_models_for_shape_sdfs_torch [--device cpu] <cmd> ...
 
 Counterpart of the JAX package's `cli.py`, with its flags, for
-`init-experiment`, `train-ad`, `train-diff`, `sample`, `eval`, `decode`
-and `serve-daemon`. Every training and eval command takes an experiment
+`init-experiment`, `train-ad`, `train-diff`, `train-encoder`, `sample`,
+`reconstruct`, `eval`, `decode` and `serve-daemon`. Every training and eval command takes an experiment
 directory holding specs.json (write one with `init-experiment`; override
 fields with --set dotted.key=value). `--device` (default cuda) picks the
 device every command runs on; JAX picks its platform from the
@@ -59,6 +59,14 @@ def cmd_train_diff(args):
     print("stage-2 training complete")
 
 
+def cmd_train_encoder(args):
+    from latent_diffusion_models_for_shape_sdfs_torch.pipeline import (
+        run_train_encoder)
+    run_train_encoder(args.exp_dir, resume=args.resume,
+                      tensorboard=args.tensorboard, device=args.device)
+    print("encoder training complete")
+
+
 def _load_obs_rows(path: str):
     """.npz with pos/neg [N,4] rows (native preprocess format) or a single
     [N,4] array -> (xyz [N,3], sdf [N])."""
@@ -85,6 +93,39 @@ def cmd_sample(args):
                         device=args.device)
     print(f"wrote {len(meshes)} meshes under "
           f"{pathlib.Path(args.exp_dir) / 'samples'}")
+
+
+def cmd_reconstruct(args):
+    """Observations (--obs rows, or --points samples of a demo analytic
+    shape) -> latent -> mesh under <exp>/reconstructions."""
+    import numpy as np
+    from latent_diffusion_models_for_shape_sdfs_torch.pipeline import (
+        run_reconstruct)
+    if args.obs:
+        xyz, d = _load_obs_rows(args.obs)
+        rows = np.concatenate([xyz, d[:, None]], axis=1)
+    else:  # analytic demo observation set
+        from latent_diffusion_models_for_shape_sdfs_torch.data import analytic
+        shape = analytic.make_shape(args.analytic,
+                                    np.random.default_rng(args.seed or 0))
+        xyz, d = analytic.sample_sdf_points(shape, args.points,
+                                            np.random.default_rng(1))
+        rows = np.concatenate([xyz, d[:, None]], axis=1)
+    idx = np.random.default_rng(2).permutation(len(rows))[:args.points]
+    rows = rows[idx]
+    _, v, f = run_reconstruct(args.exp_dir, rows[:, :3], rows[:, 3],
+                              name=args.name, res=args.res,
+                              mesh_format=args.format,
+                              simplify_faces=args.simplify_faces,
+                              simplify_ratio=args.simplify,
+                              diffusion_prior=args.diffusion_prior,
+                              sds_weight=args.sds_weight,
+                              encoder=args.encoder,
+                              refine_steps=args.refine_steps,
+                              device=args.device)
+    print(f"reconstructed mesh: {len(v)} verts, {len(f)} faces -> "
+          f"{pathlib.Path(args.exp_dir) / 'reconstructions' / args.name}"
+          f".{args.format}")
 
 
 def cmd_eval(args):
@@ -166,7 +207,10 @@ def cmd_decode(args):
 
 def cmd_serve_daemon(args):
     """Watch-folder serving loop: latent .npy requests in, meshes out
-    (serve.watch_and_serve); stop with a STOP file or --max-idle."""
+    (serve.watch_and_serve); with --reconstruct, .npz observation requests
+    too, reconstructed by latent optimisation or the encoder
+    (serve.make_obs_reconstruct_fn); stop with a STOP file or
+    --max-idle."""
     from latent_diffusion_models_for_shape_sdfs_torch.ops.cuda_kernels import (
         make_kernel_apply)
     from latent_diffusion_models_for_shape_sdfs_torch.pipeline import (
@@ -174,17 +218,26 @@ def cmd_serve_daemon(args):
     from latent_diffusion_models_for_shape_sdfs_torch.serve import (
         watch_and_serve)
 
-    if args.reconstruct != "none":
-        raise NotImplementedError(
-            f"--reconstruct {args.reconstruct}: observation requests need "
-            "serve.make_obs_reconstruct_fn, not ported yet")
     decoder, ad_state = load_ad_state(args.exp_dir, device=args.device)
     apply_fn = make_kernel_apply(decoder, decoder_params(ad_state),
                                  device=args.device)
+    recon_fn = None
+    if args.reconstruct != "none":
+        from latent_diffusion_models_for_shape_sdfs_torch.serve import (
+            make_obs_reconstruct_fn)
+        enc = moments = None
+        if args.reconstruct == "encoder":
+            from latent_diffusion_models_for_shape_sdfs_torch.pipeline \
+                import load_encoder_state
+            enc, _, moments = load_encoder_state(args.exp_dir,
+                                                 device=args.device)
+        recon_fn = make_obs_reconstruct_fn(
+            decoder, encoder=enc, enc_moments=moments,
+            refine_steps=args.refine_steps)
     n = watch_and_serve(apply_fn, args.in_dir, args.out_dir,
                         res=args.res, poll=args.poll,
                         mesh_format=args.format, max_idle=args.max_idle,
-                        device=apply_fn.device,
+                        reconstruct_fn=recon_fn, device=apply_fn.device,
                         simplify_faces=args.simplify_faces,
                         simplify_ratio=args.simplify)
     print(f"served {n} request files")
@@ -222,6 +275,14 @@ def main(argv=None):
                    help="not ported (raises)")
     s.set_defaults(fn=cmd_train_diff)
 
+    s = sub.add_parser("train-encoder", help="amortized latent encoder "
+                       "(one-shot reconstruction; needs train-ad)")
+    s.add_argument("exp_dir")
+    s.add_argument("--resume", action="store_true")
+    s.add_argument("--tensorboard", action="store_true",
+                   help="not ported (raises)")
+    s.set_defaults(fn=cmd_train_encoder)
+
     s = sub.add_parser("sample", help="sample latents -> meshes")
     s.add_argument("exp_dir")
     s.add_argument("--num", type=int, default=None)
@@ -235,6 +296,32 @@ def main(argv=None):
                    help="mesh output format (ply = binary little-endian)")
     _add_lod_flags(s)
     s.set_defaults(fn=cmd_sample)
+
+    s = sub.add_parser("reconstruct", help="latent-optimize to a mesh")
+    s.add_argument("exp_dir")
+    s.add_argument("--obs", help=".npz with pos/neg [N,4] rows")
+    s.add_argument("--analytic", default="sphere",
+                   help="analytic family for a demo observation set")
+    s.add_argument("--points", type=int, default=8000)
+    s.add_argument("--name", default="recon")
+    s.add_argument("--res", type=int, default=None)
+    s.add_argument("--seed", type=int, default=None)
+    s.add_argument("--format", choices=("obj", "ply"), default="obj",
+                   help="mesh output format (ply = binary little-endian)")
+    s.add_argument("--diffusion-prior", action="store_true",
+                   help="regularize with the trained stage-2 denoiser "
+                        "(score distillation) instead of the Gaussian "
+                        "prior alone; needs a train-diff checkpoint")
+    s.add_argument("--sds-weight", type=float, default=1e-3)
+    s.add_argument("--encoder", action="store_true",
+                   help="warm-start from the amortized encoder's one-shot"
+                        " latent prediction; needs a train-encoder "
+                        "checkpoint")
+    s.add_argument("--refine-steps", type=int, default=None,
+                   help="latent-opt steps after the encoder prediction "
+                        "(0 = pure one-shot; default: full budget)")
+    _add_lod_flags(s)
+    s.set_defaults(fn=cmd_reconstruct)
 
     s = sub.add_parser("eval", help="chamfer-L2 + F-score@tau + normal "
                        "consistency vs the analytic ground truth")
@@ -273,7 +360,12 @@ def main(argv=None):
     s.add_argument("--format", choices=("obj", "ply"), default="ply")
     s.add_argument("--reconstruct", choices=("none", "latent-opt",
                                              "encoder"), default="none",
-                   help="observation requests: not ported (only 'none')")
+                   help="also accept .npz observation requests "
+                   "(obs_xyz/obs_sdf), served as reconstructions: "
+                   "'encoder' = amortized one-shot (+--refine-steps), "
+                   "'latent-opt' = optimization from scratch")
+    s.add_argument("--refine-steps", type=int, default=0,
+                   help="latent-opt steps refining the encoder one-shot")
     _add_lod_flags(s)
     s.set_defaults(fn=cmd_serve_daemon)
 

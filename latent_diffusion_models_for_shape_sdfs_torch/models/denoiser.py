@@ -9,8 +9,15 @@ LayerNorms use flax's eps 1e-6, and `out_proj` starts at zero as flax's
 
 Conditioning (BASELINE.json:10): a class embedding (row `num_classes` is
 the learned null token of classifier-free guidance) and a PointNet-style
-partial-SDF encoder, both summed into the time embedding. The 1-D conv
-UNet body (`arch="unet"`) is not ported yet.
+partial-SDF encoder, both summed into the time embedding.
+
+The 1-D conv UNet body (`arch="unet"`) keeps flax's channels-last signal
+[B, tokens, C] only at its two ends: inside, every activation is
+channels-first [B, C, tokens] as `nn.Conv1d` wants it. `padding="SAME"`
+with kernel 3 is `padding=1`, `nn.avg_pool` (window 2, stride 2) is
+`F.avg_pool1d(2)`, `jax.image.resize(..., "nearest")` to twice the length
+repeats each token twice (`upsample_nearest2`), and the GroupNorms use
+flax's eps 1e-6.
 """
 
 from __future__ import annotations
@@ -132,13 +139,77 @@ class LatentDenoiserMLP(nn.Module):
         return self.out_proj(self.out_ln(x))
 
 
+def upsample_nearest2(x: torch.Tensor) -> torch.Tensor:
+    """[B, C, T] -> [B, C, 2T], each token twice (`jax.image.resize`
+    "nearest" to twice the length; `repeat_interleave(2, -1)`). An expand
+    and a reshape, so the backward is a sum, not an index_add."""
+    return x[..., None].expand(*x.shape, 2).reshape(*x.shape[:-1], -1)
+
+
+class ConvBlock1D(nn.Module):
+    """GroupNorm(8) -> silu -> conv3 -> + cproj(cond) -> silu -> conv3, plus
+    the input (through a 1x1 conv `cs` where the channels change).
+    Channels-first: x [B, C_in, T], cond [B, D] -> [B, ch, T]."""
+
+    def __init__(self, in_ch: int, ch: int, cond_dim: int):
+        super().__init__()
+        self.gn = nn.GroupNorm(8, in_ch, eps=LN_EPS)
+        self.c1 = nn.Conv1d(in_ch, ch, 3, padding=1)
+        self.cproj = nn.Linear(cond_dim, ch)
+        self.c2 = nn.Conv1d(ch, ch, 3, padding=1)
+        if in_ch != ch:
+            self.cs = nn.Conv1d(in_ch, ch, 1)
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        h = self.c1(F.silu(self.gn(x)))
+        h = self.c2(F.silu(h + self.cproj(cond)[:, :, None]))
+        return (self.cs(x) if hasattr(self, "cs") else x) + h
+
+
+class LatentDenoiserUNet(nn.Module):
+    """1-D conv UNet over the latent viewed as (tokens, channels): the
+    256-d latent is a (32, 8) signal, run through a 2-level down/up conv
+    UNet with time/class conditioning (base width max(32, hidden_dim//8)),
+    and flattened back. The `head` starts at zero."""
+
+    def __init__(self, cfg: DenoiserConfig = DenoiserConfig(),
+                 tokens: int = 32):
+        super().__init__()
+        self.cfg, self.tokens = cfg, tokens
+        ch0 = cfg.latent_size // tokens
+        base = max(32, cfg.hidden_dim // 8)
+        d = cfg.hidden_dim
+        self.cond = TimeCondEmbed(cfg)
+        self.stem = nn.Conv1d(ch0, base, 3, padding=1)
+        self.down1 = ConvBlock1D(base, base, d)
+        self.down2 = ConvBlock1D(base, 2 * base, d)
+        self.mid = ConvBlock1D(2 * base, 4 * base, d)
+        self.up2 = ConvBlock1D(6 * base, 2 * base, d)
+        self.up1 = ConvBlock1D(3 * base, base, d)
+        self.head = nn.Conv1d(base, ch0, 3, padding=1)
+        nn.init.zeros_(self.head.weight)
+        nn.init.zeros_(self.head.bias)
+
+    def forward(self, z_t: torch.Tensor, t: torch.Tensor,
+                class_id: Optional[torch.Tensor] = None,
+                partial_embed: Optional[torch.Tensor] = None,
+                cond_drop: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B = z_t.shape[0]
+        cond = self.cond(t, class_id, partial_embed, cond_drop)
+        x = self.stem(z_t.reshape(B, self.tokens, -1).transpose(1, 2))
+        d1 = self.down1(x, cond)
+        d2 = self.down2(F.avg_pool1d(d1, 2), cond)
+        x = self.mid(F.avg_pool1d(d2, 2), cond)
+        x = self.up2(torch.cat([upsample_nearest2(x), d2], dim=1), cond)
+        x = self.up1(torch.cat([upsample_nearest2(x), d1], dim=1), cond)
+        return self.head(x).transpose(1, 2).reshape(B, self.cfg.latent_size)
+
+
 def _body(cfg: DenoiserConfig) -> nn.Module:
     if cfg.arch == "mlp":
         return LatentDenoiserMLP(cfg)
     if cfg.arch == "unet":
-        raise NotImplementedError(
-            "the UNet denoiser (arch='unet') is not ported yet; use "
-            "arch='mlp'")
+        return LatentDenoiserUNet(cfg)
     raise ValueError(f"unknown denoiser arch {cfg.arch!r}")
 
 

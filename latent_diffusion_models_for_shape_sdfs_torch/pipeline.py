@@ -1,8 +1,9 @@
 """Experiment pipeline of the port: config + data + training + checkpoints
 + sampling + evaluation around the experiment-dir convention.
 
-Counterpart of the main path of the JAX package's `pipeline.py`:
-`train-ad` -> `train-diff` -> `sample` -> `eval`. Stage 2 reads stage 1's
+Counterpart of the JAX package's `pipeline.py`: the main path `train-ad`
+-> `train-diff` -> `sample` -> `eval`, the amortized encoder
+(`train-encoder`) and reconstruction from observations (`reconstruct`). Stage 2 reads stage 1's
 checkpoint read-only (frozen codes); sampling reads both; every stage
 resumes from its latest checkpoint (utils.checkpoint.StageCheckpointer,
 torch files). Every entry point takes `device` (default "cuda", which
@@ -43,11 +44,11 @@ from latent_diffusion_models_for_shape_sdfs_torch.ops.isosurface import (
 from latent_diffusion_models_for_shape_sdfs_torch.train.auto_decoder import (
     AdTrainState, init_ad_state, train_auto_decoder)
 from latent_diffusion_models_for_shape_sdfs_torch.train.diffusion import (
-    init_diff_state, train_diffusion, unnormalize_codes)
+    chunk_seed, init_diff_state, train_diffusion, unnormalize_codes)
 from latent_diffusion_models_for_shape_sdfs_torch.utils import meshio
 from latent_diffusion_models_for_shape_sdfs_torch.utils.checkpoint import (
-    StageCheckpointer, ad_state_tree, diff_state_tree, restore_ad_state,
-    restore_diff_state)
+    StageCheckpointer, ad_state_tree, diff_state_tree, enc_state_tree,
+    restore_ad_state, restore_diff_state, restore_enc_state)
 from latent_diffusion_models_for_shape_sdfs_torch.utils.device import (
     resolve_device)
 from latent_diffusion_models_for_shape_sdfs_torch.utils.logging import (
@@ -199,6 +200,102 @@ def load_diff_state(exp_dir: str, device="cuda") -> tuple:
     return state.model, state, (mu, sigma)
 
 
+# ------------------------------------------------- amortized encoder
+
+BANK_TAG = 0xBA17        # the encoder bank's stream, apart from the steps'
+BANK_BLOCK = 512         # chairs sampled on the device at once
+
+
+def _enc_bank(cfg: ExperimentConfig, dataset: Optional[SdfDataset],
+              device="cuda") -> tuple:
+    """Per-scene observation bank [S, P, 3] / [S, P] for encoder training,
+    P = encoder.obs_bank_points (0: 4 x n_obs).
+
+    `analytic:chair`: sampled on `device` by data.analytic_device (the
+    preprocessor's sample distribution), each block of 512 chairs from a
+    generator keyed by (encoder.seed, 0xBA17, block start); returns
+    tensors. Every other source: the store's balanced draw
+    (`dataset.sample_scene`) from `np.random.default_rng(encoder.seed)`,
+    as the reference draws it; returns numpy arrays."""
+    ec = cfg.encoder
+    bank = ec.obs_bank_points or 4 * ec.n_obs
+    if cfg.data_source == "analytic:chair":
+        from latent_diffusion_models_for_shape_sdfs_torch.data import (
+            analytic_device)
+        dev = resolve_device(device)
+        shapes = analytic.make_synthetic_split("chair", cfg.ad.num_scenes,
+                                               seed=cfg.ad.seed)
+        xs, ds_ = [], []
+        for start in range(0, len(shapes), BANK_BLOCK):
+            params = analytic_device.pack_chairs(
+                shapes[start:start + BANK_BLOCK], device=dev)
+            gen = torch.Generator(device=dev).manual_seed(
+                chunk_seed(ec.seed, BANK_TAG, start))
+            xyz, d = analytic_device.sample_sdf_points_device(params, gen,
+                                                              bank)
+            xs.append(xyz)
+            ds_.append(d)
+        return torch.cat(xs), torch.cat(ds_)
+    rng = np.random.default_rng(ec.seed)
+    xs, ds_ = [], []
+    for i in range(len(dataset)):
+        rows = dataset.sample_scene(i, bank, rng)
+        xs.append(rows[:, :3])
+        ds_.append(rows[:, 3])
+    return np.stack(xs), np.stack(ds_)
+
+
+def run_train_encoder(exp_dir: str, resume: bool = False,
+                      dataset: Optional[SdfDataset] = None,
+                      tensorboard: bool = False, device="cuda") -> tuple:
+    """Train the amortized latent encoder against the frozen stage-1 table
+    (train.encoder), with a full-state checkpoint when a multiple of
+    `encoder.snapshot_every` is crossed and after the last step; `resume`
+    continues from the latest. Needs a completed train-ad stage. The
+    store is built only for sources other than `analytic:chair`, whose
+    bank is sampled on the device. Returns (model, state, (mu, sigma))."""
+    from latent_diffusion_models_for_shape_sdfs_torch.train.encoder import (
+        init_enc_state, train_encoder)
+    cfg = ExperimentConfig.load(exp_dir)
+    lay = experiment_layout(exp_dir)
+    logger = MetricLogger(lay["logs"] / "train_enc.jsonl", echo=True,
+                          tensorboard=(lay["logs"] / "tb" / "enc")
+                          if tensorboard else None)
+    if dataset is None and cfg.data_source != "analytic:chair":
+        dataset = build_dataset(cfg)
+    dev = resolve_device(device)
+    obs_xyz, obs_sdf = _enc_bank(cfg, dataset, device=dev)
+    _, ad_state = load_ad_state(exp_dir, device=dev)
+    ckpt = StageCheckpointer(exp_dir, "encoder")
+    state = init_enc_state(cfg.encoder, seed=cfg.encoder.seed, device=dev)
+    if resume and ckpt.latest_step() is not None:
+        restore_enc_state(state, ckpt.restore())
+        logger.log("resume", stage="encoder", step=state.step)
+
+    def save(step, st, mu, sigma):
+        ckpt.save(step, enc_state_tree(st, mu, sigma))
+
+    model, state, (mu, sigma), _ = train_encoder(
+        cfg.encoder, ad_state.codes.detach(), obs_xyz, obs_sdf,
+        logger=logger, state=state, checkpoint_fn=save, device=dev)
+    save(state.step, state, mu, sigma)
+    logger.close()
+    return model, state, (mu, sigma)
+
+
+def load_encoder_state(exp_dir: str, device="cuda") -> tuple:
+    """(model, EncTrainState, (mu, sigma)) from the latest encoder
+    checkpoint, the model in eval mode."""
+    from latent_diffusion_models_for_shape_sdfs_torch.train.encoder import (
+        init_enc_state)
+    cfg = ExperimentConfig.load(exp_dir)
+    state = init_enc_state(cfg.encoder, seed=cfg.encoder.seed, device=device)
+    mu, sigma = restore_enc_state(
+        state, StageCheckpointer(exp_dir, "encoder").restore())
+    state.model.eval()
+    return state.model, state, (mu, sigma)
+
+
 # --------------------------------------------------------------- sampling
 
 
@@ -338,6 +435,79 @@ def _decode_latents_to_meshes(apply_fn, zs, res: int, cfg, out_dir=None,
                                  ratio=simplify_ratio)
         _emit(i, v, f)
     return meshes
+
+
+# ----------------------------------------------------------- reconstruct
+
+
+def run_reconstruct(exp_dir: str, obs_xyz: np.ndarray, obs_sdf: np.ndarray,
+                    name: str = "recon", res: Optional[int] = None,
+                    mesh_format: str = "obj",
+                    simplify_faces: Optional[int] = None,
+                    simplify_ratio: Optional[float] = None,
+                    diffusion_prior: bool = False, sds_weight: float = 1e-3,
+                    encoder: bool = False,
+                    refine_steps: Optional[int] = None,
+                    device="cuda") -> tuple:
+    """Latent-optimise against observations, decode (dense `decode_grid`
+    through kernel #1 at `res`, default sample.grid_res), write the mesh
+    to <exp>/reconstructions/<name>.<mesh_format> (optional QEM LOD).
+
+    `diffusion_prior=True` adds the trained stage-2 EMA denoiser's score
+    distillation (reconstruct.reconstruct_latent_diffusion_prior; needs a
+    train-diff stage). `encoder=True` starts from the amortized encoder's
+    one-shot prediction (needs a train-encoder stage), then runs
+    `refine_steps` latent-optimisation steps warm-started there (lr drop
+    at half of them; 0 = the one-shot alone; None = the full
+    reconstruct.num_steps budget). The two are exclusive. Returns (z
+    [L] tensor, verts, faces)."""
+    import dataclasses
+    from latent_diffusion_models_for_shape_sdfs_torch.reconstruct import (
+        reconstruct_latent, reconstruct_latent_diffusion_prior)
+    if encoder and diffusion_prior:
+        raise ValueError("--encoder and --diffusion-prior are mutually "
+                         "exclusive reconstruction modes")
+    cfg = ExperimentConfig.load(exp_dir)
+    lay = experiment_layout(exp_dir)
+    res = res or cfg.sample.grid_res
+    dev = resolve_device(device)
+    decoder, ad_state = load_ad_state(exp_dir, device=dev)
+    ox = torch.as_tensor(np.asarray(obs_xyz, np.float32), device=dev)
+    od = torch.as_tensor(np.asarray(obs_sdf, np.float32), device=dev)
+    if encoder:
+        from latent_diffusion_models_for_shape_sdfs_torch.models.encoder \
+            import encode_latent
+        enc, _, (emu, esig) = load_encoder_state(exp_dir, device=dev)
+        z = encode_latent(enc, ox, od, emu, esig)
+        if refine_steps is None or refine_steps > 0:
+            rcfg = cfg.reconstruct
+            if refine_steps is not None:
+                rcfg = dataclasses.replace(
+                    rcfg, num_steps=refine_steps,
+                    lr_decay_at=max(refine_steps // 2, 1))
+            z, _ = reconstruct_latent(decoder, ox, od, rcfg, z_init=z)
+    elif diffusion_prior:
+        model, dstate, (mu, sigma) = load_diff_state(exp_dir, device=dev)
+        model.load_state_dict(dstate.ema)
+        model.eval()
+        schedule = DiffusionSchedule.create(
+            cfg.diff.timesteps, cfg.diff.beta_start, cfg.diff.beta_end,
+            device=dev)
+        z, _ = reconstruct_latent_diffusion_prior(
+            decoder, ox, od, guided_denoise_fn(model, 0.0), schedule, mu,
+            sigma, cfg.reconstruct, sds_weight=sds_weight)
+    else:
+        z, _ = reconstruct_latent(decoder, ox, od, cfg.reconstruct)
+    apply_fn = make_kernel_apply(decoder, decoder_params(ad_state),
+                                 device=dev)
+    grid = decode_grid(apply_fn, z, res,
+                       chunk=cfg.sample.grid_chunk).cpu().numpy()
+    v, f = extract_mesh(grid)
+    if simplify_faces is not None or simplify_ratio is not None:
+        v, f = simplify_mesh(v, f, target_faces=simplify_faces,
+                             ratio=simplify_ratio)
+    meshio.write_mesh(lay["reconstructions"] / f"{name}.{mesh_format}", v, f)
+    return z, v, f
 
 
 # ------------------------------------------------------------------ eval

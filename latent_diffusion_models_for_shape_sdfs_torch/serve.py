@@ -288,6 +288,51 @@ def generate_meshes(apply_fn, denoise_fn, schedule, generator, n: int,
                         **serve_kw)
 
 
+def make_obs_reconstruct_fn(decoder, encoder=None, enc_moments=None,
+                            refine_steps: int = 0, rcfg=None):
+    """The daemon's (obs_xyz [N,3], obs_sdf [N]) -> z [L] (numpy) hook, on
+    the decoder's device.
+
+    With `encoder` (models.encoder.LatentEncoder) and `enc_moments` (the
+    encoder checkpoint's (mu, sigma): it predicts NORMALIZED codes): the
+    one-shot prediction, refined by `refine_steps` of latent optimisation
+    warm-started there when refine_steps > 0. Without an encoder: plain
+    latent optimisation (reconstruct.reconstruct_latent) with `rcfg`
+    (ReconstructConfig, default its defaults), from cfg.seed's z0 on
+    every request. The optimisation's captured step is kept per (k, N,
+    steps), so requests of one size replay one graph; the cache keeps the
+    reconstruct.CACHE_SIZE latest sizes and frees the graphs it evicts."""
+    import dataclasses
+
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        ReconstructConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.models.encoder import (
+        encode_latent)
+    from latent_diffusion_models_for_shape_sdfs_torch.reconstruct import (
+        reconstruct_latent)
+    rcfg = rcfg or ReconstructConfig()
+    if encoder is not None and refine_steps > 0:
+        rcfg = dataclasses.replace(rcfg, num_steps=refine_steps)
+    dev = next(decoder.parameters()).device
+    cache: dict = {}
+
+    def fn(obs_xyz, obs_sdf):
+        ox = torch.as_tensor(np.asarray(obs_xyz, np.float32), device=dev)
+        od = torch.as_tensor(np.asarray(obs_sdf, np.float32), device=dev)
+        z0 = None
+        if encoder is not None:
+            mu, sigma = enc_moments
+            z0 = encode_latent(encoder, ox, od, mu, sigma)
+            if refine_steps <= 0:
+                return z0.cpu().numpy()
+        z, _ = reconstruct_latent(decoder, ox, od, rcfg, z_init=z0,
+                                  cache=cache)
+        return z.cpu().numpy()
+
+    fn.cache = cache
+    return fn
+
+
 def watch_and_serve(apply_fn, in_dir, out_dir, res: int = 256,
                     poll: float = 0.5, mesh_format: str = "ply",
                     max_idle: Optional[float] = None,

@@ -1,2 +1,2 @@
-"""Training loops (stage 1: the auto-decoder) and stage-2 code
-normalization."""
+"""Training loops (stage 1: the auto-decoder; stage 2: the diffusion
+model; the amortized encoder) and the CUDA-graph capture they share."""

@@ -40,6 +40,8 @@ from latent_diffusion_models_for_shape_sdfs_torch.diffusion.schedule import (
     DiffusionSchedule)
 from latent_diffusion_models_for_shape_sdfs_torch.models.denoiser import (
     CondDenoiser)
+from latent_diffusion_models_for_shape_sdfs_torch.train.graph import (
+    capture_step, deterministic_cudnn)
 from latent_diffusion_models_for_shape_sdfs_torch.utils.device import (
     resolve_device)
 from latent_diffusion_models_for_shape_sdfs_torch.utils.logging import (
@@ -76,8 +78,10 @@ def make_diff_tx(cfg: DiffConfig) -> Callable[[int], float]:
     """The learning rate at a step that `cfg.lr_schedule` names: constant
     `cfg.lr`, or "cosine" (optax.warmup_cosine_decay_schedule: linear
     warmup from 0, or from lr without warmup, to lr over warmup_steps,
-    then cosine decay to 5% of lr at num_steps). Not used by the trainer,
-    which keeps the reference's constant lr (module docstring)."""
+    then cosine decay to 5% of lr at num_steps). Not used by this
+    module's trainer, which keeps the reference's constant lr (module
+    docstring); the encoder's trainer runs it (train.encoder.make_enc_tx),
+    its update k (0-based) at the rate of step k, as optax's count does."""
     if cfg.lr_schedule == "constant":
         return lambda step: cfg.lr
     if cfg.lr_schedule != "cosine":
@@ -99,28 +103,34 @@ def make_diff_tx(cfg: DiffConfig) -> Callable[[int], float]:
     return lr
 
 
-def flax_init_(model: nn.Module, generator: torch.Generator) -> None:
+def flax_init_(model: nn.Module, generator: torch.Generator,
+               zero: Optional[nn.Module] = None) -> None:
     """Re-draw every parameter from flax's default distributions (torch's
-    differ): Dense kernels lecun-normal (truncated at 2 std, std
-    sqrt(1/fan_in)/0.8796), zero biases; Embed normal with std
-    1/sqrt(features); LayerNorm scale 1, bias 0; the denoiser's out_proj
-    zero (the reference's kernel_init=zeros)."""
+    differ): Dense and Conv kernels lecun-normal (truncated at 2 std, std
+    sqrt(1/fan_in)/0.8796, fan_in = in_features, or kernel size x
+    in_channels), zero biases; Embed normal with std 1/sqrt(features);
+    LayerNorm and GroupNorm scale 1, bias 0. `zero` (default: the
+    denoiser body's out_proj, or the UNet's head) starts at zero, as the
+    reference's kernel_init=zeros."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, nn.Linear):
-                std = math.sqrt(1.0 / m.in_features) / _TRUNC_STD
+            if isinstance(m, (nn.Linear, nn.Conv1d)):
+                fan_in = m.weight[0].numel()
+                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
                 nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
                 nn.init.zeros_(m.bias)
             elif isinstance(m, nn.Embedding):
                 nn.init.normal_(m.weight, 0.0, 1.0 / math.sqrt(
                     m.embedding_dim), generator=generator)
-            elif isinstance(m, nn.LayerNorm):
+            elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
-        out = model.body.out_proj
-        nn.init.zeros_(out.weight)
-        nn.init.zeros_(out.bias)
+        if zero is None:
+            body = model.body
+            zero = body.head if hasattr(body, "head") else body.out_proj
+        nn.init.zeros_(zero.weight)
+        nn.init.zeros_(zero.bias)
 
 
 def init_diff_state(cfg: DiffConfig, model: Optional[CondDenoiser] = None,
@@ -145,9 +155,10 @@ def init_diff_state(cfg: DiffConfig, model: Optional[CondDenoiser] = None,
     return DiffTrainState(model, ema, optimizer, 0)
 
 
-def chunk_seed(seed: int, start: int) -> int:
-    """The generator seed of the chunk that starts at step `start`."""
-    return int(np.random.SeedSequence([int(seed), int(start)])
+def chunk_seed(*keys: int) -> int:
+    """A generator seed derived from integer keys: (seed, start) for the
+    chunk that starts at step `start`; other streams add a tag."""
+    return int(np.random.SeedSequence([int(k) for k in keys])
                .generate_state(1, np.uint64)[0])
 
 
@@ -224,8 +235,9 @@ class DiffStep:
                 od = torch.gather(od, 1, cols)
             kw["obs_xyz"], kw["obs_sdf"] = ox, od
         st.optimizer.zero_grad(set_to_none=True)
-        loss = losses.eps_mse(eps, st.model(z_t, t, **kw))
-        loss.backward()
+        with deterministic_cudnn():
+            loss = losses.eps_mse(eps, st.model(z_t, t, **kw))
+            loss.backward()
         st.optimizer.step()
         d = self.cfg.ema_decay
         with torch.no_grad():
@@ -269,40 +281,13 @@ class DiffStep:
         return self.loss_sum / n
 
     def _capture(self) -> None:
-        """Warm up on a side stream (this allocates the gradients and
-        Adam's state), put back every tensor the warm-up changed, then
-        capture one step. Raises if the capture fails."""
-        st = self.state
-        dev = self.codes_n.device
-        if dev.type != "cuda":
-            raise RuntimeError("a CUDA graph needs a CUDA device")
-        fresh = not st.optimizer.state
-        saved = [t.detach().clone() for t in self.params + self.ema]
-        opt_saved = {id(v): v.clone() for s in st.optimizer.state.values()
-                     for v in s.values() if torch.is_tensor(v)}
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                self._step()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        with torch.no_grad():
-            for t, v in zip(self.params + self.ema, saved):
-                t.copy_(v)
-            for s in st.optimizer.state.values():
-                for v in s.values():
-                    if not torch.is_tensor(v):
-                        continue
-                    if fresh:
-                        v.zero_()
-                    else:
-                        v.copy_(opt_saved[id(v)])
-        self.counter.zero_()
-        self.loss_sum.zero_()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._step()
-        self.graph = graph
+        """Capture one step (train.graph.capture_step: a side-stream
+        warm-up allocates the gradients and Adam's state, every tensor it
+        changed is put back). Raises if the capture fails."""
+        self.graph = capture_step(
+            self._step, self.params + self.ema + [self.counter,
+                                                   self.loss_sum],
+            [self.state.optimizer])
 
 
 def train_diffusion(cfg: DiffConfig, codes, class_ids=None, obs_xyz=None,

@@ -135,9 +135,11 @@ _FLAX_LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight",
 def denoiser_params_from_jax(tree: dict) -> dict:
     """Flax CondDenoiser (or bare body) params, nested dicts of numpy
     arrays, -> the state dict of models.denoiser.CondDenoiser: a Dense
-    `kernel` [in, out] becomes `weight` [out, in]; LayerNorm `scale` and
-    Embed `embedding` become `weight`; scopes join with dots
-    (`body/block0/ln/scale` -> `body.block0.ln.weight`). Bit-exact."""
+    `kernel` [in, out] becomes `weight` [out, in], a Conv `kernel` [k, in,
+    out] becomes `weight` [out, in, k]; LayerNorm and GroupNorm `scale`
+    and Embed `embedding` become `weight`; scopes join with dots
+    (`body/block0/ln/scale` -> `body.block0.ln.weight`). Bit-exact. The
+    encoder's tree (models.encoder) maps by the same rules."""
     sd = {}
 
     def walk(node, prefix):
@@ -149,7 +151,7 @@ def denoiser_params_from_jax(tree: dict) -> dict:
                 raise ValueError(f"unknown flax leaf {'/'.join(prefix + (k,))}")
             a = np.asarray(v)
             if k == "kernel":
-                a = a.T
+                a = a.T          # reverses the axes of Dense and Conv kernels
             sd[".".join(prefix + (_FLAX_LEAF[k],))] = torch.from_numpy(
                 np.array(a, dtype=np.float32, order="C"))
 
@@ -159,8 +161,9 @@ def denoiser_params_from_jax(tree: dict) -> dict:
 
 def denoiser_params_to_jax(state_dict: dict) -> dict:
     """Inverse of denoiser_params_from_jax: state dict -> nested numpy flax
-    tree (1-D `weight` is a LayerNorm scale, the class table `cls` an
-    Embed, every other 2-D `weight` a Dense kernel)."""
+    tree (1-D `weight` is a LayerNorm or GroupNorm scale, the class table
+    `cls` an Embed, every other `weight` a Dense (2-D) or Conv (3-D)
+    kernel)."""
     tree: dict = {}
     for key, t in state_dict.items():
         *scope, leaf = key.split(".")
@@ -177,6 +180,12 @@ def denoiser_params_to_jax(state_dict: dict) -> dict:
             node = node.setdefault(s, {})
         node[leaf] = a
     return tree
+
+
+# the LatentEncoder's leaves are Dense and LayerNorm ones, mapped by the
+# denoiser's rules; the names mirror the reference's
+encoder_params_from_jax = denoiser_params_from_jax
+encoder_params_to_jax = denoiser_params_to_jax
 
 
 # ------------------------------------------------- stage checkpoints
@@ -236,13 +245,18 @@ def load_adam_state(optimizer: torch.optim.Optimizer, saved: dict) -> None:
     """Load a saved Adam state dict, keeping this optimizer's own
     `capturable`/`foreach`/`fused` settings (torch would take the saved
     ones), so a capturable optimizer gets its step counts on its
-    parameters' device whatever device the checkpoint was written on."""
-    groups = optimizer.param_groups
+    parameters' device whatever device the checkpoint was written on, and
+    its own tensor learning rate (train.encoder fills it each step)."""
+    live_lr = [g["lr"] for g in optimizer.param_groups]
     saved = dict(saved, param_groups=[
         dict(sg, **{k: g[k] for k in ("capturable", "foreach", "fused")
                     if k in g})
-        for sg, g in zip(saved["param_groups"], groups)])
+        for sg, g in zip(saved["param_groups"], optimizer.param_groups)])
     optimizer.load_state_dict(saved)
+    groups = optimizer.param_groups
+    for group, lr in zip(groups, live_lr):
+        if torch.is_tensor(lr):       # a rate the step fills stays the same
+            group["lr"] = lr          # tensor, on its device
     for group in groups:
         for p in group["params"]:
             st = optimizer.state.get(p, {})
@@ -284,6 +298,24 @@ def restore_diff_state(state, tree: dict) -> tuple:
     with torch.no_grad():
         for k, v in state.ema.items():
             v.copy_(tree["ema"][k])
+    load_adam_state(state.optimizer, tree["optimizer"])
+    state.step = int(tree["step"])
+    dev = next(state.model.parameters()).device
+    return tree["mu"].to(dev), tree["sigma"].to(dev)
+
+
+def enc_state_tree(state, mu, sigma) -> dict:
+    """The encoder's full state (train.encoder.EncTrainState): params,
+    Adam, step, and the code moments mu/sigma its predictions need."""
+    return {"params": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step), "mu": mu, "sigma": sigma}
+
+
+def restore_enc_state(state, tree: dict) -> tuple:
+    """Load an encoder tree into `state` in place; returns (mu, sigma) on
+    the state's device."""
+    state.model.load_state_dict(tree["params"])
     load_adam_state(state.optimizer, tree["optimizer"])
     state.step = int(tree["step"])
     dev = next(state.model.parameters()).device

@@ -193,8 +193,9 @@ def test_denoiser_params_round_trip_and_init():
     fresh = denoiser.CondDenoiser(tcfg.DenoiserConfig(**DEN))
     assert not fresh.body.out_proj.weight.any()         # flax's zero init
     assert fresh.body.block0.ln.eps == 1e-6
-    with pytest.raises(NotImplementedError, match="unet"):
-        denoiser.CondDenoiser(tcfg.DenoiserConfig(arch="unet"))
+    unet = denoiser.CondDenoiser(tcfg.DenoiserConfig(arch="unet"))
+    assert isinstance(unet.body, denoiser.LatentDenoiserUNet)
+    assert not unet.body.head.weight.any() and not unet.body.head.bias.any()
     assert isinstance(denoiser.make_denoiser(tcfg.DenoiserConfig()),
                       denoiser.LatentDenoiserMLP)
 

@@ -713,3 +713,188 @@ def test_diff_capturable_checkpoint_resumes_on_card(cuda, tmp_path):
     assert b.step == straight.step == 30
     for x, y in zip(_state_tensors(straight), _state_tensors(b)):
         assert torch.equal(x, y)
+
+
+# ----------------------------------------------- reconstruction, encoder
+
+REC_DEC = dict(latent_size=32, hidden_dim=128, num_layers=3, latent_in=(2,),
+               use_dropout=False)
+
+
+def _recon_setup(cuda, k, sds, n=700, steps=30):
+    from latent_diffusion_models_for_shape_sdfs_torch import reconstruct
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        DenoiserConfig, DiffConfig, ReconstructConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.diffusion.sampler \
+        import guided_denoise_fn
+    from latent_diffusion_models_for_shape_sdfs_torch.diffusion.schedule \
+        import DiffusionSchedule
+    from latent_diffusion_models_for_shape_sdfs_torch.train import (
+        diffusion as ttd)
+    torch.manual_seed(0)
+    dec = SdfDecoder(DecoderConfig(**REC_DEC)).to(cuda)
+    cfg = ReconstructConfig(num_steps=steps, lr_decay_at=steps // 2,
+                            num_inits=k, clamp_dist=0.5)
+    rng = np.random.default_rng(k)
+    xyz = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(
+        np.float32)).to(cuda)
+    sdf = xyz.norm(dim=-1) - 0.5
+    prior = None
+    if sds:
+        dcfg = DiffConfig(denoiser=DenoiserConfig(
+            arch="unet", latent_size=32, hidden_dim=64, time_embed_dim=32),
+            timesteps=100)
+        st = ttd.init_diff_state(dcfg, seed=1, device=cuda)
+        with torch.no_grad():
+            for p in st.model.parameters():
+                p.add_(0.02 * torch.randn_like(p))
+        st.model.eval()
+        prior = {"denoise_fn": guided_denoise_fn(st.model, 0.0),
+                 "sched": DiffusionSchedule.create(100, device=cuda),
+                 "mu": torch.zeros(32, device=cuda),
+                 "sigma": torch.ones(32, device=cuda) * 0.5,
+                 "weight": 0.05, "t_lo": 0.02, "t_hi": 0.98, "anneal": False}
+    draws = reconstruct.draw_recon(cfg, k, 32, cuda, sds_prior=prior)
+    return reconstruct, dec, cfg, xyz, sdf, prior, draws
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("sds", [False, True])
+def test_recon_graphed_equals_eager(k, sds, cuda):
+    """A reconstruction replayed from its captured step equals the eager
+    run from the same draws, bit for bit (z and both histories), twice
+    (the second run replays the same graph on new draws)."""
+    rec, dec, cfg, xyz, sdf, prior, draws = _recon_setup(cuda, k, sds)
+    a = rec.LatentOpt(dec, cfg, k, len(sdf), sds_prior=prior)
+    b = rec.LatentOpt(dec, cfg, k, len(sdf), sds_prior=prior)
+    for seed in (0, 1):
+        d = rec.draw_recon(cfg, k, 32, cuda, seed=seed, sds_prior=prior)
+        a.load(xyz, sdf, d)
+        a.eager()
+        b.load(xyz, sdf, d)
+        b.graphed()
+        for x, y in ((a.z, b.z), (a.hist, b.hist), (a.l1, b.l1)):
+            assert torch.equal(x, y)
+    assert torch.isfinite(a.hist).all()
+
+
+def test_recon_waits_on_the_device_once(cuda):
+    """After the capture, loading a run's draws and replaying its steps
+    never waits on the device; reading the histories is the one wait."""
+    rec, dec, cfg, xyz, sdf, prior, draws = _recon_setup(cuda, 2, True)
+    opt = rec.LatentOpt(dec, cfg, 2, len(sdf), sds_prior=prior)
+    opt.load(xyz, sdf, draws)
+    opt.graphed()                                        # captures
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d = rec.draw_recon(cfg, 2, 32, cuda, seed=5, sds_prior=prior)
+        opt.load(xyz, sdf, d)
+        opt.graphed()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(opt.hist.cpu().numpy()).all()
+
+
+def test_daemon_reuses_one_graph_per_request_size(cuda):
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        ReconstructConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.serve import (
+        make_obs_reconstruct_fn)
+    dec = SdfDecoder(DecoderConfig(**REC_DEC)).to(cuda)
+    fn = make_obs_reconstruct_fn(dec, rcfg=ReconstructConfig(num_steps=20))
+    rng = np.random.default_rng(0)
+    xyz = rng.uniform(-1, 1, (600, 3)).astype(np.float32)
+    sdf = np.linalg.norm(xyz, axis=-1) - 0.5
+    z1 = fn(xyz, sdf)
+    (opt,) = fn.cache.values()
+    graph = opt.graph
+    z2 = fn(xyz, sdf)
+    assert len(fn.cache) == 1 and opt.graph is graph is not None
+    np.testing.assert_array_equal(z1, z2)
+    fn(xyz[:300], sdf[:300])
+    assert len(fn.cache) == 2 and z1.shape == (32,)
+
+
+def test_daemon_cache_frees_the_graphs_it_evicts(cuda):
+    """Requests of ever new sizes keep the CACHE_SIZE latest graphs, and
+    the card's reserved memory does not grow past what a full cache
+    took."""
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        ReconstructConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.reconstruct import (
+        CACHE_SIZE)
+    from latent_diffusion_models_for_shape_sdfs_torch.serve import (
+        make_obs_reconstruct_fn)
+    dec = SdfDecoder(DecoderConfig(**REC_DEC)).to(cuda)
+    fn = make_obs_reconstruct_fn(dec, rcfg=ReconstructConfig(num_steps=5))
+    rng = np.random.default_rng(0)
+    xyz = rng.uniform(-1, 1, (4000, 3)).astype(np.float32)
+    sdf = np.linalg.norm(xyz, axis=-1) - 0.5
+    sizes = [4000 - 100 * i for i in range(3 * CACHE_SIZE)]
+    torch.cuda.empty_cache()
+    for i, n in enumerate(sizes):
+        fn(xyz[:n], sdf[:n])
+        if i == CACHE_SIZE - 1:
+            full = torch.cuda.memory_reserved(cuda)
+    assert [key[1] for key in fn.cache] == sizes[-CACHE_SIZE:]
+    assert all(opt.graph is not None for opt in fn.cache.values())
+    assert torch.cuda.memory_reserved(cuda) <= full
+
+
+def _enc_setup(cuda, seed=0):
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        EncConfig, EncoderConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.train import (
+        encoder as ten)
+    cfg = EncConfig(encoder=EncoderConfig(latent_size=32), n_obs=128,
+                    batch_scenes=8, num_steps=40, scan_chunk=10,
+                    warmup_steps=5)
+    rng = np.random.default_rng(seed)
+    S, P = 20, 512
+    bank = torch.from_numpy(np.concatenate(
+        [rng.uniform(-1, 1, (S, P, 3)), 0.1 * rng.normal(size=(S, P, 1))],
+        -1).astype(np.float32)).to(cuda)
+    codes_n = torch.from_numpy(rng.normal(size=(S, 32)).astype(
+        np.float32)).to(cuda)
+    state = ten.init_enc_state(cfg, seed=seed, device=cuda)
+    return cfg, ten, state, ten.EncStep(cfg, state, bank, codes_n), S, P
+
+
+def test_encoder_graphed_chunk_equals_eager_chunk(cuda):
+    cfg, ten, a, step_a, S, P = _enc_setup(cuda)
+    _, _, b, step_b, _, _ = _enc_setup(cuda)
+    for start in (0, 10):
+        draws = ten.draw_chunk(cfg, S, P, start, cuda)
+        assert torch.equal(step_a.eager(draws), step_b.graphed(draws))
+    assert a.step == b.step == 20
+    for p, q in zip(a.model.parameters(), b.model.parameters()):
+        assert torch.equal(p, q)
+        sa, sb = a.optimizer.state[p], b.optimizer.state[q]
+        assert all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def test_encoder_chunk_waits_on_the_device_once(cuda):
+    cfg, ten, state, step, S, P = _enc_setup(cuda)
+    step.graphed(ten.draw_chunk(cfg, S, P, 0, cuda))        # captures
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = step.graphed(ten.draw_chunk(cfg, S, P, 10, cuda))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(loss)) and state.step == 20
+
+
+def test_recon_capture_failure_raises(cuda):
+    """A step that cannot be captured (a prior that reads a value on the
+    host) raises; the run does not fall back to the eager loop. Last in
+    the file: the failed capture is left to the process's end."""
+    rec, dec, cfg, xyz, sdf, prior, draws = _recon_setup(cuda, 1, True)
+    fn = prior["denoise_fn"]
+    prior["denoise_fn"] = lambda z_t, t: fn(z_t, t) * float(z_t.sum() != 0)
+    opt = rec.LatentOpt(dec, cfg, 1, len(sdf), sds_prior=prior)
+    opt.load(xyz, sdf, draws)
+    with pytest.raises(RuntimeError):
+        opt.graphed()
+    assert opt.graph is None

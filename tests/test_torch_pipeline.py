@@ -9,7 +9,9 @@ tests/test_torch_grid_eval.py, the surface sampler); the metrics to 1e-12
 (float64 NumPy in both); a decoder's meshes through both packages'
 `_decode_latents_to_meshes` by their crossings (bf16 sums in another
 order flip signs only within |sdf| < 3e-4). The CLI runs end to end on
-a tiny sphere experiment with `--device cpu`."""
+a tiny sphere experiment with `--device cpu`: the main path, the encoder
+and reconstruction in every mode, the daemon's observation requests, and
+config 2-unet's denoiser."""
 
 import json
 
@@ -213,6 +215,15 @@ TINY = [
     "--set", "diff.num_steps=100", "--set", "diff.scan_chunk=50",
     "--set", "diff.snapshot_every=50",
     "--set", "sample.grid_res=24", "--set", "sample.ddim_steps=10",
+    "--set", "encoder.encoder.latent_size=8",
+    "--set", "encoder.encoder.point_widths=[16,32]",
+    "--set", "encoder.encoder.head_widths=[32]",
+    "--set", "encoder.n_obs=64", "--set", "encoder.batch_scenes=2",
+    "--set", "encoder.num_steps=40", "--set", "encoder.scan_chunk=20",
+    "--set", "encoder.warmup_steps=5", "--set", "encoder.lr=0.003",
+    "--set", "encoder.snapshot_every=20",
+    "--set", "reconstruct.num_steps=60", "--set", "reconstruct.lr_decay_at=40",
+    "--set", "reconstruct.lr=0.02",
 ]
 
 
@@ -304,12 +315,79 @@ def test_cli_refuses_what_is_not_ported(exp, tmp_path, monkeypatch):
         _cli("train-diff", exp, "--tensorboard")
     with pytest.raises(NotImplementedError, match="normals"):
         _cli("decode", exp, "--scene", 0, "--normals")
-    with pytest.raises(NotImplementedError, match="reconstruct"):
-        _cli("serve-daemon", exp, "--in", tmp_path, "--out", tmp_path,
-             "--reconstruct", "encoder")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["eval", str(exp)])          # the default device is cuda
+
+
+def _faces(path):
+    return sum(1 for ln in path.open() if ln.startswith("f "))
+
+
+def test_cli_trains_the_encoder_and_reconstructs(exp):
+    """train-encoder, then reconstruct in its four modes: MAP, the
+    diffusion prior, the encoder's one-shot and the encoder refined."""
+    _cli("train-encoder", exp)
+    recs = [json.loads(x) for x in (exp / "logs" / "train_enc.jsonl")
+            .read_text().splitlines()]
+    enc = [r for r in recs if r["event"] == "enc_train"]
+    assert [r["step"] for r in enc] == [20, 40]
+    assert all(np.isfinite(r["loss"]) for r in enc)
+    assert sorted(int(p.stem) for p in (exp / "checkpoints" / "encoder")
+                  .glob("*.pt")) == [20, 40]
+    common = ["--analytic", "sphere", "--points", 600, "--res", 24]
+    modes = {"map": [], "prior": ["--diffusion-prior", "--sds-weight", 0.01],
+             "oneshot": ["--encoder", "--refine-steps", 0],
+             "refined": ["--encoder"]}
+    for name, flags in modes.items():
+        _cli("reconstruct", exp, *common, "--name", name, *flags)
+    out = exp / "reconstructions"
+    assert _faces(out / "map.obj") > 0 and _faces(out / "prior.obj") > 0
+    assert _faces(out / "refined.obj") > 0
+    assert (out / "oneshot.obj").exists()
+    with pytest.raises(ValueError, match="exclusive"):
+        _cli("reconstruct", exp, "--encoder", "--diffusion-prior")
+
+
+@pytest.mark.parametrize("mode", ["latent-opt", "encoder"])
+def test_cli_serve_daemon_reconstructs_observations(exp, tmp_path, mode):
+    if mode == "encoder" and not (exp / "checkpoints" / "encoder").exists():
+        _cli("train-encoder", exp)
+    q, out = tmp_path / "q", tmp_path / "out"
+    q.mkdir()
+    xyz, d = analytic.sample_sdf_points(
+        analytic.make_shape("sphere", np.random.default_rng(0)), 500,
+        np.random.default_rng(1))
+    np.savez(q / "obs.npz", obs_xyz=xyz, obs_sdf=d)
+    _cli("serve-daemon", exp, "--in", q, "--out", out, "--res", 64,
+         "--poll", 0.05, "--max-idle", 0.3, "--reconstruct", mode,
+         "--refine-steps", 10)
+    assert not (out / "obs.error.json").exists()
+    stats = json.loads((out / "obs.stats.json").read_text())
+    assert stats[0]["faces"] > 0 and (q / "obs.npz.done").exists()
+
+
+def test_cli_unet_config_trains_and_samples(tmp_path):
+    """Config 2-unet's denoiser (arch unet, asking for a cosine lr) through
+    train-diff -> sample on a tiny experiment: the trainer keeps the
+    reference's constant lr and logs it."""
+    d = tmp_path / "u"
+    _cli("init-experiment", d, "--data", "analytic:sphere", "--scenes", 2,
+         *TINY, "--set", "ad.decoder.latent_size=32",
+         "--set", "ad.decoder.hidden_dim=64",
+         "--set", "diff.denoiser.latent_size=32",
+         "--set", "diff.denoiser.arch=unet",
+         "--set", "diff.lr_schedule=cosine", "--set", "diff.warmup_steps=20")
+    _cli("train-ad", d)
+    _cli("train-diff", d)
+    recs = [json.loads(x) for x in (d / "logs" / "train_diff.jsonl")
+            .read_text().splitlines()]
+    assert [r["used"] for r in recs if r["event"] == "lr_schedule"] == [
+        "constant"]
+    _, state, _ = tpipe.load_diff_state(d, device="cpu")
+    assert state.step == 100 and state.model.body.head.weight.any()
+    _cli("sample", d, "--num", 2, "--res", 24)
+    assert len(list((d / "samples").glob("sample_*.obj"))) == 2
 
 
 def test_cli_serve_daemon(exp, tmp_path):
