@@ -1,14 +1,14 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check, serve,
-train, generate, reconstruct.
+train, generate, reconstruct, real meshes in, renders and metrics out.
 
     python3 chip_smoke.py [--details PATH]
 
 Builds the port's CUDA kernels (csrc/fused_eval.cu, csrc/relu_dropout.cu,
 csrc/fused_train.cu, csrc/fused_eval_pairs.cu: one nvcc each for sm_90a,
-all started together) and the native mesher (native/, cmake or g++) from
-this checkout, while it generates the training data (64 analytic chairs,
-and the 6,136 multicat scenes' observation banks, process pools started
-before CUDA is), then:
+all started together) and the native mesher and preprocess tool (native/,
+cmake or g++) from this checkout, while it generates the training data
+(64 analytic chairs, and the 6,136 multicat scenes' observation banks,
+process pools started before CUDA is), then:
 
   1. prints the card (nvidia-smi name and power limit) and turns TF32 off;
   2. [kernel] holds the decoder-eval kernel (#1) against its plain version
@@ -57,7 +57,9 @@ before CUDA is), then:
      traced step (kernel #2 launches per step, no aten::index_select);
      holds it against the plain version's flat decode and, as meshes of 4
      shapes of 4 classes, against serve_meshes with kernel #1; times the
-     same 64 codes through the per-shape decode;
+     same 64 codes through the per-shape decode, and 8 of them through
+     the batched three-level decode (kernel #1, shape by shape), each
+     shape bit-equal to its single-shape decode;
  10. [train_diff] trains config 4's stage 2 (CondDenoiser 1024x6, 13
      classes, 512 observation points, batch 128) on the 6,136 committed
      multicat codes with the conditioning banks `pipeline._cond_banks`
@@ -91,7 +93,19 @@ before CUDA is), then:
      serve-daemon --reconstruct encoder on one observation request, timing
      each stage and counting the launches of kernels #3/#3b in train-ad and
      #1 in the stages that decode;
- 15. prints one JSON line per ported kernel and, last, the device line.
+ 15. [realdata] meshes 64 chairs of config 3's split (their analytic SDF
+     on a 256^3 grid on the card, the native mesher, harmonize_winding in
+     spawned workers; half binary PLY, half OBJ), runs `cli preprocess`
+     at 100,000 samples a mesh (sample signs vs the analytic SDF), then
+     `train-ad` from `sdf:<dir>` on config 3's `ad` block (50 epochs of
+     one step; #3/#3b) and `eval` at 128^3 against the stores' surfaces;
+     on the committed 8x512 pack: renders chairs 0, 7, 21 at 448^2
+     through kernel #1 against the plain version's renders and the
+     committed TPU previews, `cli render` (4 frames at 512^2), `cli
+     interpolate` (lerp, slerp, 256^3), `cli decode --normals` (PLY, OBJ),
+     and the generative metrics on the card against the host KD-tree
+     Chamfer and the exact EMD;
+ 16. prints one JSON line per ported kernel and, last, the device line.
 
 Any failure raises and exits non-zero; without a card (or outside a
 checkout of the repository) it exits non-zero before printing a result.
@@ -102,6 +116,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import shutil
 import subprocess
@@ -126,25 +141,31 @@ def log(*a):
 
 
 def build_mesher() -> None:
-    """native/build/libmarching_cubes_c.so: cmake if present, else g++."""
-    out = ROOT / "native" / "build" / "libmarching_cubes_c.so"
-    if out.exists():
+    """native/build/libmarching_cubes_c.so (the mesher) and
+    native/build/preprocess_mesh (the mesh -> SDF samples tool of `cli
+    preprocess`): cmake if present, else g++."""
+    build = ROOT / "native" / "build"
+    outs = [build / "libmarching_cubes_c.so", build / "preprocess_mesh"]
+    if all(o.exists() for o in outs):
         return
     if shutil.which("cmake"):
         subprocess.run(["cmake", "-S", str(ROOT / "native"), "-B",
-                        str(ROOT / "native" / "build")], check=True,
-                       capture_output=True)
-        subprocess.run(["cmake", "--build", str(ROOT / "native" / "build"),
-                        "--target", "marching_cubes_c", "-j", "8"],
+                        str(build)], check=True, capture_output=True)
+        subprocess.run(["cmake", "--build", str(build), "--target",
+                        "marching_cubes_c", "preprocess_mesh", "-j", "8"],
                        check=True, capture_output=True)
     else:
-        out.parent.mkdir(parents=True, exist_ok=True)
+        build.mkdir(parents=True, exist_ok=True)
         subprocess.run(["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
                         "-pthread",
                         str(ROOT / "native" / "marching_cubes" / "clib.cpp"),
-                        "-o", str(out)], check=True, capture_output=True)
-    if not out.exists():
-        raise RuntimeError(f"mesher build produced no {out}")
+                        "-o", str(outs[0])], check=True, capture_output=True)
+        subprocess.run(["g++", "-O3", "-std=c++17", "-pthread",
+                        str(ROOT / "native" / "preprocess" / "main.cpp"),
+                        "-o", str(outs[1])], check=True, capture_output=True)
+    for o in outs:
+        if not o.exists():
+            raise RuntimeError(f"native build produced no {o}")
 
 
 def kernel_macs_per_point(decoder) -> int:
@@ -560,7 +581,8 @@ def flat_phase(dev, card, pairs, sd_m, codes_m) -> dict:
     from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
         fast_apply)
     from latent_diffusion_models_for_shape_sdfs_torch.ops.grid_eval import (
-        decode_grid_hierarchical3_batch_flat, decode_grid_hierarchical3_sparse2,
+        decode_grid_hierarchical3_batch, decode_grid_hierarchical3_batch_flat,
+        decode_grid_hierarchical3_device, decode_grid_hierarchical3_sparse2,
         unblock_grid)
     from latent_diffusion_models_for_shape_sdfs_torch.ops.isosurface import (
         extract_mesh)
@@ -711,6 +733,41 @@ def flat_phase(dev, card, pairs, sd_m, codes_m) -> dict:
         f"payload, caps {caps1} = 1.25x the largest shape's actives): "
         f"{per_ms:.1f} ms per 64 shapes, {per_ms / S:.2f} ms per shape "
         f"[{card}]")
+
+    # the batched three-level decode (the reference's vmapped one) of 8
+    # codes through kernel #1 at the same caps: each shape bit-equal to
+    # its single-shape decode
+    zb = zf[:8]
+
+    def batch():
+        return decode_grid_hierarchical3_batch(
+            apply1, zb, RES, 16, 4, 2, *caps1, layout="block",
+            check_overflow=False, **FLAT_KW)
+
+    batch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_b, st_b = batch()
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    same_b = True
+    for i in range(len(zb)):
+        g1, st1 = decode_grid_hierarchical3_device(
+            apply1, zb[i], RES, 16, 4, 2, *caps1, layout="block",
+            check_overflow=True, **FLAT_KW)
+        same_b = (same_b and torch.equal(g_b[i], g1) and not
+                  st1["capacity_exceeded"] and all(
+                      int(st_b[k][i]) == st1[k] for k in
+                      ("active_l1", "active_l2", "active_l3")))
+    log(f"[flat] decode_grid_hierarchical3_batch of 8 codes at {RES}^3 "
+        f"through kernel #1 (float32 block grids, caps {caps1}): "
+        f"{batch_ms:.1f} ms, {batch_ms / len(zb):.2f} ms per shape (flat "
+        f"decode {ms / S:.2f}); each shape bit-equal to its single-shape "
+        f"decode: {same_b} [{card}]")
+    if not same_b:
+        raise RuntimeError("batched decode differs from the single-shape "
+                           "decodes")
+    del g_b
     return dict(caps=caps, probe_s=probe_s, actives=acts,
                 per_shape_l1=st["per_shape_l1"].tolist(), step_ms=times,
                 ms=ms, ms_per_shape=ms / S, voxels_per_s=vox,
@@ -722,7 +779,8 @@ def flat_phase(dev, card, pairs, sd_m, codes_m) -> dict:
                 points_needed=needed, step_bound_ms=step_bound,
                 plain_s=plain_s, plain_actives=acts_p, near_err=near_err,
                 sign_flips=flips, chamfer=cds, per_shape_caps=caps1,
-                per_shape_ms=per_ms, apply1=apply1)
+                per_shape_ms=per_ms, batch8_ms=batch_ms,
+                batch8_ms_per_shape=batch_ms / len(zb), apply1=apply1)
 
 
 def generate_phase(dev, card, pairs, apply1, trained) -> dict:
@@ -1583,6 +1641,508 @@ def cli_phase(dev, card) -> dict:
     return out
 
 
+REAL_RES = 256              # grid of the chairs meshed for [realdata]
+# Sinkhorn-EMD at 512 points: eps of tests/test_device_metrics.py, whose
+# 500 iterations were set for 64 points; [realdata] logs 500 beside the
+# exact assignment and gates 2,000
+EMD_EPS, EMD_ITERS = 0.005, 2000
+PREP_CALLS = 8              # concurrent `cli preprocess` calls
+PREVIEW = ("runs", "scale_chairs6k")
+
+
+def _harmonize_and_write(job: tuple) -> int:
+    """[realdata] worker (a spawned process): make one chair mesh's winding
+    consistent and outward, write it (.ply binary, .obj text); its faces."""
+    path, v, f = job
+    from latent_diffusion_models_for_shape_sdfs_torch.utils import meshio
+    f = meshio.harmonize_winding(v, f)
+    meshio.write_mesh(path, v, f)
+    return len(f)
+
+
+def _wall(fn) -> float:
+    """Host seconds of fn(), ended by a synchronize."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _background(rgb, hit):
+    """The background's grey level in each row of a render (rgb, hit):
+    the colour of the row's first miss; -99 for a row with none."""
+    import numpy as np
+    bg = np.zeros(rgb.shape[0], np.int32)
+    for y in range(rgb.shape[0]):
+        row = rgb[y][~hit[y]]
+        bg[y] = int(row[0, 0]) if len(row) else -99
+    return bg
+
+
+def march_hits_before_fix(sdf, view: dict, device, steps: int = 96,
+                          eps: float = 2e-3, step_scale: float = 0.9,
+                          bound: float = 1.05):
+    """Hit mask of the reference's march as it was when the committed
+    previews were rendered (runs/scale_chairs6k/preview_train_*.png, commit
+    9defad9): a hit only where |sdf| < eps, no crossing test (the
+    reference added the secant-interpolated crossing hit in 4a36048, two
+    hours later). Built on the port's rays and sphere entry; a check of
+    the previews only, not a path of the port."""
+    import torch
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import render
+    o, d = render.camera_rays(view["width"], view["height"], view["eye"],
+                              (0.0, 0.0, 0.0), 40.0, device)
+    t0 = render._ray_sphere_entry(o, d, bound)
+    alive = torch.isfinite(t0)
+    t = torch.where(alive, t0, torch.zeros_like(t0))
+    t_exit = t + 2.0 * bound + 0.2
+    hit = torch.zeros_like(alive)
+    for _ in range(steps):
+        s = sdf(o + t[:, None] * d)
+        hit_now = alive & (torch.abs(s) < eps)
+        hit = hit | hit_now
+        step = torch.clamp(s * step_scale, min=1e-4)
+        t = torch.where(alive & ~hit_now, t + step, t)
+        alive = alive & ~hit_now & (t < t_exit)
+    return hit.reshape(view["height"], view["width"]).cpu().numpy()
+
+
+def realdata_phase(dev, card) -> dict:
+    """[realdata] the real-mesh data path and the read-outs on trained
+    weights: 64 chairs of config 3's split meshed on the card (analytic
+    SDF on a 256^3 grid, native mesher, harmonize_winding, half binary PLY
+    and half OBJ), `cli preprocess` at 100,000 samples a mesh, `train-ad`
+    from `sdf:` on config 3's `ad` block (cut to 50 epochs of one step)
+    and `eval` at 128^3; then on the committed 8x512 pack: the render
+    (kernel vs plain on the card, both vs the committed previews), `cli
+    render`, `cli interpolate`, `cli decode --normals`, and the generative
+    metrics on the card against their host oracles."""
+    import concurrent.futures as cf
+    import contextlib
+    import io
+    import multiprocessing
+    import numpy as np
+    import torch
+    from latent_diffusion_models_for_shape_sdfs_torch import cli
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        ExperimentConfig, override)
+    from latent_diffusion_models_for_shape_sdfs_torch.data import (
+        analytic, analytic_device)
+    from latent_diffusion_models_for_shape_sdfs_torch.evaluation import (
+        sample_mesh_surface)
+    from latent_diffusion_models_for_shape_sdfs_torch.evaluation import (
+        device_metrics as dm, generative as gm)
+    from latent_diffusion_models_for_shape_sdfs_torch.models.decoder import (
+        SdfDecoder)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        cuda_kernels as ck, relu_dropout as rd)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
+        fast_apply)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.isosurface import (
+        extract_mesh)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.render import (
+        render_sdf)
+    from latent_diffusion_models_for_shape_sdfs_torch.serve import serve_meshes
+    from latent_diffusion_models_for_shape_sdfs_torch.train.auto_decoder import (
+        init_ad_state)
+    from latent_diffusion_models_for_shape_sdfs_torch.utils import meshio
+    from latent_diffusion_models_for_shape_sdfs_torch.utils.checkpoint import (
+        StageCheckpointer, ad_state_tree, load_stage1_pack)
+    from latent_diffusion_models_for_shape_sdfs_torch.utils.image import (
+        read_png)
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    specs = json.loads((ROOT / "configs" / "config3_chairs_joint"
+                        / "specs.json").read_text())
+    n_scenes = 64
+
+    def run_cli(name, argv):
+        """cli.main in process: wall s and the launches of #1, #3, #3b."""
+        for d in (rd.LAUNCHES, ck.LAUNCHES):
+            for k in d:
+                d[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["--device", str(dev), *argv])
+        torch.cuda.synchronize()
+        rec = dict(s=time.perf_counter() - t0, launches={
+            **rd.LAUNCHES, "fused_eval": ck.LAUNCHES["fused_eval"]})
+        out.setdefault("cli", {})[name] = rec
+        log(f"[realdata] {name}: {rec['s']:.2f} s, launches "
+            f"{rec['launches']}")
+        return rec
+
+    with contextlib.ExitStack() as stack:
+        td = pathlib.Path(stack.enter_context(tempfile.TemporaryDirectory()))
+        # ---- 64 chairs as meshes: analytic SDF on a 256^3 grid on the
+        # card, the native mesher; winding and writing in spawned workers
+        shapes = analytic.make_synthetic_split("chair", n_scenes,
+                                               seed=specs["ad"]["seed"])
+        params = analytic_device.pack_chairs(shapes, device=dev)
+        axis = torch.linspace(-1.0, 1.0, REAL_RES, device=dev)
+        gx, gy, gz = torch.meshgrid(axis, axis, axis, indexing="ij")
+        pts = torch.stack([gx, gy, gz], -1).reshape(-1, 3)
+        del gx, gy, gz
+        mesh_dir = td / "meshes"
+        mesh_dir.mkdir()
+        # (left before the directory is removed, even on a failure)
+        pool = stack.enter_context(cf.ProcessPoolExecutor(
+            max_workers=8, mp_context=multiprocessing.get_context("spawn")))
+        t0 = time.perf_counter()
+        jobs, n_faces_raw = [], []
+        chunk = 1 << 22
+        for i in range(n_scenes):
+            p1 = params.slice(i, 1)
+            grid = torch.empty(REAL_RES ** 3, device=dev)
+            for c in range(0, len(pts), chunk):
+                grid[c:c + chunk] = analytic_device.chair_sdf(
+                    p1, pts[None, c:c + chunk])[0]
+            v, f = extract_mesh(grid.reshape((REAL_RES,) * 3).cpu().numpy())
+            n_faces_raw.append(len(f))
+            ext = "ply" if i % 2 == 0 else "obj"
+            jobs.append(pool.submit(_harmonize_and_write,
+                                    (mesh_dir / f"chair_{i:03d}.{ext}", v,
+                                     f)))
+        t_grid = time.perf_counter() - t0
+        del pts, grid
+
+        # ---- the read-outs on trained weights run on the card while the
+        # workers write the meshes
+        sd, codes = load_stage1_pack(ROOT.joinpath(*PACK))
+        pexp = td / "pack"
+        pcfg = override(ExperimentConfig.load(ROOT / "configs"
+                                              / "config3_chairs_joint"),
+                        **{"name": "pack", "ad.num_scenes": len(codes),
+                           "sample.grid_res": 256})
+        pcfg.save(pexp)
+        state = init_ad_state(pcfg.ad, SdfDecoder(pcfg.ad.decoder), params=sd,
+                              codes=codes, device=dev)
+        StageCheckpointer(pexp, "auto_decoder").save(0, ad_state_tree(state,
+                                                                      0))
+        del state
+        decoder = SdfDecoder(pcfg.ad.decoder)
+        apply = ck.make_kernel_apply(decoder, sd, device=dev)
+
+        def plain(z, x):
+            return fast_apply(apply.ew, z, x)
+
+        view = dict(width=448, height=448, eye=(1.5, 1.05, 1.5))
+        render_sdf(apply, torch.from_numpy(codes[1]).to(dev), **view)
+        renders = []
+        for i, scene in enumerate((0, 7, 21)):
+            z = torch.from_numpy(codes[scene]).to(dev)
+            apply.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rgb, hit = render_sdf(apply, z, **view)
+            ms = (time.perf_counter() - t0) * 1e3
+            n_launch = apply.launches
+            rgb_p, hit_p = render_sdf(plain, z, **view)
+            hit_old = march_hits_before_fix(apply.bind(z), view, dev)
+            bg = _background(rgb, hit)
+            ref = read_png(ROOT.joinpath(*PREVIEW,
+                                         f"preview_train_{i}.png"))
+            hit_ref = (np.abs(ref.astype(np.int32) - bg[:, None, None])
+                       > 2).any(-1)
+            both = hit & hit_p
+            d_p = np.abs(rgb.astype(int) - rgb_p.astype(int)).max(-1)[both]
+            both_r = hit & hit_ref
+            d_r = np.abs(rgb.astype(int) - ref.astype(int)).max(-1)[both_r]
+            r = dict(scene=scene, ms=ms, launches=n_launch,
+                     hit_px=int(hit.sum()), tpu_hit_px=int(hit_ref.sum()),
+                     hit_vs_plain=float((hit == hit_p).mean()),
+                     hit_vs_tpu=float((hit == hit_ref).mean()),
+                     plain_vs_tpu=float((hit_p == hit_ref).mean()),
+                     before_fix_vs_tpu=float((hit_old == hit_ref).mean()),
+                     tpu_only=float((hit_ref & ~hit).mean()),
+                     shade_vs_plain=dict(
+                         median=float(np.median(d_p)),
+                         p95=float(np.quantile(d_p, 0.95)),
+                         within8=float((d_p <= 8).mean())),
+                     shade_vs_tpu=dict(
+                         median=float(np.median(d_r)),
+                         p95=float(np.quantile(d_r, 0.95)),
+                         within8=float((d_r <= 8).mean())))
+            renders.append(r)
+            log(f"[realdata] render chair {scene} at 448^2 through kernel #1:"
+                f" {ms:.1f} ms, {n_launch} launches, {r['hit_px']} hit px; "
+                f"hit masks equal to the plain version's on "
+                f"{100 * r['hit_vs_plain']:.3f}% of pixels (gate 99.9); the "
+                f"committed TPU preview ({r['tpu_hit_px']} hit px, rendered "
+                f"before the reference's crossing hits) equals the port's "
+                f"march as it was then on {100 * r['before_fix_vs_tpu']:.3f}%"
+                f" (gate 98), the port's render on "
+                f"{100 * r['hit_vs_tpu']:.3f}% (plain: "
+                f"{100 * r['plain_vs_tpu']:.3f}%), hit in the preview only: "
+                f"{100 * r['tpu_only']:.3f}% (gate 0.2); shading |drgb| where"
+                f" both hit, vs plain median "
+                f"{r['shade_vs_plain']['median']:.0f} / p95 "
+                f"{r['shade_vs_plain']['p95']:.0f} levels, vs TPU median "
+                f"{r['shade_vs_tpu']['median']:.0f} / p95 "
+                f"{r['shade_vs_tpu']['p95']:.0f} [{card}]")
+            if not (r["hit_vs_plain"] >= 0.999
+                    and r["before_fix_vs_tpu"] >= 0.98
+                    and r["tpu_only"] <= 0.002
+                    and r["shade_vs_plain"]["median"] <= 4
+                    and r["shade_vs_tpu"]["median"] <= 8
+                    and n_launch == 102):
+                raise RuntimeError(f"render of chair {scene}: {r}")
+        out["render"] = renders
+        z0 = torch.from_numpy(codes[0]).to(dev)
+        apply.launches = 0
+        frame_ms = 1e3 * min(_wall(lambda: render_sdf(apply, z0))
+                             for _ in range(3))
+        out["render_512_ms"] = frame_ms
+        out["render_512_launches"] = apply.launches
+        log(f"[realdata] render_sdf at its default 512^2 (96 march steps, 6 "
+            f"normal evaluations): {frame_ms:.1f} ms a frame, best of 3, "
+            f"the image read back included [{card}]")
+
+        # the CLI on the pack experiment: render, interpolate, decode
+        rec = run_cli("render --frames 4", ["render", str(pexp), "--frames",
+                                            "4", "--name", "tt"])
+        pngs = sorted((pexp / "renders").glob("tt_*.png"))
+        cli_ms = rec["s"] / 4 * 1e3
+        log(f"[realdata] cli render at its default 512^2, 4 frames: "
+            f"{rec['s']:.2f} s, {cli_ms:.1f} ms a frame with the stage-1 "
+            f"state's load and the PNG writes, kernel #1 "
+            f"{rec['launches']['fused_eval']} launches [{card}]")
+        if len(pngs) != 4 or rec["launches"]["fused_eval"] != 4 * 102:
+            raise RuntimeError(f"cli render: {len(pngs)} frames, {rec}")
+        out["render_cli"] = dict(frame_ms=cli_ms, **rec)
+        faces = {}
+        for mode in ("lerp", "slerp"):
+            run_cli(f"interpolate {mode}", [
+                "interpolate", str(pexp), "0", "7", "--steps", "8", "--res",
+                "256", "--mode", mode, "--name", mode, "--format", "ply"])
+            faces[mode] = [len(meshio.read_ply(p)[1]) for p in sorted(
+                (pexp / "interpolations").glob(f"{mode}_*.ply"))]
+        log(f"[realdata] interpolate 0 -> 7, 8 steps at 256^3: faces "
+            f"{faces}")
+        if any(len(v) != 8 or min(v) == 0 for v in faces.values()):
+            raise RuntimeError(f"interpolation meshes: {faces}")
+        out["interpolate_faces"] = faces
+        nrm_err = {}
+        for fmt in ("ply", "obj"):
+            run_cli(f"decode --normals {fmt}", [
+                "decode", str(pexp), "--scene", "0", "7", "--res", "128",
+                "--format", fmt, "--normals", "--out", str(td / fmt)])
+            for p in sorted((td / fmt).glob(f"*.{fmt}")):
+                if fmt == "ply":
+                    v, f, n = meshio.read_ply(p, with_normals=True)
+                else:
+                    v, f = meshio.read_obj(p)
+                    n = np.asarray([[float(x) for x in ln.split()[1:4]]
+                                    for ln in p.read_text().splitlines()
+                                    if ln.startswith("vn ")], np.float32)
+                err = np.abs(n - meshio.vertex_normals(v, f)).max(1)
+                unit = float(np.abs(np.linalg.norm(n, axis=1) - 1).max())
+                nrm_err[f"{p.stem}.{fmt}"] = dict(
+                    faces=len(f), max=float(err.max()),
+                    p99=float(np.quantile(err, 0.99)), unit=unit)
+                # OBJ writes 6 decimals: its normals agree to that
+                ok = (err.max() == 0 if fmt == "ply" else
+                      np.quantile(err, 0.99) < 1e-3 and err.max() < 5e-2)
+                if not (ok and unit < 1e-5 and len(f) > 0
+                        and n.shape == v.shape):
+                    raise RuntimeError(f"normals of {p.name}: {nrm_err}")
+        log(f"[realdata] decode --normals at 128^3, read back: |n - "
+            f"vertex_normals(read mesh)| {nrm_err}")
+        out["normals"] = nrm_err
+
+        # ---- generative metrics: 64 decoded pack chairs vs their
+        # analytic chairs (the pack's split), 2,048-point clouds
+        apply.launches = 0
+        gen = [sample_mesh_surface(v, f, 2048, seed=i) for i, (v, f, _) in
+               enumerate(serve_meshes(apply, list(codes[:64]), res=256,
+                                      device=dev))]
+        out["metrics_decode_launches"] = apply.launches
+        ref = [analytic.sample_surface(s, 2048, np.random.default_rng(i))
+               for i, s in enumerate(train_split())]
+        d_dev = dm.pairwise_metric(gen[:32], ref[:32], "chamfer", chunk=16,
+                                   device=dev)
+        d_host = gm.pairwise_chamfer(gen[:32], ref[:32])
+        ch_rel = float(np.abs(d_dev / d_host - 1).max())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d64 = dm.pairwise_metric(gen, ref, "chamfer", chunk=16, device=dev)
+        ms64 = (time.perf_counter() - t0) * 1e3
+        g8 = [c[:512] for c in gen[:8]]
+        r8 = [c[:512] for c in ref[:8]]
+        t0 = time.perf_counter()
+        e_dev = dm.pairwise_metric(g8, r8, "emd", chunk=64, eps=EMD_EPS,
+                                   iters=EMD_ITERS, device=dev)
+        ms_emd = (time.perf_counter() - t0) * 1e3
+        e_ex = np.array([[gm.emd_exact(a, b) for b in r8] for a in g8])
+        e_500 = dm.pairwise_metric(g8, r8, "emd", chunk=64, eps=EMD_EPS,
+                                   iters=500, device=dev) / e_ex - 1
+        env_ok = bool(((e_dev >= e_ex - 1e-4)
+                       & (e_dev - e_ex < 0.05 * e_ex + 0.01)).all())
+        ev_dev = dm.evaluate_generated_device(
+            g8, r8, metrics=("chamfer", "emd"), chunk=64, eps=EMD_EPS,
+            iters=EMD_ITERS, device=dev)
+        ev_host = gm.evaluate_generated_emd_host(g8, r8, points=512)
+        mmd_ok = (ev_dev["mmd_emd"] >= ev_host["mmd_emd"] - 1e-4
+                  and ev_dev["mmd_emd"] - ev_host["mmd_emd"]
+                  < 0.05 * ev_host["mmd_emd"] + 0.01)
+        ev64 = dm.evaluate_generated_device(gen, ref, chunk=16, device=dev)
+        out["metrics"] = dict(
+            chamfer_max_rel=ch_rel, chamfer64_ms=ms64,
+            chamfer_diag_mean=float(np.diag(d64).mean()),
+            emd_ms=ms_emd, emd_rel_to_exact=float(np.max(e_dev / e_ex - 1)),
+            emd_low_to_exact=float(np.min(e_dev / e_ex - 1)),
+            emd500_rel_to_exact=[float(e_500.min()), float(e_500.max())],
+            emd_envelope=env_ok, eval8_device=ev_dev, eval8_host=ev_host,
+            eval64_device=ev64)
+        log(f"[realdata] device Chamfer 32 x 32 at 2,048 points vs the host "
+            f"KD-tree pairwise_chamfer: max rel {ch_rel:.2e} (gate 1e-5); "
+            f"64 x 64 at 2,048 points {ms64:.1f} ms; Sinkhorn-EMD 8 x 8 at "
+            f"512 points (eps {EMD_EPS}, {EMD_ITERS} iterations) "
+            f"{ms_emd:.1f} ms, "
+            f"{100 * out['metrics']['emd_low_to_exact']:.2f}% to "
+            f"{100 * out['metrics']['emd_rel_to_exact']:.2f}% above the "
+            f"exact assignment, in the envelope: {env_ok} (500 "
+            f"iterations: {100 * e_500.min():.2f}% to "
+            f"{100 * e_500.max():.2f}%); "
+            f"evaluate_generated_device {ev_dev} vs "
+            f"evaluate_generated_emd_host {ev_host}; decoded vs analytic "
+            f"64 chairs: {ev64} [{card}]")
+        if not (ch_rel <= 1e-5 and env_ok and mmd_ok):
+            raise RuntimeError(f"generative metrics: {out['metrics']}")
+        del apply, gen, ref
+        torch.cuda.empty_cache()
+
+        # ---- `cli preprocess` at the analytic store's 100,000 samples a
+        # mesh: PREP_CALLS CLI calls over parts of the meshes at once (the
+        # tool's file parsing and BVH build are single-threaded)
+        t0 = time.perf_counter()
+        n_faces = [j.result() for j in jobs]
+        pool.shutdown()
+        t_wait = time.perf_counter() - t0
+        sdf_dir = td / "sdf"
+        files, parts = sorted(mesh_dir.iterdir()), []
+        for q in range(PREP_CALLS):
+            qd = td / f"meshes_{q}"
+            qd.mkdir()
+            for p in files[q::PREP_CALLS]:
+                p.rename(qd / p.name)
+            parts.append(qd)
+        errs: list = []
+
+        def prep(qd):
+            try:
+                cli.main(["--device", str(dev), "preprocess", str(qd),
+                          str(sdf_dir), "--samples", "100000"])
+            except BaseException as e:      # re-raised below
+                errs.append(e)
+
+        # the CLI and the tool print a line a mesh: into a file, not here
+        prep_log = td / "preprocess.log"
+        t0 = time.perf_counter()
+        with prep_log.open("w") as fh:
+            sys.stdout.flush()
+            saved = os.dup(1)
+            os.dup2(fh.fileno(), 1)
+            try:
+                ths = [threading.Thread(target=prep, args=(qd,))
+                       for qd in parts]
+                for th in ths:
+                    th.start()
+                for th in ths:
+                    th.join()
+            finally:
+                sys.stdout.flush()
+                os.dup2(saved, 1)
+                os.close(saved)
+        if errs:
+            raise errs[0]
+        t_prep = time.perf_counter() - t0
+        stores = sorted(sdf_dir.glob("*.npz"))
+        h = 2.0 / (REAL_RES - 1)
+        signs = {}
+        for i in (0, 33, 63):
+            with np.load(stores[i]) as z:
+                rows = np.concatenate([z["pos"], z["neg"]])
+                center, scale = z["center"], float(z["scale"][0])
+                n_surf = len(z["surface"])
+            x = rows[:, :3] / scale + center
+            d = analytic.sdf(shapes[i], x)
+            far = np.abs(d) > 2 * h
+            signs[stores[i].stem] = dict(
+                agree=float(((d < 0) == (rows[:, 3] < 0))[far].mean()),
+                far=float(far.mean()), rows=len(rows), surface=n_surf)
+        log(f"[realdata] 64 chairs of config 3's split at {REAL_RES}^3 "
+            f"(analytic_device SDF + native mesher: {t_grid:.1f} s; faces "
+            f"{min(n_faces)}-{max(n_faces)}); winding + writing in 8 spawned "
+            f"workers beside the read-outs, waited for after them: "
+            f"{t_wait:.1f} s; cli preprocess of 64 meshes (32 PLY, 32 OBJ) "
+            f"at 100,000 samples in {PREP_CALLS} concurrent calls: "
+            f"{t_prep:.1f} s; sample signs vs the analytic SDF "
+            f"beyond 2 cells: {signs} [{card}]")
+        if len(stores) != n_scenes or any(
+                s["agree"] < 0.99 or s["rows"] != 100_000
+                for s in signs.values()):
+            raise RuntimeError(f"preprocess: {len(stores)} stores, {signs}")
+        out.update(grid_mesh_s=t_grid, faces=n_faces, write_wait_s=t_wait,
+                   preprocess_s=t_prep,
+                   signs=signs)
+
+        # ---- train-ad from sdf: on config 3's ad block, eval at 128^3
+        def sets(dd, prefix=""):
+            for k, v in dd.items():
+                if isinstance(v, dict):
+                    yield from sets(v, prefix + k + ".")
+                elif prefix or k not in ("name", "data_source"):
+                    yield from ("--set", f"{prefix}{k}={json.dumps(v)}")
+
+        cuts = {"ad.num_scenes": n_scenes, "ad.num_epochs": 50}
+        exp = td / "real"
+        run_cli("init-experiment", [
+            "init-experiment", str(exp), "--data", f"sdf:{sdf_dir}",
+            *sets(specs), *(a for k, v in cuts.items()
+                            for a in ("--set", f"{k}={v}"))])
+        tr_rec = run_cli("train-ad", ["train-ad", str(exp)])
+        logs = [json.loads(x) for x in (exp / "logs" / "train_ad.jsonl")
+                .open()]
+        losses = [(r["epoch"], r["loss"]) for r in logs if "loss" in r]
+        ev_rec = run_cli("eval", ["eval", str(exp), "--points", "2000"])
+        ev = json.loads((exp / "evals" / "chamfer.json").read_text())
+        log(f"[realdata] train-ad from sdf: on config 3's ad block (8x512, "
+            f"{n_scenes} scenes x 16,384 points, bf16, dropout 0.2 through "
+            f"#3/#3b), cut {cuts}: loss by epoch {losses}; eval at 128^3 "
+            f"(--points 2000) vs the stores' surfaces: {len(ev['chamfer_l2'])}"
+            f" scenes, mean chamfer-L2 {ev['mean']:.3e}, F-score "
+            f"{ev['fscore_mean']:.3f}, failed {ev['num_failed']} [{card}]")
+        if not (losses[-1][1] < losses[0][1]
+                and tr_rec["launches"]["relu_dropout_fwd"] > 0
+                and tr_rec["launches"]["relu_dropout_bwd"] > 0
+                and ev_rec["launches"]["fused_eval"] > 0
+                and len(ev["chamfer_l2"]) == n_scenes):
+            raise RuntimeError(f"train-ad / eval from sdf: {losses}, "
+                               f"{tr_rec}, {ev_rec}")
+        out.update(losses=losses, eval_mean=ev["mean"],
+                   eval_fscore=ev["fscore_mean"],
+                   eval_failed=ev["num_failed"], cuts=cuts)
+    cli_runs = out["cli"]
+    out["launches_k1"] = (sum(r["launches"]["fused_eval"]
+                              for r in cli_runs.values())
+                          + sum(r["launches"] for r in renders)
+                          + out["render_512_launches"]
+                          + out["metrics_decode_launches"])
+    out["launches_k3"] = cli_runs["train-ad"]["launches"]["relu_dropout_fwd"]
+    out["launches_k3b"] = cli_runs["train-ad"]["launches"][
+        "relu_dropout_bwd"]
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[realdata] phase {out['s']:.1f} s; kernel #1 launched "
+        f"{out['launches_k1']} times on these paths, #3 "
+        f"{out['launches_k3']}, #3b {out['launches_k3b']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--details", type=pathlib.Path, default=None,
@@ -2174,8 +2734,13 @@ def main() -> int:
 
     # ---- phase 14: [cli] the main path through the CLI
     details["cli"] = cli_phase(dev, card)
+    torch.cuda.empty_cache()
 
-    # ---- phase 15: summary
+    # ---- phase 15: [realdata] real meshes in, read-outs on trained weights
+    rl = realdata_phase(dev, card)
+    details["realdata"] = rl
+
+    # ---- phase 16: summary
     t512 = drop_t[512]
     kernels = [{
         "name": "fused_decoder_eval",
@@ -2184,7 +2749,7 @@ def main() -> int:
                   "fused_eval.cu",
         "replaces": "latent_diffusion_models_for_shape_sdfs_tpu/ops/"
                     "pallas_kernels.py:46",
-        "launches": launches,
+        "launches": launches + rl["launches_k1"],
         "max_abs_err": max_err,
         "ms": ms_shape,
         "plain_ms": plain_shape,
@@ -2197,7 +2762,8 @@ def main() -> int:
         "source": SRC + "relu_dropout.cu",
         "replaces": "latent_diffusion_models_for_shape_sdfs_tpu/ops/"
                     "pallas_kernels.py:289",
-        "launches": train["relu_dropout"]["launches"]["relu_dropout_fwd"],
+        "launches": train["relu_dropout"]["launches"]["relu_dropout_fwd"]
+        + rl["launches_k3"],
         "max_abs_err": 0.0,
         "ms": t512["fwd"],
         "plain_ms": t512["plain_fwd"],
@@ -2210,7 +2776,8 @@ def main() -> int:
         "source": SRC + "relu_dropout.cu",
         "replaces": "latent_diffusion_models_for_shape_sdfs_tpu/ops/"
                     "pallas_kernels.py:346",
-        "launches": train["relu_dropout"]["launches"]["relu_dropout_bwd"],
+        "launches": train["relu_dropout"]["launches"]["relu_dropout_bwd"]
+        + rl["launches_k3b"],
         "max_abs_err": 0.0,
         "ms": t512["bwd"],
         "plain_ms": t512["plain_bwd"],

@@ -25,5 +25,12 @@ observations: `reconstruct` (latent optimisation, one CUDA graph a step
 on a card, with restarts and the diffusion prior), `models.encoder` and
 `train.encoder` (the amortized encoder), `data.analytic_device` (chairs
 sampled on the device), `train.graph` (the capture the graphed loops
-share); and config 2-unet's UNet body in `models.denoiser`.
+share); and config 2-unet's UNet body in `models.denoiser`. Real meshes
+and read-outs: `utils.meshio` (readers, winding, vertex normals),
+`SdfDataset.from_dir` (the `sdf:<dir>` source of `cli preprocess`),
+`ops.render` (sphere-traced previews through kernel #1) and
+`utils.image`, latent interpolation, `evaluation.generative` and
+`evaluation.device_metrics` (MMD / COV / 1-NNA over Chamfer and
+Sinkhorn-EMD), and the rest of `ops.grid_eval` (the batched and
+device-resident hierarchical decodes).
 """

@@ -4,7 +4,8 @@
 
 Counterpart of the JAX package's `cli.py`, with its flags, for
 `init-experiment`, `train-ad`, `train-diff`, `train-encoder`, `sample`,
-`reconstruct`, `eval`, `decode` and `serve-daemon`. Every training and eval command takes an experiment
+`interpolate`, `render`, `reconstruct`, `eval`, `decode`, `serve-daemon`
+and `preprocess`. Every training and eval command takes an experiment
 directory holding specs.json (write one with `init-experiment`; override
 fields with --set dotted.key=value). `--device` (default cuda) picks the
 device every command runs on; JAX picks its platform from the
@@ -16,6 +17,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import subprocess
 import sys
 
 
@@ -95,6 +97,32 @@ def cmd_sample(args):
           f"{pathlib.Path(args.exp_dir) / 'samples'}")
 
 
+def cmd_interpolate(args):
+    from latent_diffusion_models_for_shape_sdfs_torch.pipeline import (
+        run_interpolate)
+    meshes = run_interpolate(args.exp_dir, args.scene_a, args.scene_b,
+                             steps=args.steps, res=args.res,
+                             mode=args.mode, name=args.name,
+                             mesh_format=args.format,
+                             simplify_ratio=args.simplify,
+                             simplify_faces=args.simplify_faces,
+                             device=args.device)
+    print(f"wrote {len(meshes)} interpolation meshes under "
+          f"{pathlib.Path(args.exp_dir) / 'interpolations'}")
+
+
+def cmd_render(args):
+    from latent_diffusion_models_for_shape_sdfs_torch.pipeline import (
+        run_render)
+    paths = run_render(args.exp_dir, scene=args.scene,
+                       latent_file=args.latent, name=args.name,
+                       size=args.size, frames=args.frames,
+                       steps=args.march_steps, device=args.device)
+    print(f"wrote {len(paths)} render(s): "
+          f"{', '.join(p.name for p in paths)} under "
+          f"{pathlib.Path(args.exp_dir) / 'renders'}")
+
+
 def cmd_reconstruct(args):
     """Observations (--obs rows, or --points samples of a demo analytic
     shape) -> latent -> mesh under <exp>/reconstructions."""
@@ -164,9 +192,6 @@ def cmd_decode(args):
     from latent_diffusion_models_for_shape_sdfs_torch.utils import meshio
     import torch
 
-    if args.normals:
-        raise NotImplementedError("decode --normals needs the meshio "
-                                  "vertex normals, not ported yet")
     decoder, ad_state = load_ad_state(args.exp_dir, device=args.device)
     if args.codes:
         zs = np.asarray(np.load(args.codes), np.float32)
@@ -200,7 +225,9 @@ def cmd_decode(args):
                                  ratio=args.simplify)
         meshes = (one(z) for z in zs)
     for name, (v, f) in zip(names, meshes):
-        meshio.write_mesh(out_dir / f"{name}.{args.format}", v, f)
+        nrm = meshio.vertex_normals(v, f) if args.normals else None
+        meshio.write_mesh(out_dir / f"{name}.{args.format}", v, f,
+                          normals=nrm)
         print(f"{name}: {len(v)} verts, {len(f)} faces -> "
               f"{out_dir / name}.{args.format}")
 
@@ -241,6 +268,27 @@ def cmd_serve_daemon(args):
                         simplify_faces=args.simplify_faces,
                         simplify_ratio=args.simplify)
     print(f"served {n} request files")
+
+
+def cmd_preprocess(args):
+    """Mesh file(s) -> SDF sample .npz via the native C++ tool
+    (native/build/preprocess_mesh; there is no fallback)."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    binary = root / "native" / "build" / "preprocess_mesh"
+    if not binary.exists():
+        sys.exit("native preprocess tool not built; run: "
+                 "cmake -S native -B native/build && "
+                 "cmake --build native/build")
+    out_dir = pathlib.Path(args.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    meshes = ([pathlib.Path(args.mesh)] if pathlib.Path(args.mesh).is_file()
+              else sorted(list(pathlib.Path(args.mesh).glob("*.obj"))
+                          + list(pathlib.Path(args.mesh).glob("*.ply"))))
+    for m in meshes:
+        out = out_dir / (m.stem + ".npz")
+        subprocess.run([str(binary), str(m), str(out),
+                        str(args.samples)], check=True)
+        print(f"{m} -> {out}")
 
 
 def main(argv=None):
@@ -323,8 +371,36 @@ def main(argv=None):
     _add_lod_flags(s)
     s.set_defaults(fn=cmd_reconstruct)
 
-    s = sub.add_parser("eval", help="chamfer-L2 + F-score@tau + normal "
-                       "consistency vs the analytic ground truth")
+    s = sub.add_parser("interpolate", help="latent-space shape morph "
+                       "between two trained scene codes")
+    s.add_argument("exp_dir")
+    s.add_argument("scene_a", type=int)
+    s.add_argument("scene_b", type=int)
+    s.add_argument("--steps", type=int, default=8)
+    s.add_argument("--res", type=int, default=None)
+    s.add_argument("--mode", choices=("lerp", "slerp"), default="lerp")
+    s.add_argument("--name", default="interp")
+    s.add_argument("--format", choices=("obj", "ply"), default="obj",
+                   help="mesh output format (ply = binary little-endian)")
+    _add_lod_flags(s)
+    s.set_defaults(fn=cmd_interpolate)
+
+    s = sub.add_parser("render", help="sphere-traced PNG preview of a "
+                       "trained latent, straight off the decoder (no "
+                       "grid decode or meshing)")
+    s.add_argument("exp_dir")
+    s.add_argument("--scene", type=int, default=0)
+    s.add_argument("--latent", help=".npy latent ([L] or [k,L]: row 0) "
+                                    "overriding --scene")
+    s.add_argument("--name", default="render")
+    s.add_argument("--size", type=int, default=512)
+    s.add_argument("--frames", type=int, default=1,
+                   help=">1 writes a turntable sequence")
+    s.add_argument("--march-steps", type=int, default=96)
+    s.set_defaults(fn=cmd_render)
+
+    s = sub.add_parser("eval", help="chamfer-L2 + F-score@tau (+ normal "
+                       "consistency for analytic GT) vs ground truth")
     s.add_argument("exp_dir")
     s.add_argument("--points", type=int, default=30_000)
     s.add_argument("--fscore-tau", type=float, default=0.01,
@@ -342,7 +418,8 @@ def main(argv=None):
     s.add_argument("--format", choices=("obj", "ply"), default="obj",
                    help="mesh output format (ply = binary little-endian)")
     s.add_argument("--normals", action="store_true",
-                   help="not ported (raises)")
+                   help="write angle-weighted vertex normals "
+                   "(vn lines / nx,ny,nz properties)")
     _add_lod_flags(s)
     s.set_defaults(fn=cmd_decode)
 
@@ -368,6 +445,12 @@ def main(argv=None):
                    help="latent-opt steps refining the encoder one-shot")
     _add_lod_flags(s)
     s.set_defaults(fn=cmd_serve_daemon)
+
+    s = sub.add_parser("preprocess", help="mesh -> SDF samples (native)")
+    s.add_argument("mesh", help="mesh file or directory")
+    s.add_argument("out_dir")
+    s.add_argument("--samples", type=int, default=500_000)
+    s.set_defaults(fn=cmd_preprocess)
 
     args = p.parse_args(argv)
     args.fn(args)

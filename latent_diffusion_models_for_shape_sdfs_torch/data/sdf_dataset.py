@@ -7,9 +7,12 @@ per scene, **half from the positive set and half from the negative set**
 (with replacement when a side is short), yielding fixed-shape device
 batches. Host-side NumPy only — the device sees (scene_ids, xyz, sdf).
 
-Source: ``SdfDataset.from_analytic(shapes, ...)`` — closed-form shapes
-(offline ShapeNet stand-in, data/analytic.py). The JAX package's
-``from_dir`` (preprocessed ``<scene>.npz`` files) is not ported yet.
+Sources:
+  - ``SdfDataset.from_analytic(shapes, ...)`` — closed-form shapes
+    (offline ShapeNet stand-in, data/analytic.py).
+  - ``SdfDataset.from_dir(path)`` — ``<scene>.npz`` files with ``pos``/``neg``
+    arrays of shape [N,4] (xyz+sdf), the native preprocess tool's output
+    contract (`cli preprocess`).
 
 The port's NumPy copy of the JAX package's `data/sdf_dataset.py`: the same
 `default_rng` gives bit-identical batches in both packages. One change:
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import multiprocessing
+import pathlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -57,13 +61,18 @@ class SdfDataset:
 
     def __init__(self, pos: Sequence[np.ndarray], neg: Sequence[np.ndarray],
                  class_ids: Optional[np.ndarray] = None,
-                 shapes: Optional[list] = None):
+                 shapes: Optional[list] = None,
+                 transforms: Optional[list] = None):
         assert len(pos) == len(neg)
         self.pos = [np.asarray(p, np.float32).reshape(-1, 4) for p in pos]
         self.neg = [np.asarray(n, np.float32).reshape(-1, 4) for n in neg]
         self.class_ids = (np.zeros(len(pos), np.int32) if class_ids is None
                           else np.asarray(class_ids, np.int32))
         self.shapes = shapes  # analytic parameter trees, when available
+        # per-scene (center [3], scale) of the preprocessor's unit-sphere
+        # normalization x' = (x - center) * scale; None for analytic scenes.
+        # Map decoded geometry back with x = x' / scale + center.
+        self.transforms = transforms
 
     def __len__(self) -> int:
         return len(self.pos)
@@ -97,6 +106,25 @@ class SdfDataset:
         neg = [r[1] for r in results]
         cids = np.asarray([s.get("class_id", 0) for s in shapes], np.int32)
         return cls(pos, neg, class_ids=cids, shapes=shapes)
+
+    @classmethod
+    def from_dir(cls, path: str | pathlib.Path) -> "SdfDataset":
+        """Load every <scene>.npz (keys: pos[N,4], neg[M,4]) in a directory,
+        sorted by filename for a stable scene-id assignment."""
+        files = sorted(pathlib.Path(path).glob("*.npz"))
+        if not files:
+            raise FileNotFoundError(f"no .npz sample files under {path}")
+        pos, neg, transforms = [], [], []
+        for f in files:
+            with np.load(f) as z:
+                pos.append(z["pos"])
+                neg.append(z["neg"])
+                if "center" in z.files and "scale" in z.files:
+                    transforms.append((np.asarray(z["center"], np.float32),
+                                       float(z["scale"][0])))
+                else:  # older sample sets without stored normalization
+                    transforms.append(None)
+        return cls(pos, neg, transforms=transforms)
 
     # ------------------------------------------------------------ sampling
 

@@ -293,6 +293,17 @@ class KernelApply:
         return self.launch(xyz.float().contiguous(),
                            hoisted_rows(self.ew, self.meta, z))
 
+    def bind(self, z: torch.Tensor):
+        """xyz [N,3] -> sdf [N] at the one latent z, whose rows are hoisted
+        once (hoisted_rows): every call on the card is one launch and
+        nothing else. On the CPU each call runs the plain version."""
+        if z.device != self.device:
+            raise ValueError(f"z on {z.device}, weights on {self.device}")
+        if self.device.type == "cpu":
+            return lambda xyz: fast_apply(self.ew, z, xyz)
+        rows = hoisted_rows(self.ew, self.meta, z)
+        return lambda xyz: self.launch(xyz.float().contiguous(), rows)
+
 
 def make_kernel_apply(decoder: SdfDecoder, params: dict,
                       device="cuda") -> KernelApply:

@@ -1,13 +1,17 @@
-"""SDF grid decoding on the device: dense, three-level hierarchical, and
-the flat batched decode of many shapes at once.
+"""SDF grid decoding on the device: dense, hierarchical (one, two and
+three levels, single-shape and batched), and the flat batched decode of
+many shapes at once.
 
-Counterpart of the subset of the JAX package's `ops/grid_eval.py` that the
-serving and generation paths run. Query coordinates are made on the device from flat
-indices (no coordinate array is uploaded), and every level of the
-hierarchical decode evaluates its static, capacity-sized rows, so a decode
-enqueues its work without waiting on the device: the active counts come
-back as device scalars, read only when the caller asks
-(`check_overflow=True`).
+Counterpart of the JAX package's `ops/grid_eval.py`. Query coordinates
+are made on the device from flat indices (no coordinate array is
+uploaded), and every level of a hierarchical decode evaluates its static,
+capacity-sized rows, so a decode enqueues its work without waiting on the
+device: the active counts come back as device scalars, read only when the
+caller asks (`check_overflow=True`). The batched decodes
+(`decode_grid_batch`, `decode_grid_hierarchical2_batch`,
+`decode_grid_hierarchical3_batch`), which the JAX package vmaps over the
+latents, run the single-shape program shape by shape at the batch's caps,
+so each shape's grid and counts are the single-shape decode's.
 
 Grid convention: res points per axis spanning [-1,1], spacing 2/(res-1),
 flat index = (x*res + y)*res + z, matching ops/isosurface.py.
@@ -56,6 +60,14 @@ def decode_grid(apply_fn: ApplyFn, z: torch.Tensor, res: int,
         flat = torch.clamp(c * chunk + ar, max=total - 1)
         out[c * chunk:(c + 1) * chunk] = apply_fn(z, _flat_to_xyz(flat, res))
     return out[:total].reshape(res, res, res)
+
+
+def decode_grid_batch(apply_fn: ApplyFn, zs: torch.Tensor, res: int,
+                      chunk: int = 65_536) -> torch.Tensor:
+    """Dense grids for a batch of latents [S, L] -> [S, res, res, res],
+    shape by shape."""
+    return torch.stack([decode_grid(apply_fn, z, res, chunk=chunk)
+                        for z in zs])
 
 
 # ------------------------------------------------------ hierarchical decode
@@ -183,15 +195,118 @@ def _quantizers(out_dtype: str, tau2: float, b2: int) -> tuple:
     return conv, conv_vals
 
 
+def _assemble_blocks(fill_b: torch.Tensor, vals: torch.Tensor,
+                     ids: torch.Tensor, valid: torch.Tensor, res: int,
+                     block: int, layout: str) -> torch.Tensor:
+    """Merge per-block fill values and fine block values into the grid.
+
+    fill_b [n_blocks]: per-block fill; vals [cap, block^3]: fine values
+    for blocks `ids` (masked by `valid`). An inverse-permutation row
+    gather (vals_pad[inv]) and a select. layout="block": [n_blocks,
+    block^3] (row = block id, col = within-block x-major offset;
+    `unblock_grid` converts one shape's on the host); layout="xmajor"
+    (one shape, n_blocks = (res/block)^3): [res,res,res]."""
+    nb = res // block
+    nbb = fill_b.shape[0]
+    cap = vals.shape[0]
+    inv = torch.full((nbb + 1,), cap, dtype=torch.int32, device=vals.device)
+    inv.scatter_(0, torch.where(valid, ids, nbb).long(),
+                 torch.arange(cap, dtype=torch.int32, device=vals.device))
+    inv = inv[:nbb]
+    vals_pad = torch.cat([vals, vals.new_zeros((1, block ** 3))])
+    grid = torch.where((inv < cap)[:, None], vals_pad[inv.long()],
+                       fill_b[:, None])
+    if layout == "block":
+        return grid
+    grid = grid.reshape(nb, nb, nb, block, block, block)
+    return grid.permute(0, 3, 1, 4, 2, 5).reshape(res, res, res)
+
+
+def auto_layout(res: int, block: int, budget_bytes: int = 4 << 30) -> str:
+    """The reference's layout policy: xmajor when its padded transpose
+    temporary fits the budget, else block."""
+    pad_factor = max(1, 128 // block) * max(1, 8 // block)
+    return "xmajor" if res ** 3 * 4 * pad_factor <= budget_bytes else "block"
+
+
+def _decode_grid_hier_device_impl(apply_fn: ApplyFn, z: torch.Tensor,
+                                  res: int, block: int, capacity: int,
+                                  safety: float = 1.5,
+                                  layout: str = "xmajor") -> tuple:
+    """One-level coarse->fine decode: block centers, then the `capacity`
+    first blocks within tau of the surface evaluated densely. Returns
+    (grid, n_active as a device scalar)."""
+    h = 2.0 / (res - 1)
+    tau = safety * (block * h * math.sqrt(3.0) / 2.0)
+    centers = _eval_block_centers(apply_fn, z, res, block)      # [nb^3]
+    idx, valid, n_active, _ = _compact(centers.abs() <= tau, capacity)
+    vals = _eval_blocks(apply_fn, z, idx, res, block)
+    grid = _assemble_blocks(centers, vals, idx, valid, res, block, layout)
+    return grid, n_active
+
+
+def _decode_grid_hier2_impl(apply_fn: ApplyFn, z: torch.Tensor, res: int,
+                            b1: int, b2: int, cap1: int, cap2: int,
+                            safety: float = 1.5, layout: str = "xmajor",
+                            points_per_group: int = _MAX_POINTS_PER_GROUP,
+                            out_dtype: str = "float32") -> tuple:
+    """Two-level coarse->mid->fine sparse decode: b1-block centers (L0);
+    the cap1 parents nearest the surface refined to b2 sub-block centers
+    (L1); the cap2 sub-blocks nearest the surface evaluated densely (L2).
+    Assembled at b2 granularity: parent-center fill -> sub-center fill ->
+    fine values. Returns (grid, n1, n2), counts as device scalars."""
+    r = b1 // b2
+    nb1 = res // b1
+    nb2 = res // b2
+    h = 2.0 / (res - 1)
+    tau1 = safety * (b1 * h * math.sqrt(3.0) / 2.0)
+    tau2 = safety * (b2 * h * math.sqrt(3.0) / 2.0)
+    dev = z.device
+
+    # ---- L0: b1-block centers
+    c1 = _eval_block_centers(apply_fn, z, res, b1)             # [nb1^3]
+    idx1, valid1, n1, _ = _compact(c1.abs() <= tau1, cap1)     # [cap1]
+
+    # ---- L1: sub-block centers of the selected parents
+    x1, y1, z1 = idx1 // (nb1 * nb1), (idx1 // nb1) % nb1, idx1 % nb1
+    off = torch.arange(r ** 3, dtype=torch.int32, device=dev)
+    ox, oy, oz = off // (r * r), (off // r) % r, off % r
+    sx = x1[:, None] * r + ox[None, :]                         # [cap1, r^3]
+    sy = y1[:, None] * r + oy[None, :]
+    sz = z1[:, None] * r + oz[None, :]
+    sub_ids = (sx * nb2 + sy) * nb2 + sz                       # b2-flat ids
+    cidx = torch.stack([sx, sy, sz], -1).to(torch.float32) * b2 \
+        + (b2 - 1) / 2.0
+    sub_xyz = (cidx * (2.0 / (res - 1)) - 1.0).reshape(cap1 * r ** 3, 3)
+    c2 = apply_fn(z, sub_xyz).reshape(cap1, r ** 3)            # [cap1, r^3]
+    act2 = (c2.abs() <= tau2) & valid1[:, None]
+    sel, valid2, n2, _ = _compact(act2.reshape(-1), cap2)
+    ids2 = sub_ids.reshape(-1)[sel.long()]                     # [cap2]
+
+    # ---- L2: fine voxels of the selected sub-blocks
+    vals = _eval_blocks(apply_fn, z, ids2, res, b2, points_per_group)
+
+    fill2 = _fill_cascade_gather_flat(c1, c2, idx1, valid1, 1, nb1, nb2, r,
+                                      cap1)
+    dt = getattr(torch, out_dtype)
+    if dt != vals.dtype:
+        # bf16 output grid: halves assembly and d2h traffic; near the iso
+        # level the relative bf16 step costs ~1e-4 absolute on vertex
+        # interpolation, below the grid-resolution error floor
+        vals, fill2 = vals.to(dt), fill2.to(dt)
+    grid = _assemble_blocks(fill2, vals, ids2, valid2, res, b2, layout)
+    return grid, n1, n2
+
+
 def _decode_grid_hier3_impl(apply_fn: ApplyFn, z: torch.Tensor, res: int,
                             b1: int, b2: int, b3: int,
                             cap1: int, cap2: int, cap3: int,
                             safety: float = 1.5, safety3: float = 0.0,
+                            layout: str = "sparse2",
                             points_per_group: int = _MAX_POINTS_PER_GROUP,
                             out_dtype: str = "float32"):
-    """Three-level coarse->mid->sub->fine sparse decode (the JAX
-    package's `layout="sparse2"` program), returning the compact v2
-    payload and the active counts as device scalars.
+    """Three-level coarse->mid->sub->fine sparse decode, returning the
+    active counts as device scalars.
 
     L0 evaluates every b1-block center; parents with |sdf| <= tau1 are
     compacted into cap1 rows and their b2 sub-centers evaluated (L1);
@@ -202,8 +317,10 @@ def _decode_grid_hier3_impl(apply_fn: ApplyFn, z: torch.Tensor, res: int,
     uniform fill keeps every crossing. safety3 (0 = inherit safety)
     widens only the finest selection margin.
 
-    Returns ((c1 [nb1^3], c2 [cap1, (b1/b2)^3], idx1 [cap1] int32,
-    vals2 [cap2, b2^3], ids2 [cap2] int32), n1, n2, n3)."""
+    Returns (out, n1, n2, n3). `layout` "sparse2": out = (c1 [nb1^3],
+    c2 [cap1, (b1/b2)^3], idx1 [cap1] int32, vals2 [cap2, b2^3], ids2
+    [cap2] int32), the compact v2 payload; "sparse": (fill2 [nb2^3],
+    vals2, ids2); "block" / "xmajor": the assembled grid."""
     r1 = b1 // b2
     r2 = b2 // b3
     nb1 = res // b1
@@ -270,8 +387,17 @@ def _decode_grid_hier3_impl(apply_fn: ApplyFn, z: torch.Tensor, res: int,
     # reorder (sub-block, within-sub) -> x-major order of the b2 block
     vals2 = vals2.reshape(cap2, r2, r2, r2, b3, b3, b3)
     vals2 = vals2.permute(0, 1, 4, 2, 5, 3, 6).reshape(cap2, b2 ** 3)
-    return ((conv(c1), conv(c2), idx1, conv_vals(vals2), ids2),
-            n1, n2, n3)
+    if layout == "sparse2":
+        return ((conv(c1), conv(c2), idx1, conv_vals(vals2), ids2),
+                n1, n2, n3)
+    # ---- b2-granularity fill cascade (c1 -> c2), then row assembly
+    fill2 = _fill_cascade_gather_flat(c1, c2, idx1, valid1, 1, nb1, nb2,
+                                      r1, cap1)
+    vals2, fill2 = conv(vals2), conv(fill2)
+    if layout == "sparse":
+        return (fill2, vals2, ids2), n1, n2, n3
+    grid = _assemble_blocks(fill2, vals2, ids2, valid2, res, b2, layout)
+    return grid, n1, n2, n3
 
 
 def decode_grid_adaptive(apply_fn: ApplyFn, z: torch.Tensor, res: int,
@@ -313,6 +439,34 @@ def hier3_int8_scale(res: int, b2: int = 4, safety: float = 1.2) -> float:
     return float(safety * (b2 * h * math.sqrt(3.0) / 2.0))
 
 
+def _check_blocks(res: int, *blocks: int) -> None:
+    """res divisible by the first block, each block by the next."""
+    dims = (res,) + blocks
+    if any(a % b for a, b in zip(dims, dims[1:])):
+        raise ValueError(f"need res % b1 == b1 % b2 == ... == 0, got "
+                         f"res={res}, blocks {blocks}")
+
+
+def _counts(stats: dict, caps: dict, check_overflow: bool) -> dict:
+    """Read the active counts (device scalars or [S] tensors) to the host
+    and flag an overflow, when the caller asks."""
+    if check_overflow:
+        over = False
+        for k, cap in caps.items():
+            n = stats[k].cpu().numpy()
+            stats[k] = int(n) if n.ndim == 0 else n
+            over = over or bool((n > cap).any())
+        stats["capacity_exceeded"] = over
+    return stats
+
+
+def _caps3(res, b1, b2, b3, cap1, cap2, cap3) -> tuple:
+    cap1 = min(cap1, (res // b1) ** 3)
+    cap2 = min(cap2, cap1 * (b1 // b2) ** 3)
+    cap3 = min(cap3, cap2 * (b2 // b3) ** 3)
+    return cap1, cap2, cap3
+
+
 def decode_grid_hierarchical3_sparse2(apply_fn: ApplyFn, z: torch.Tensor,
                                       res: int, b1: int = 16, b2: int = 4,
                                       b3: int = 2, cap1: int = 3072,
@@ -333,12 +487,8 @@ def decode_grid_hierarchical3_sparse2(apply_fn: ApplyFn, z: torch.Tensor,
     "bfloat16" and "float32" keep magnitudes. With check_overflow=False
     the active counts stay device scalars and nothing waits on the
     device. Reconstruct with sparse2_to_grid."""
-    if not (res % b1 == 0 and b1 % b2 == 0 and b2 % b3 == 0):
-        raise ValueError(f"need res % b1 == b1 % b2 == b2 % b3 == 0, got "
-                         f"res={res} b1={b1} b2={b2} b3={b3}")
-    cap1 = min(cap1, (res // b1) ** 3)
-    cap2 = min(cap2, cap1 * (b1 // b2) ** 3)
-    cap3 = min(cap3, cap2 * (b2 // b3) ** 3)
+    _check_blocks(res, b1, b2, b3)
+    cap1, cap2, cap3 = _caps3(res, b1, b2, b3, cap1, cap2, cap3)
     arrs, n1, n2, n3 = _decode_grid_hier3_impl(
         apply_fn, z, res, b1, b2, b3, cap1, cap2, cap3, safety=safety,
         safety3=safety3, out_dtype=out_dtype)
@@ -349,14 +499,284 @@ def decode_grid_hierarchical3_sparse2(apply_fn: ApplyFn, z: torch.Tensor,
              "effective_voxels": res ** 3}
     if out_dtype in ("int8", "int4"):
         stats["quant_scale"] = hier3_int8_scale(res, b2, safety)
-    if check_overflow:
-        stats["active_l1"] = int(n1)
-        stats["active_l2"] = int(n2)
-        stats["active_l3"] = int(n3)
-        stats["capacity_exceeded"] = (stats["active_l1"] > cap1
-                                      or stats["active_l2"] > cap2
-                                      or stats["active_l3"] > cap3)
-    return arrs, stats
+    return arrs, _counts(stats, {"active_l1": cap1, "active_l2": cap2,
+                                 "active_l3": cap3}, check_overflow)
+
+
+def decode_grid_hierarchical_device(apply_fn: ApplyFn, z: torch.Tensor,
+                                    res: int, block: int = 16,
+                                    capacity: int = 2048,
+                                    safety: float = 1.5,
+                                    layout: str = "auto"):
+    """One-level coarse->fine decode, on z's device with no host wait
+    until the stats are read: a fixed `capacity` of near-surface blocks
+    is refined; the stats report the true active count, so a caller can
+    detect an overflow and re-run with a larger capacity (the coarse fill
+    keeps the signs regardless).
+
+    Returns (grid [res]^3, or [nb^3, block^3] in the block layout, stats
+    dict with host ints)."""
+    _check_blocks(res, block)
+    nb = res // block
+    capacity = min(capacity, nb ** 3)
+    if layout == "auto":
+        layout = auto_layout(res, block)
+    grid, n_active = _decode_grid_hier_device_impl(
+        apply_fn, z, res, block, capacity, safety=safety, layout=layout)
+    n_active = int(n_active)
+    stats = {
+        "layout": layout,
+        "coarse_evals": nb ** 3,
+        "fine_evals": capacity * block ** 3,
+        "active_blocks": n_active,
+        "capacity": capacity,
+        "capacity_exceeded": n_active > capacity,
+        "total_blocks": int(nb ** 3),
+        "effective_voxels": res ** 3,
+    }
+    return grid, stats
+
+
+def decode_grid_hierarchical2_device(apply_fn: ApplyFn, z: torch.Tensor,
+                                     res: int, b1: int = 16, b2: int = 4,
+                                     cap1: int = 3072, cap2: int = 8192,
+                                     safety: float = 1.5,
+                                     check_overflow: bool = True,
+                                     layout: str = "auto",
+                                     out_dtype: str = "float32"):
+    """Two-level sparse decode (see _decode_grid_hier2_impl). With
+    check_overflow=False nothing waits on the device (the stats carry
+    device scalars)."""
+    _check_blocks(res, b1, b2)
+    cap1 = min(cap1, (res // b1) ** 3)
+    cap2 = min(cap2, cap1 * (b1 // b2) ** 3)
+    if layout == "auto":
+        layout = auto_layout(res, b2)
+    grid, n1, n2 = _decode_grid_hier2_impl(apply_fn, z, res, b1, b2, cap1,
+                                           cap2, safety=safety,
+                                           layout=layout,
+                                           out_dtype=out_dtype)
+    stats = {
+        "layout": layout,
+        "coarse_evals": (res // b1) ** 3,
+        "mid_evals": cap1 * (b1 // b2) ** 3,
+        "fine_evals": cap2 * b2 ** 3,
+        "active_l1": n1, "active_l2": n2,
+        "cap1": cap1, "cap2": cap2,
+        "effective_voxels": res ** 3,
+    }
+    return grid, _counts(stats, {"active_l1": cap1, "active_l2": cap2},
+                         check_overflow)
+
+
+def decode_grid_hierarchical3_device(apply_fn: ApplyFn, z: torch.Tensor,
+                                     res: int, b1: int = 16, b2: int = 4,
+                                     b3: int = 2, cap1: int = 3072,
+                                     cap2: int = 8192, cap3: int = 24576,
+                                     safety: float = 1.5,
+                                     safety3: float = 0.0,
+                                     check_overflow: bool = True,
+                                     layout: str = "auto",
+                                     out_dtype: str = "float32"):
+    """Three-level sparse decode (see _decode_grid_hier3_impl) to an
+    assembled grid ("xmajor" or "block" layout)."""
+    _check_blocks(res, b1, b2, b3)
+    if out_dtype == "int8":
+        raise ValueError("int8 is a sparse-payload-only dtype")
+    cap1, cap2, cap3 = _caps3(res, b1, b2, b3, cap1, cap2, cap3)
+    if layout == "auto":
+        layout = auto_layout(res, b2)
+    grid, n1, n2, n3 = _decode_grid_hier3_impl(
+        apply_fn, z, res, b1, b2, b3, cap1, cap2, cap3, safety=safety,
+        safety3=safety3, layout=layout, out_dtype=out_dtype)
+    stats = {
+        "layout": layout,
+        "coarse_evals": (res // b1) ** 3,
+        "mid_evals": cap1 * (b1 // b2) ** 3,
+        "sub_evals": cap2 * (b2 // b3) ** 3,
+        "fine_evals": cap3 * b3 ** 3,
+        "active_l1": n1, "active_l2": n2, "active_l3": n3,
+        "cap1": cap1, "cap2": cap2, "cap3": cap3,
+        "effective_voxels": res ** 3,
+    }
+    return grid, _counts(stats, {"active_l1": cap1, "active_l2": cap2,
+                                 "active_l3": cap3}, check_overflow)
+
+
+def decode_grid_hierarchical3_sparse(apply_fn: ApplyFn, z: torch.Tensor,
+                                     res: int, b1: int = 16, b2: int = 4,
+                                     b3: int = 2, cap1: int = 3072,
+                                     cap2: int = 8192, cap3: int = 24576,
+                                     safety: float = 1.5,
+                                     safety3: float = 0.0,
+                                     check_overflow: bool = True,
+                                     out_dtype: str = "bfloat16"):
+    """Three-level sparse decode returning the compact v1 representation
+    ((fill2 [nb2^3], vals2 [cap2, b2^3], ids2 [cap2]), stats): the
+    expanded b2 fill cascade and the near-surface fine rows; only the
+    first stats['active_l2'] rows of vals2/ids2 are meaningful.
+    Reconstruct a full x-major grid with sparse_to_grid."""
+    _check_blocks(res, b1, b2, b3)
+    cap1, cap2, cap3 = _caps3(res, b1, b2, b3, cap1, cap2, cap3)
+    (fill2, vals2, ids2), n1, n2, n3 = _decode_grid_hier3_impl(
+        apply_fn, z, res, b1, b2, b3, cap1, cap2, cap3, safety=safety,
+        safety3=safety3, layout="sparse", out_dtype=out_dtype)
+    stats = {"layout": "sparse", "cap1": cap1, "cap2": cap2, "cap3": cap3,
+             "active_l1": n1, "active_l2": n2, "active_l3": n3,
+             "payload_bytes": int(fill2.nbytes + vals2.nbytes
+                                  + ids2.nbytes),
+             "effective_voxels": res ** 3}
+    return (fill2, vals2, ids2), _counts(
+        stats, {"active_l1": cap1, "active_l2": cap2, "active_l3": cap3},
+        check_overflow)
+
+
+def _stack_shapes(outs: list):
+    """Per-shape results -> batched: a tensor, or a tuple of tensors,
+    stacked along a new leading axis (what vmap returns)."""
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+    return torch.stack(outs)
+
+
+def decode_grid_hierarchical2_batch(apply_fn: ApplyFn, zs: torch.Tensor,
+                                    res: int, b1: int = 16, b2: int = 4,
+                                    cap1: int = 1024, cap2: int = 9216,
+                                    safety: float = 1.2,
+                                    layout: str = "block",
+                                    check_overflow: bool = True):
+    """Two-level sparse decode of a batch of latents zs [S, L], shape by
+    shape at the batch's caps. Returns (grids [S, ...], stats); the
+    active counts are [S] arrays. Default layout "block" ([S, nb2^3,
+    b2^3]); unblock on the host per shape."""
+    _check_blocks(res, b1, b2)
+    S = int(zs.shape[0])
+    cap1 = min(cap1, (res // b1) ** 3)
+    cap2 = min(cap2, cap1 * (b1 // b2) ** 3)
+    if layout == "auto":
+        layout = auto_layout(res, b2)
+    ppg = max(b2 ** 3, _MAX_POINTS_PER_GROUP // S)
+    outs = [_decode_grid_hier2_impl(apply_fn, z, res, b1, b2, cap1, cap2,
+                                    safety=safety, layout=layout,
+                                    points_per_group=ppg) for z in zs]
+    grids, n1, n2 = (_stack_shapes(list(o)) for o in zip(*outs))
+    stats = {
+        "layout": layout,
+        "coarse_evals": S * (res // b1) ** 3,
+        "mid_evals": S * cap1 * (b1 // b2) ** 3,
+        "fine_evals": S * cap2 * b2 ** 3,
+        "active_l1": n1, "active_l2": n2,
+        "cap1": cap1, "cap2": cap2,
+        "effective_voxels": S * res ** 3,
+    }
+    return grids, _counts(stats, {"active_l1": cap1, "active_l2": cap2},
+                          check_overflow)
+
+
+def decode_grid_hierarchical3_batch(apply_fn: ApplyFn, zs: torch.Tensor,
+                                    res: int, b1: int = 16, b2: int = 4,
+                                    b3: int = 2, cap1: int = 1024,
+                                    cap2: int = 9216, cap3: int = 24576,
+                                    safety: float = 1.2,
+                                    safety3: float = 2.0,
+                                    layout: str = "block",
+                                    out_dtype: str = "float32",
+                                    check_overflow: bool = True):
+    """Three-level sparse decode of a batch of latents zs [S, L], shape by
+    shape at the batch's caps, with points_per_group max(b3^3, 2^20 / S)
+    (the reference's vmapped grouping). The finest selection level gets
+    the widened safety3 margin (default 2.0), as the single-shape serving
+    path does. Returns (grids [S, ...], stats); the active counts are [S]
+    arrays. Default layout "block" ([S, nb2^3, b2^3])."""
+    _check_blocks(res, b1, b2, b3)
+    S = int(zs.shape[0])
+    cap1, cap2, cap3 = _caps3(res, b1, b2, b3, cap1, cap2, cap3)
+    if layout == "auto":
+        layout = auto_layout(res, b2)
+    ppg = max(b3 ** 3, _MAX_POINTS_PER_GROUP // S)
+    outs = [_decode_grid_hier3_impl(apply_fn, z, res, b1, b2, b3, cap1,
+                                    cap2, cap3, safety=safety,
+                                    safety3=safety3, layout=layout,
+                                    points_per_group=ppg,
+                                    out_dtype=out_dtype) for z in zs]
+    grids, n1, n2, n3 = (_stack_shapes(list(o)) for o in zip(*outs))
+    stats = {
+        "layout": layout,
+        "coarse_evals": S * (res // b1) ** 3,
+        "mid_evals": S * cap1 * (b1 // b2) ** 3,
+        "sub_evals": S * cap2 * (b2 // b3) ** 3,
+        "fine_evals": S * cap3 * b3 ** 3,
+        "active_l1": n1, "active_l2": n2, "active_l3": n3,
+        "cap1": cap1, "cap2": cap2, "cap3": cap3,
+        "effective_voxels": S * res ** 3,
+    }
+    return grids, _counts(stats, {"active_l1": cap1, "active_l2": cap2,
+                                  "active_l3": cap3}, check_overflow)
+
+
+def probe_bench_caps(apply_fn: ApplyFn, z: torch.Tensor, res: int,
+                     safety: float = 1.1, safety3: float = 0.0,
+                     headroom: float = 1.25) -> tuple:
+    """Measured-active capacity policy for a shape: one generous-cap
+    three-level decode measures its true active block counts at the given
+    margins; caps = round_up(headroom * active, 128)."""
+    nb1 = res // 16
+    _, st = decode_grid_hierarchical3_device(
+        apply_fn, z, res, 16, 4, 2, nb1 ** 3, res ** 2 // 2, 2 * res ** 2,
+        safety=safety, safety3=safety3, layout="block", check_overflow=True)
+    if st["capacity_exceeded"]:
+        raise RuntimeError(f"probe caps exceeded: {st}")
+
+    def rnd(n):
+        return -(-int(headroom * n) // 128) * 128
+
+    return (rnd(st["active_l1"]), rnd(st["active_l2"]),
+            rnd(st["active_l3"]))
+
+
+def decode_grid_hierarchical(apply_fn: ApplyFn, z: torch.Tensor, res: int,
+                             block: int = 8, safety: float = 1.5,
+                             max_blocks_per_call: int = 4096) -> tuple:
+    """Coarse->fine sparse decode driven from the host. Returns (grid
+    [res^3] host float32 x-major, stats).
+
+    A block can contain the zero set only if the SDF at its center is
+    within half the block diagonal (1-Lipschitz bound) times `safety`.
+    Skipped blocks are filled with their center value. The active blocks
+    are evaluated in calls of at most max_blocks_per_call, each padded to
+    a multiple of 256 blocks (counted in fine_evals: padded evals are
+    real compute)."""
+    _check_blocks(res, block)
+    nb = res // block
+    h = 2.0 / (res - 1)
+    tau = safety * (block * h * math.sqrt(3.0) / 2.0)
+
+    centers = _eval_block_centers(apply_fn, z, res, block).cpu().numpy()
+    active = np.nonzero(np.abs(centers) <= tau)[0].astype(np.int32)
+    grid = np.repeat(centers.astype(np.float32), block ** 3).reshape(
+        nb, nb, nb, block, block, block)
+    total_fine_evals = 0
+    K = len(active)
+    for start in range(0, K, max_blocks_per_call):
+        ids = active[start:start + max_blocks_per_call]
+        pad = (-len(ids)) % 256
+        ids_p = np.pad(ids, (0, pad), mode="edge") if pad else ids
+        vals = _eval_blocks(apply_fn, z, torch.as_tensor(ids_p,
+                                                         device=z.device),
+                            res, block).cpu().numpy()
+        total_fine_evals += vals.size
+        vals = vals[:len(ids)]
+        bx, by, bz = ids // (nb * nb), (ids // nb) % nb, ids % nb
+        grid[bx, by, bz] = vals.reshape(-1, block, block, block)
+    grid = grid.transpose(0, 3, 1, 4, 2, 5).reshape(res, res, res)
+    stats = {
+        "coarse_evals": centers.size,
+        "fine_evals": total_fine_evals,
+        "active_blocks": int(K),
+        "total_blocks": int(nb ** 3),
+        "effective_voxels": res ** 3,
+    }
+    return grid, stats
 
 
 # ------------------------------------------------ flattened batched decode
@@ -525,14 +945,8 @@ def _decode_flat_impl(pairs_fn: PairsFn, zs: torch.Tensor, S: int,
                                       r1, cap1)
     vals2, fill2 = conv(vals2), conv(fill2)
     # block-layout assembly over the S*nb2^3 global block axis
-    n2_all = S * nb2 ** 3
-    inv2 = torch.full((n2_all + 1,), cap2, dtype=torch.int32, device=dev)
-    inv2.scatter_(0, torch.where(valid2, ids2, n2_all).long(), arange(cap2))
-    inv2 = inv2[:n2_all]
-    vals2_pad = torch.cat([vals2, vals2.new_zeros((1, b2 ** 3))])
-    grids = torch.where((inv2 < cap2)[:, None],
-                        vals2_pad[torch.clamp(inv2, max=cap2).long()],
-                        fill2[:, None]).reshape(S, nb2 ** 3, b2 ** 3)
+    grids = _assemble_blocks(fill2, vals2, ids2, valid2, res, b2,
+                             "block").reshape(S, nb2 ** 3, b2 ** 3)
     per_shape_l1 = mask1.reshape(S, nb1 ** 3).sum(1, dtype=torch.int32)
     return grids, n1, n2, n3, per_shape_l1
 
@@ -555,9 +969,7 @@ def decode_grid_hierarchical3_batch_flat(
     if out_dtype not in ("float32", "bfloat16", "int8"):
         raise ValueError(f"unsupported payload dtype {out_dtype!r} for the "
                          "flat decode (float32, bfloat16, int8)")
-    if not (res % b1 == 0 and b1 % b2 == 0 and b2 % b3 == 0):
-        raise ValueError(f"need res % b1 == b1 % b2 == b2 % b3 == 0, got "
-                         f"res={res} b1={b1} b2={b2} b3={b3}")
+    _check_blocks(res, b1, b2, b3)
     S = int(zs.shape[0])
     r1, r2 = b1 // b2, b2 // b3
     nb1 = res // b1

@@ -2,7 +2,8 @@
 + sampling + evaluation around the experiment-dir convention.
 
 Counterpart of the JAX package's `pipeline.py`: the main path `train-ad`
--> `train-diff` -> `sample` -> `eval`, the amortized encoder
+-> `train-diff` -> `sample` -> `eval` (from `analytic:` or `sdf:` data),
+latent interpolation and sphere-traced renders, the amortized encoder
 (`train-encoder`) and reconstruction from observations (`reconstruct`). Stage 2 reads stage 1's
 checkpoint read-only (frozen codes); sampling reads both; every stage
 resumes from its latest checkpoint (utils.checkpoint.StageCheckpointer,
@@ -56,10 +57,11 @@ from latent_diffusion_models_for_shape_sdfs_torch.utils.logging import (
 
 
 def build_dataset(cfg: ExperimentConfig) -> SdfDataset:
-    """The experiment's SDF sample store. `analytic:<family>` only (the
-    `sdf:<dir>` source needs SdfDataset.from_dir, not ported yet). Build
-    it before CUDA is first touched where you can: from_analytic's process
-    pool forks until then and must spawn after."""
+    """The experiment's SDF sample store: `analytic:<family>` (closed-form
+    shapes) or `sdf:<dir>` (the `preprocess` tool's .npz files,
+    SdfDataset.from_dir). Build an analytic store before CUDA is first
+    touched where you can: from_analytic's process pool forks until then
+    and must spawn after."""
     src = cfg.data_source
     if src.startswith("analytic:"):
         family = src.split(":", 1)[1]
@@ -67,8 +69,7 @@ def build_dataset(cfg: ExperimentConfig) -> SdfDataset:
                                                seed=cfg.ad.seed)
         return SdfDataset.from_analytic(shapes)
     if src.startswith("sdf:"):
-        raise NotImplementedError("the sdf:<dir> data source "
-                                  "(SdfDataset.from_dir) is not ported")
+        return SdfDataset.from_dir(src.split(":", 1)[1])
     raise ValueError(f"unknown data source {src!r}")
 
 
@@ -437,6 +438,106 @@ def _decode_latents_to_meshes(apply_fn, zs, res: int, cfg, out_dir=None,
     return meshes
 
 
+def run_interpolate(exp_dir: str, scene_a: int, scene_b: int,
+                    steps: int = 8, res: Optional[int] = None,
+                    mode: str = "lerp", name: str = "interp",
+                    mesh_format: str = "obj",
+                    simplify_faces: Optional[int] = None,
+                    simplify_ratio: Optional[float] = None,
+                    device="cuda") -> list:
+    """Latent-space shape morphing: decode meshes at `steps` evenly spaced
+    latents on the path between two trained stage-1 codes.
+
+    `mode`: "lerp" (straight line, the lineage convention) or "slerp"
+    (great-circle path at interpolated norm, falling back to lerp when
+    the codes are (anti)parallel). The path is computed on the host in
+    float64, as the reference does. Writes
+    <exp>/interpolations/<name>_###.<mesh_format>; returns the list of
+    (verts, faces)."""
+    cfg = ExperimentConfig.load(exp_dir)
+    lay = experiment_layout(exp_dir)
+    res = res or cfg.sample.grid_res
+    dev = resolve_device(device)
+    decoder, ad_state = load_ad_state(exp_dir, device=dev)
+    codes = ad_state.codes.detach().cpu().numpy()
+    for s in (scene_a, scene_b):
+        if not 0 <= s < len(codes):
+            raise ValueError(f"scene id {s} out of range [0, {len(codes)})")
+    za = np.asarray(codes[scene_a], np.float64)
+    zb = np.asarray(codes[scene_b], np.float64)
+    t = np.linspace(0.0, 1.0, steps)[:, None]
+    if mode == "slerp":
+        na, nb = np.linalg.norm(za), np.linalg.norm(zb)
+        ua, ub = za / na, zb / nb
+        cos = float(np.clip(np.dot(ua, ub), -1.0, 1.0))
+        omega = np.arccos(cos)
+        if np.sin(omega) < 1e-6:
+            # parallel (omega~0) or antiparallel (omega~pi): the
+            # great circle is degenerate/undefined, fall back to lerp
+            zs = (1 - t) * za + t * zb
+        else:
+            arc = (np.sin((1 - t) * omega) * ua
+                   + np.sin(t * omega) * ub) / np.sin(omega)
+            zs = arc * ((1 - t) * na + t * nb)
+    elif mode == "lerp":
+        zs = (1 - t) * za + t * zb
+    else:
+        raise ValueError(f"unknown interpolation mode {mode!r}")
+    apply_fn = make_kernel_apply(decoder, decoder_params(ad_state),
+                                 device=dev)
+    lay["interpolations"].mkdir(parents=True, exist_ok=True)
+    return _decode_latents_to_meshes(
+        apply_fn, torch.as_tensor(zs.astype(np.float32), device=dev), res,
+        cfg, out_dir=lay["interpolations"], prefix=name,
+        mesh_format=mesh_format, simplify_faces=simplify_faces,
+        simplify_ratio=simplify_ratio, device=dev)
+
+
+# ----------------------------------------------------------- render
+
+
+def run_render(exp_dir: str, scene: int = 0,
+               latent_file: Optional[str] = None,
+               name: str = "render", size: int = 512,
+               frames: int = 1, steps: int = 96, device="cuda") -> list:
+    """Sphere-trace a trained latent straight off the decoder (ops.render
+    through kernel #1, no grid decode, no meshing) and write PNG previews
+    under <exp>/renders/. `latent_file` (.npy, [L] or [k,L]: row 0)
+    overrides `scene`. `frames` > 1 writes a turntable. Returns the list
+    of written paths."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.render import (
+        render_sdf, render_turntable)
+    from latent_diffusion_models_for_shape_sdfs_torch.utils.image import (
+        write_png)
+    lay = experiment_layout(exp_dir)
+    dev = resolve_device(device)
+    decoder, ad_state = load_ad_state(exp_dir, device=dev)
+    if latent_file is not None:
+        z = np.asarray(np.load(latent_file), np.float32)
+        z = torch.from_numpy(z[0] if z.ndim == 2 else z).to(dev)
+    else:
+        n_codes = int(ad_state.codes.shape[0])
+        if not 0 <= scene < n_codes:
+            raise ValueError(f"scene id {scene} out of range [0, {n_codes})")
+        z = ad_state.codes.detach()[scene]
+    apply_fn = make_kernel_apply(decoder, decoder_params(ad_state),
+                                 device=dev)
+    lay["renders"].mkdir(parents=True, exist_ok=True)
+    paths = []
+    if frames <= 1:
+        rgb, _ = render_sdf(apply_fn, z, width=size, height=size,
+                            steps=steps)
+        paths.append(lay["renders"] / f"{name}.png")
+        write_png(paths[-1], rgb)
+    else:
+        for i, (rgb, _) in enumerate(render_turntable(
+                apply_fn, z, frames=frames, width=size, height=size,
+                steps=steps)):
+            paths.append(lay["renders"] / f"{name}_{i:03d}.png")
+            write_png(paths[-1], rgb)
+    return paths
+
+
 # ----------------------------------------------------------- reconstruct
 
 
@@ -515,21 +616,53 @@ def run_reconstruct(exp_dir: str, obs_xyz: np.ndarray, obs_sdf: np.ndarray,
 
 def run_eval(exp_dir: str, num_points: int = 30_000,
              fscore_tau: float = 0.01, device="cuda") -> dict:
-    """Chamfer-L2, F-score@tau and normal consistency of each training
-    scene's mesh (its code, dense decode at `sample.grid_res`) against the
-    analytic ground truth surface (GT normals: the exact SDF's gradient).
-    Writes <exp>/evals/chamfer.json and returns the same dict."""
+    """Chamfer-L2 and F-score@tau (+ normal consistency where GT normals
+    exist) of each training scene's mesh (its code, dense decode at
+    `sample.grid_res`) against its ground truth.
+
+    GT surfaces: `analytic:` sources sample the closed-form surface (GT
+    normals = the exact SDF's gradient); `sdf:` sources use the first
+    `num_points` rows of the `surface` array the preprocess tool stores
+    per scene (in the normalized frame the decoder trains in; no stored
+    normals, so normal consistency is skipped). Scenes beyond the trained
+    codes are not evaluated. Writes <exp>/evals/chamfer.json and returns
+    the same dict."""
+    import pathlib
     cfg = ExperimentConfig.load(exp_dir)
     lay = experiment_layout(exp_dir)
-    if not cfg.data_source.startswith("analytic:"):
-        raise NotImplementedError(f"run_eval: only analytic ground truth "
-                                  f"is ported, not {cfg.data_source!r}")
-    shapes = analytic.make_synthetic_split(
-        cfg.data_source.split(":", 1)[1], cfg.ad.num_scenes,
-        seed=cfg.ad.seed)
+    gt_normals = None
+    if cfg.data_source.startswith("analytic:"):
+        shapes = analytic.make_synthetic_split(
+            cfg.data_source.split(":", 1)[1], cfg.ad.num_scenes,
+            seed=cfg.ad.seed)
+
+        def gt_normals(i, pts):
+            return sdf_normals(lambda p: analytic.sdf(shapes[i], p), pts)
+
+        def gt_points(i):
+            return analytic.sample_surface(shapes[i], num_points,
+                                           np.random.default_rng(i))
+        n_scenes = len(shapes)
+    elif cfg.data_source.startswith("sdf:"):
+        files = sorted(pathlib.Path(
+            cfg.data_source.split(":", 1)[1]).glob("*.npz"))
+
+        def gt_points(i):
+            with np.load(files[i]) as z:
+                if "surface" not in z.files:
+                    raise ValueError(
+                        f"{files[i]} has no 'surface' array; re-run the "
+                        "preprocess tool to store GT surface samples for "
+                        "eval")
+                return np.asarray(z["surface"], np.float32)[:num_points]
+        n_scenes = len(files)
+    else:
+        raise ValueError(f"run_eval: no GT surface source for "
+                         f"{cfg.data_source!r}")
     dev = resolve_device(device)
     decoder, ad_state = load_ad_state(exp_dir, device=dev)
-    n_scenes = min(len(shapes), int(ad_state.codes.shape[0]))
+    # a data dir may hold more files than the run trained codes for
+    n_scenes = min(n_scenes, int(ad_state.codes.shape[0]))
     apply_fn = make_kernel_apply(decoder, decoder_params(ad_state),
                                  device=dev)
     codes = ad_state.codes.detach()
@@ -544,12 +677,12 @@ def run_eval(exp_dir: str, num_points: int = 30_000,
             continue
         pred, pred_nrm = sample_mesh_surface_with_normals(
             v, f, num_points, seed=i)
-        gt = analytic.sample_surface(shapes[i], num_points,
-                                     np.random.default_rng(i))
+        gt = gt_points(i)
         results[str(i)] = chamfer_l2(pred, gt)
         f_results[str(i)] = fscore(pred, gt, tau=fscore_tau)["fscore"]
-        gt_nrm = sdf_normals(lambda p: analytic.sdf(shapes[i], p), gt)
-        nc_results[str(i)] = normal_consistency(pred, pred_nrm, gt, gt_nrm)
+        if gt_normals is not None:
+            nc_results[str(i)] = normal_consistency(
+                pred, pred_nrm, gt, gt_normals(i, gt))
     finite = [x for x in results.values() if np.isfinite(x)]
     out = {"chamfer_l2": results,
            "mean": float(np.mean(finite)) if finite else float("inf"),

@@ -886,6 +886,138 @@ def test_encoder_chunk_waits_on_the_device_once(cuda):
     assert np.isfinite(float(loss)) and state.step == 20
 
 
+# ---------------------------------- render, device metrics, batched decodes
+
+
+def test_render_kernel_matches_plain_version(cuda):
+    """The sphere-traced render of a trained chair through kernel #1 (rows
+    hoisted once: 96 + 6 launches) against the plain version's render:
+    hit masks on 99.9% of the pixels; shading (central differences of
+    bf16 evaluations) within 4 levels at the median where both hit."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.render import (
+        render_sdf)
+    dec, sd, z = _decoder("trained")
+    apply = make_kernel_apply(dec, sd, device=cuda)
+    zt = torch.from_numpy(z).to(cuda)
+    view = dict(width=160, height=128, eye=(1.5, 1.05, 1.5))
+    rgb, hit = render_sdf(apply, zt, **view)
+    assert apply.launches == 102
+    rgb_p, hit_p = render_sdf(lambda zz, x: fast_apply(apply.ew, zz, x), zt,
+                              **view)
+    assert (hit == hit_p).mean() >= 0.999 and hit.sum() > 1000
+    both = hit & hit_p
+    d = np.abs(rgb.astype(int) - rgb_p.astype(int)).max(-1)[both]
+    assert np.median(d) <= 4
+
+
+def test_render_march_waits_on_the_device_once(cuda):
+    """The march and the shading enqueue without a host wait."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import render
+    dec, sd, z = _decoder("small")
+    apply = make_kernel_apply(dec, sd, device=cuda)
+    sdf = apply.bind(torch.from_numpy(z).to(cuda))
+    args = (64, 48, 96, (1.6, 1.2, 1.6), (0.0, 0.0, 0.0), 40.0, 2e-3, 0.9,
+            1.05, (0.5, 0.75, 0.43), cuda)
+    render._render(sdf, *args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img, hit = render._render(sdf, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert img.shape == (48, 64, 3) and hit.shape == (48, 64)
+
+
+def _clouds(k, n, seed):
+    rng = np.random.default_rng(seed)
+    return [(rng.uniform(-0.5, 0.5, 3) + 0.2 * rng.normal(size=(n, 3)))
+            .astype(np.float32) for _ in range(k)]
+
+
+def test_device_metrics_on_card(cuda):
+    """Chamfer on the card within 1e-5 of the host KD-tree, Sinkhorn-EMD
+    in the entropic envelope of the exact assignment, and MMD / COV /
+    1-NNA equal to the CPU run's to 1e-5."""
+    from latent_diffusion_models_for_shape_sdfs_torch.evaluation import (
+        device_metrics as dm, generative as gm)
+    a, b = _clouds(5, 1000, 0), _clouds(4, 1000, 1)
+    got = dm.pairwise_metric(a, b, "chamfer", chunk=3, device=cuda)
+    np.testing.assert_allclose(got, gm.pairwise_chamfer(a, b), rtol=1e-5,
+                               atol=0)
+    a, b = _clouds(3, 256, 2), _clouds(3, 256, 3)
+    emd = dm.pairwise_metric(a, b, "emd", chunk=2, eps=0.005, iters=500,
+                             device=cuda)
+    for i in range(3):
+        for j in range(3):
+            exact = gm.emd_exact(a[i], b[j])
+            assert exact - 1e-4 <= emd[i, j] < 1.05 * exact + 0.01
+    card = dm.evaluate_generated_device(a, b, ("chamfer", "emd"), chunk=2,
+                                        device=cuda)
+    host = dm.evaluate_generated_device(a, b, ("chamfer", "emd"), chunk=2,
+                                        device="cpu")
+    assert set(card) == set(host)
+    for k in host:
+        np.testing.assert_allclose(card[k], host[k], rtol=1e-5, atol=0)
+
+
+def _cube(z, xyz):
+    q = torch.abs(torch.round(xyz * 256.0) - z[1:4] * 256.0)
+    return torch.amax(q, dim=-1) / 256.0 - z[0]
+
+
+def _host_tree(x):
+    if isinstance(x, tuple):
+        return tuple(_host_tree(a) for a in x)
+    return x.cpu() if isinstance(x, torch.Tensor) else x
+
+
+@pytest.mark.parametrize("name, args, kw", [
+    ("decode_grid_batch", (24,), {}),
+    ("decode_grid_hierarchical2_batch", (64, 16, 4, 64, 1024), {}),
+    ("decode_grid_hierarchical3_batch", (64, 16, 4, 2, 64, 1024, 6144),
+     dict(layout="sparse2", out_dtype="int8")),
+    ("decode_grid_hierarchical3_batch", (64, 16, 4, 2, 16, 256, 1024),
+     dict(layout="xmajor")),
+])
+def test_batch_decodes_on_card_match_cpu(name, args, kw, cuda):
+    """The batched decodes on the cube SDF (exact in fp32 on both): the
+    card's grids and counts equal the CPU's bit for bit, overflow too."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import grid_eval
+    zs = torch.tensor([[0.2, 0.0, 0.1, 0.0], [0.3, 0.05, 0.0, -0.1],
+                       [0.45, 0.0, 0.0, 0.1]])
+    fn = getattr(grid_eval, name)
+    cpu, card = fn(_cube, zs, *args, **kw), fn(_cube, zs.to(cuda), *args,
+                                               **kw)
+    if name == "decode_grid_batch":
+        cpu, card = (cpu, {}), (card, {})
+    for a, b in zip(_host_tree(card[0]) if isinstance(card[0], tuple)
+                    else (card[0].cpu(),),
+                    cpu[0] if isinstance(cpu[0], tuple) else (cpu[0],)):
+        assert torch.equal(a, b)
+    for k, v in cpu[1].items():
+        np.testing.assert_array_equal(np.asarray(card[1][k]), np.asarray(v))
+
+
+def test_batched_decode_through_kernel_matches_single_shapes(cuda):
+    """decode_grid_hierarchical3_batch of 3 trained chairs at 128^3
+    through kernel #1: each shape's grid and counts equal its single-shape
+    decode's at the same caps, bit for bit."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import grid_eval
+    sd, codes = load_stage1_pack(PACK)
+    apply = make_kernel_apply(SdfDecoder(DecoderConfig()), sd, device=cuda)
+    zs = torch.from_numpy(codes[[0, 7, 21]]).to(cuda)
+    caps = (512, 8192, 32768)
+    grids, st = grid_eval.decode_grid_hierarchical3_batch(
+        apply, zs, 128, 16, 4, 2, *caps, layout="block")
+    assert not st["capacity_exceeded"]
+    for i in range(3):
+        g1, st1 = grid_eval.decode_grid_hierarchical3_device(
+            apply, zs[i], 128, 16, 4, 2, *caps, safety=1.2, safety3=2.0,
+            layout="block")
+        assert torch.equal(grids[i], g1)
+        assert st1["active_l3"] == st["active_l3"][i] > 0
+
+
 def test_recon_capture_failure_raises(cuda):
     """A step that cannot be captured (a prior that reads a value on the
     host) raises; the run does not fall back to the eager loop. Last in

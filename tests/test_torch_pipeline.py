@@ -313,8 +313,6 @@ def test_cli_fault_injection_and_resume(tmp_path):
 def test_cli_refuses_what_is_not_ported(exp, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="tensorboard"):
         _cli("train-diff", exp, "--tensorboard")
-    with pytest.raises(NotImplementedError, match="normals"):
-        _cli("decode", exp, "--scene", 0, "--normals")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["eval", str(exp)])          # the default device is cuda
