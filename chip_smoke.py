@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check, serve,
-train, generate, reconstruct, real meshes in, renders and metrics out.
+train (from the host feed and the on-device bank, on one and on two
+ranks), generate, reconstruct, real meshes in, renders and metrics out.
 
     python3 chip_smoke.py [--details PATH]
 
@@ -7,8 +8,9 @@ Builds the port's CUDA kernels (csrc/fused_eval.cu, csrc/relu_dropout.cu,
 csrc/fused_train.cu, csrc/fused_eval_pairs.cu: one nvcc each for sm_90a,
 all started together) and the native mesher and preprocess tool (native/,
 cmake or g++) from this checkout, while it generates the training data
-(64 analytic chairs, and the 6,136 multicat scenes' observation banks,
-process pools started before CUDA is), then:
+(64 analytic chairs, the 6,136 multicat scenes' observation banks, and
+the analytic store that [cli]'s stages share, process pools started
+before CUDA is), then:
 
   1. prints the card (nvidia-smi name and power limit) and turns TF32 off;
   2. [kernel] holds the decoder-eval kernel (#1) against its plain version
@@ -43,7 +45,28 @@ process pools started before CUDA is), then:
      route, whose losses must equal config 3's bit for bit on one card;
      counts launches, then writes the trained pack, reloads it and serves
      chair 0 at 256^3; traces one step of each of config 3's routes;
-  8. [pairs] holds the per-point-latent eval kernel (#2) against its plain
+  8. [bank] trains stage 1 from the on-device sample bank
+     (AdConfig.device_data) at the committed packs' scale: builds the
+     chair bank (6,144 chairs x 16,384 samples, 3.0 GiB) on the card with
+     bank_from_chairs and checks its contract (signs, counts, labels),
+     runs one epoch (96 steps) of the fused route (#4) from the chair
+     pack, timed on the card's clock, steps 2-4 under
+     torch.cuda.set_sync_debug_mode("error"), and a second epoch traced
+     for the device-busy share; 10 steps of the autograd route (#3/#3b)
+     from the same bank; the CSG bank of the 6,136 multicat shapes
+     (bank_from_csg) and one fused step from the multicat pack (step-0
+     loss_l1 gates: 0.01 chair, 0.015 CSG);
+  9. [dp] the data-parallel stage-1 steps (parallel/dp.py) on config 3's
+     ad block cut to 64 scenes: on both routes, from the host feed and
+     from the bank, 3 steps of two ranks sharing the card over gloo
+     (spawned processes) against the single-device steps from the same
+     state and draws (step 0's loss terms to 1e-6 relative, its summed
+     gradients to 1e-2 of their max, the losses of 3 steps to 1e-4;
+     the states after 3 steps reported),
+     the ranks equal bit for bit, a 1-rank NCCL group's steps equal to
+     the single-device steps bit for bit, and with dropout 0.2 the
+     launches of #4 and #3/#3b per rank;
+ 10. [pairs] holds the per-point-latent eval kernel (#2) against its plain
      version (bf16 fast_apply over codes[sids]) on the committed multicat
      decoder with rows of 64 codes read by shuffled shape ids at 2^19 and
      2^19+131 points and of one code, through the (z_rows, xyz) call, on a
@@ -51,7 +74,7 @@ process pools started before CUDA is), then:
      checks two launches are bit-identical; times it and prints its launch
      configuration (cluster, ring stages, shared memory), the card's SM
      clock and power meanwhile, and its ptxas report;
-  9. [flat] decodes config 4's batch of 64 heterogeneous multicat shapes
+ 11. [flat] decodes config 4's batch of 64 heterogeneous multicat shapes
      (13 classes) at 256^3 through the flat batched decode (kernel #2, rows
      read by index): probed caps, one checked and three timed steps, one
      traced step (kernel #2 launches per step, no aten::index_select);
@@ -60,24 +83,24 @@ process pools started before CUDA is), then:
      same 64 codes through the per-shape decode, and 8 of them through
      the batched three-level decode (kernel #1, shape by shape), each
      shape bit-equal to its single-shape decode;
- 10. [train_diff] trains config 4's stage 2 (CondDenoiser 1024x6, 13
+ 12. [train_diff] trains config 4's stage 2 (CondDenoiser 1024x6, 13
      classes, 512 observation points, batch 128) on the 6,136 committed
      multicat codes with the conditioning banks `pipeline._cond_banks`
      builds (made while the kernels build): one chunk eager and the same
      chunk replayed from its CUDA graph must be equal bit for bit, then
      10,000 steps in graphed chunks of 100; prints steps/s eager and
      graphed, one traced graphed chunk, the first and last chunk's loss;
- 11. [generate] samples 64 conditioned latents from the trained EMA weights
+ 13. [generate] samples 64 conditioned latents from the trained EMA weights
      (CFG 2.0, DDIM-50 and DPM-10; same seed, same latents), decodes them
      through the flat decode (at least one must have a surface) and two
      through generate_meshes;
- 12. [unet] trains config 2-unet's stage 2 (the 1-D conv UNet, batch 256)
+ 14. [unet] trains config 2-unet's stage 2 (the 1-D conv UNet, batch 256)
      on the 6,144 committed chair codes: one chunk eager == graphed bit for
      bit (two chunks), ms a step of each, one traced graphed chunk, 10,000
      steps (last loss < 0.5), then DDIM-50 on 16 latents from the EMA
      decoded at 128^3 through serve_meshes and kernel #1 (>= 1 with a
      surface);
- 13. [recon] reconstructs chairs 0-3 and the held-out chair 6144 from
+ 15. [recon] reconstructs chairs 0-3 and the held-out chair 6144 from
      8,000 observations on the committed decoder at cfg.reconstruct's
      defaults: MAP, 4 restarts, the SDS prior of [unet]'s EMA, and the
      encoder (trained here at full width on a bank from the device chair
@@ -86,14 +109,16 @@ process pools started before CUDA is), then:
      graphed encoder chunk == the eager chunk; each mesh dense at 256^3
      through kernel #1 with its Chamfer-L2 (gates: MAP l1_last < 0.005,
      SDS < 0.01, encoder loss < 0.6, every mesh non-empty);
- 14. [cli] runs the CLI in process on config 4's specs, cut in scale:
+ 16. [cli] runs the CLI in process on config 4's specs, cut in scale:
      init-experiment, train-ad (150 epochs), train-diff, train-diff
      --resume, sample at 256^3, eval, train-encoder (500 steps), reconstruct
      (MAP, --diffusion-prior, --encoder --refine-steps 0, --encoder) and
      serve-daemon --reconstruct encoder on one observation request, timing
      each stage and counting the launches of kernels #3/#3b in train-ad and
-     #1 in the stages that decode;
- 15. [realdata] meshes 64 chairs of config 3's split (their analytic SDF
+     #1 in the stages that decode; the stages share one analytic store,
+     built with the data before CUDA (each stage would rebuild it, ~20-30
+     s each on a spawn pool);
+ 17. [realdata] meshes 64 chairs of config 3's split (their analytic SDF
      on a 256^3 grid on the card, the native mesher, harmonize_winding in
      spawned workers; half binary PLY, half OBJ), runs `cli preprocess`
      at 100,000 samples a mesh (sample signs vs the analytic SDF), then
@@ -105,7 +130,7 @@ process pools started before CUDA is), then:
      interpolate` (lerp, slerp, 256^3), `cli decode --normals` (PLY, OBJ),
      and the generative metrics on the card against the host KD-tree
      Chamfer and the exact EMD;
- 16. prints one JSON line per ported kernel and, last, the device line.
+ 18. prints one JSON line per ported kernel and, last, the device line.
 
 Any failure raises and exits non-zero; without a card (or outside a
 checkout of the repository) it exits non-zero before printing a result.
@@ -1510,15 +1535,35 @@ def recon_phase(dev, card, unet) -> dict:
     return out
 
 
-def cli_phase(dev, card) -> dict:
+CLI_SCENES = 64             # [cli]'s cut of config 4's scenes
+
+
+def cli_store():
+    """The analytic store of [cli]'s experiment (config 4's data source,
+    cut to CLI_SCENES scenes), as pipeline.build_dataset builds it; made
+    with the data before CUDA, on a fork pool."""
+    from latent_diffusion_models_for_shape_sdfs_torch.data import analytic
+    from latent_diffusion_models_for_shape_sdfs_torch.data.sdf_dataset import (
+        SdfDataset)
+    specs = json.loads((ROOT / "configs" / "config4_conditional"
+                        / "specs.json").read_text())
+    key = (specs["data_source"], CLI_SCENES, specs["ad"]["seed"])
+    family = key[0].split(":", 1)[1]
+    return key, SdfDataset.from_analytic(
+        analytic.make_synthetic_split(family, CLI_SCENES, seed=key[2]),
+        workers=8)
+
+
+def cli_phase(dev, card, store) -> dict:
     """[cli] the CLI in process on config 4's specs (every field passed
     with --set), cut in scale: init-experiment, train-ad, train-diff,
     train-diff --resume, sample at 256^3, eval; each stage's wall time and
-    the launches of kernels #3/#3b (train-ad) and #1 (sample, eval)."""
+    the launches of kernels #3/#3b (train-ad) and #1 (sample, eval). The
+    stages take `store` (cli_store) for their analytic store."""
     import contextlib
     import io
     import torch
-    from latent_diffusion_models_for_shape_sdfs_torch import cli
+    from latent_diffusion_models_for_shape_sdfs_torch import cli, pipeline
     from latent_diffusion_models_for_shape_sdfs_torch.ops import (
         cuda_kernels as ck, relu_dropout as rd)
 
@@ -1537,7 +1582,7 @@ def cli_phase(dev, card) -> dict:
     # steps: after 1,000 the EMA (decay 0.999) still weighed the init by
     # 37% and every sample was empty; the encoder's warmup cut with its
     # steps (500 of 20,000)
-    cuts = {"ad.num_scenes": 64, "ad.num_epochs": 150,
+    cuts = {"ad.num_scenes": CLI_SCENES, "ad.num_epochs": 150,
             "diff.num_steps": 10_000, "diff.snapshot_every": 5000,
             "sample.num_samples": 8,
             "sample.grid_res": 128, "encoder.num_steps": 500,
@@ -1576,20 +1621,33 @@ def cli_phase(dev, card) -> dict:
             analytic.make_shape("chair", np.random.default_rng(3)), 8000,
             np.random.default_rng(4))
         np.savez(queue / "obs.npz", obs_xyz=ox, obs_sdf=od)
-        for name, argv in stages:
-            for d in (rd.LAUNCHES, ck.LAUNCHES):
-                for k in d:
-                    d[k] = 0
-            text = io.StringIO()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(text):
-                cli.main(["--device", str(dev), *argv])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = {**rd.LAUNCHES, "fused_eval": ck.LAUNCHES["fused_eval"]}
-            out["stages"][name] = dict(s=wall, launches=launches)
-            log(f"[cli] {name}: {wall:.2f} s, launches {launches}")
+        build = pipeline.build_dataset
+        key, ds = store
+
+        def shared(cfg):
+            if (cfg.data_source, cfg.ad.num_scenes, cfg.ad.seed) == key:
+                return ds
+            return build(cfg)
+
+        pipeline.build_dataset = shared
+        try:
+            for name, argv in stages:
+                for d in (rd.LAUNCHES, ck.LAUNCHES):
+                    for k in d:
+                        d[k] = 0
+                text = io.StringIO()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(text):
+                    cli.main(["--device", str(dev), *argv])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {**rd.LAUNCHES,
+                            "fused_eval": ck.LAUNCHES["fused_eval"]}
+                out["stages"][name] = dict(s=wall, launches=launches)
+                log(f"[cli] {name}: {wall:.2f} s, launches {launches}")
+        finally:
+            pipeline.build_dataset = build
         ev = json.loads((pathlib.Path(exp) / "evals" / "chamfer.json")
                         .read_text())
         samples = sorted((pathlib.Path(exp) / "samples").glob("*.obj"))
@@ -2143,6 +2201,509 @@ def realdata_phase(dev, card) -> dict:
     return out
 
 
+BANK_N = 16_384           # samples a shape: the committed packs' banks
+# step-0 loss_l1 from each pack (trained levels 0.0022 and 0.0057; a draw,
+# sign-split or fallback fault reads ~0.05)
+BANK_GATES = {"chair": 0.01, "csg": 0.015}
+# [dp], 2 ranks vs 1 from one state and the same draws. Both routes round
+# f32 sums to bf16 (the activations on the autograd route, the folded
+# gradients on the fused one), so where the two runs sum in another order
+# an entry near a rounding edge moves by a bf16 ulp; Adam's first step
+# then moves the entries whose gradient is that small by up to ~lr.
+DP_LOSS_RTOL = 1e-6       # step 0's loss terms (l1, code-reg, sum)
+DP_GRAD_TOL = 1e-2        # step 0's gradients, of each tensor's max (bf16)
+DP_LOSS3_RTOL = 1e-4      # the losses of all 3 steps (TRAIN_LOSS_RTOL)
+DP_PARAM_TOL = 1e-5       # reported: entries beyond it after 3 steps
+DP_SEED = 123             # the bank draws' generator in [dp]
+DP_CASES = [("fused", "host", 0.0), ("fused", "bank", 0.0),
+            ("autograd", "host", 0.0), ("autograd", "bank", 0.0),
+            ("fused", "bank", RATE), ("autograd", "bank", RATE)]
+
+
+def reset_train_launches() -> None:
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        fused_train as ft, relu_dropout as rd)
+    for d in (ft.LAUNCHES, rd.LAUNCHES):
+        for k in d:
+            d[k] = 0
+
+
+def train_launches() -> dict:
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        fused_train as ft, relu_dropout as rd)
+    return {**rd.LAUNCHES, **ft.LAUNCHES}
+
+
+def check_bank(bank, sdf_fn_of, n: int, tag: str) -> dict:
+    """A bank's contract: counts in (0, n], each side's first `count` rows
+    of its sign where both sides hold rows (pos + neg == n), and labels
+    equal to the analytic SDF of their rows (scenes 0-3)."""
+    import torch
+    pc, nc = bank.pos_count.long(), bank.neg_count.long()
+    ar = torch.arange(n, device=pc.device)
+    split = (pc + nc == n)[:, None]
+    bad_pos = (split & (ar < pc[:, None]) & (bank.pos[..., 3] < 0)).sum()
+    bad_neg = (split & (ar < nc[:, None]) & (bank.neg[..., 3] >= 0)).sum()
+    counts_ok = bool(((pc > 0) & (pc <= n) & (nc > 0) & (nc <= n)).all())
+    label_err = 0.0
+    for i in range(4):
+        rows = bank.pos[i:i + 1]
+        label_err = max(label_err, float(
+            (sdf_fn_of(i)(rows[..., :3]) - rows[..., 3]).abs().max()))
+    out = dict(bad_pos=int(bad_pos), bad_neg=int(bad_neg),
+               counts_ok=counts_ok, fallback=int((~split).sum()),
+               label_err=label_err,
+               pos_share=float(pc.sum()) / (n * pc.numel()))
+    if out["bad_pos"] or out["bad_neg"] or not counts_ok \
+            or label_err > 1e-6:
+        raise RuntimeError(f"[bank] {tag} bank breaks its contract: {out}")
+    return out
+
+
+def bank_phase(dev, card, host_ms: float, k4_ms: float) -> dict:
+    """[bank] stage 1 from the on-device sample bank (AdConfig.device_data)
+    at the committed packs' scale: the chair bank built by
+    bank_from_chairs, one epoch of the fused route from the chair pack
+    (traced again for the busy share; no host sync in steps 2-4), 10
+    steps of the autograd route, and the CSG bank from the multicat pack.
+    `host_ms`, `k4_ms`: this run's host-fed fused step ([train]) and
+    kernel #4 alone ([fused_train]), logged beside the bank route's."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        ExperimentConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.data import (
+        analytic, analytic_device as adv)
+    from latent_diffusion_models_for_shape_sdfs_torch.train.auto_decoder \
+        import init_ad_state, make_bank_step, train_auto_decoder
+    from latent_diffusion_models_for_shape_sdfs_torch.utils.checkpoint \
+        import load_stage1_pack
+
+    out: dict = {"launches": {}}
+    t_phase = time.perf_counter()
+    ad3 = ExperimentConfig.load(ROOT / "configs" / "config3_chairs_joint").ad
+    sd, codes = load_stage1_pack(ROOT.joinpath(*PACK))
+    shapes = analytic.make_synthetic_split("chair", 6145, seed=11)[:6144]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bank = adv.bank_from_chairs(shapes, 11, BANK_N, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    params = adv.pack_chairs(shapes[:4], device=dev)
+    chk = check_bank(bank, lambda i: (lambda x, p=params.slice(i, 1):
+                                      adv.chair_sdf(p, x)), BANK_N, "chair")
+    out["chair"] = dict(build_s=build_s, gib=bank.nbytes / 2 ** 30,
+                        check=chk)
+    log(f"[bank] chair bank of {len(shapes)} chairs (make_synthetic_split("
+        f"'chair', 6145, seed=11)[:6144]) x {BANK_N} samples, built on the "
+        f"card by bank_from_chairs in {build_s:.2f} s: "
+        f"{bank.nbytes / 2 ** 30:.3f} GiB; positive share "
+        f"{chk['pos_share']:.3f}, {chk['fallback']} one-sided scenes, "
+        f"labels vs chair_sdf max {chk['label_err']:.1e} [{card}]")
+
+    # ---- the fused route (#4), one epoch from the committed chair pack
+    fused = dataclasses.replace(ad3, num_scenes=len(shapes), num_epochs=1,
+                                device_data=True, use_pallas=True)
+    state = init_ad_state(fused, params=sd, codes=codes, device=dev)
+    events, l1 = [], []
+
+    def on_step(i, epoch, m):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        l1.append(m["loss_l1"])
+        if i == 1:          # steps 2-4: any host sync raises
+            torch.cuda.set_sync_debug_mode("error")
+        elif i == 4:
+            torch.cuda.set_sync_debug_mode(0)
+
+    reset_train_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        train_auto_decoder(fused, None, state=state, device=dev, bank=bank,
+                           on_step=on_step)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    wall = time.perf_counter() - t0
+    launches = train_launches()
+    ms = events[0].elapsed_time(events[-1]) / (len(events) - 1)
+    l1 = [float(v) for v in l1]
+    traced = dataclasses.replace(fused, num_epochs=2)
+    twall, busy, top = device_profile(lambda: train_auto_decoder(
+        traced, None, state=state, start_epoch=1, device=dev, bank=bank))
+    out["fused"] = dict(steps=len(events), ms_per_step=ms,
+                        wall_s=wall, loss_l1=l1[:4] + l1[-2:],
+                        step0_loss_l1=l1[0], launches=launches,
+                        sync_free_steps=[2, 3, 4],
+                        trace=dict(wall_s=twall, device_busy_ms=busy,
+                                   busy_share=busy / (twall * 1e3),
+                                   top=top[:12]))
+    out["launches"]["fused_epoch"] = launches
+    log(f"[bank] fused route (#4) from the bank, config 3's ad block "
+        f"(8x{ad3.decoder.hidden_dim} bf16, dropout "
+        f"{ad3.decoder.dropout_prob}, {ad3.scenes_per_batch} x "
+        f"{ad3.samples_per_scene} a step) from the committed chair pack, "
+        f"one epoch of {len(events)} steps: {ms:.2f} ms/step on the card's "
+        f"clock (steps 1-{len(events) - 1}), {wall:.2f} s wall; host-fed "
+        f"{host_ms:.1f} ms/step ([train]), #4 alone {k4_ms:.2f} ms "
+        f"([fused_train]); step-0 loss_l1 "
+        f"{l1[0]:.5f} (gate < {BANK_GATES['chair']}), last "
+        f"{l1[-1]:.5f}; launches {launches}; steps 2-4 under "
+        f"set_sync_debug_mode('error'): no host sync [{card}]")
+    log_profile("bank", f"one traced epoch ({len(events)} steps) of the "
+                "fused route from the bank", twall, busy, top, card)
+    want = {"fused_train": len(events), "gemm_fwd": 7 * len(events),
+            "gemm_dgrad": 7 * len(events), "relu_dropout_fwd": 0,
+            "relu_dropout_bwd": 0}
+    if launches != want:
+        raise RuntimeError(f"[bank] fused route launches {launches}, "
+                           f"expected {want}")
+    if not (l1[0] < BANK_GATES["chair"] and np.isfinite(l1).all()):
+        raise RuntimeError(f"[bank] chair bank: step-0 loss_l1 {l1[0]}")
+    del state
+    torch.cuda.empty_cache()
+
+    # ---- the autograd route (#3/#3b), 10 steps from the same bank
+    auto = dataclasses.replace(fused, use_pallas=False)
+    st = init_ad_state(auto, params=sd, codes=codes, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(auto.seed)
+    step = make_bank_step(st.decoder, auto, bank, gen)
+    ids = torch.from_numpy(np.random.default_rng(auto.seed + 1).permutation(
+        len(shapes))[:640].astype(np.int64)).to(dev).reshape(10, -1)
+    reset_train_launches()
+    events, l1a = [], []
+    try:
+        for i in range(10):
+            if i == 2:
+                torch.cuda.set_sync_debug_mode("error")
+            m = step(st, ids[i], 0.0, 1000 + i)
+            if i == 4:
+                torch.cuda.set_sync_debug_mode(0)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            l1a.append(m["loss_l1"])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    la = train_launches()
+    ms_a = events[0].elapsed_time(events[-1]) / (len(events) - 1)
+    l1a = [float(v) for v in l1a]
+    out["autograd"] = dict(steps=10, ms_per_step=ms_a, loss_l1=l1a,
+                           launches=la)
+    out["launches"]["autograd"] = la
+    log(f"[bank] autograd route (#3/#3b) from the bank: 10 steps, "
+        f"{ms_a:.1f} ms/step (steps 1-9), step-0 loss_l1 {l1a[0]:.5f}, "
+        f"launches {la}; steps 2-4 without host sync [{card}]")
+    if la["relu_dropout_fwd"] != 80 or la["relu_dropout_bwd"] != 80 \
+            or la["fused_train"] or not l1a[0] < BANK_GATES["chair"]:
+        raise RuntimeError(f"[bank] autograd route: {out['autograd']}")
+    del st, step, bank, ids
+    torch.cuda.empty_cache()
+
+    # ---- the CSG bank from the multicat pack
+    ad5 = ExperimentConfig.load(ROOT / "configs" / "config5_multicat_dp").ad
+    shapes_m = analytic.make_synthetic_split("classes13", 6136, seed=5)
+    sd_m, codes_m = load_stage1_pack(ROOT.joinpath(*MULTICAT))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bank = adv.bank_from_csg(shapes_m, 5, BANK_N, device=dev)
+    torch.cuda.synchronize()
+    build_m = time.perf_counter() - t0
+    params_m = adv.pack_csg(shapes_m[:4], device=dev)
+    chk_m = check_bank(bank, lambda i: (lambda x, p=params_m.slice(i, 1):
+                                        adv.csg_sdf(p, x)), BANK_N, "csg")
+    cfg_m = dataclasses.replace(ad5, num_scenes=len(shapes_m),
+                                device_data=True, use_pallas=True)
+    st = init_ad_state(cfg_m, params=sd_m, codes=codes_m, device=dev)
+    gen.manual_seed(cfg_m.seed)
+    step = make_bank_step(st.decoder, cfg_m, bank, gen)
+    ids_m = torch.from_numpy(np.random.default_rng(cfg_m.seed + 1)
+                             .permutation(len(shapes_m))[:64]
+                             .astype(np.int64)).to(dev)
+    reset_train_launches()
+    l1m = float(step(st, ids_m, 0.0, 7)["loss_l1"])
+    out["launches"]["csg"] = train_launches()
+    out["csg"] = dict(build_s=build_m, gib=bank.nbytes / 2 ** 30,
+                      check=chk_m, step0_loss_l1=l1m)
+    log(f"[bank] CSG bank of {len(shapes_m)} classes13 shapes "
+        f"(make_synthetic_split('classes13', 6136, seed=5)) x {BANK_N}, "
+        f"built by bank_from_csg in {build_m:.2f} s: "
+        f"{bank.nbytes / 2 ** 30:.3f} GiB; positive share "
+        f"{chk_m['pos_share']:.3f}, {chk_m['fallback']} one-sided scenes, "
+        f"labels vs csg_sdf max {chk_m['label_err']:.1e}; fused step 0 "
+        f"from the multicat pack (config 5's ad block): loss_l1 {l1m:.5f} "
+        f"(gate < {BANK_GATES['csg']}) [{card}]")
+    if not l1m < BANK_GATES["csg"]:
+        raise RuntimeError(f"[bank] CSG bank: step-0 loss_l1 {l1m}")
+    del st, step, bank
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _dp_runs(dev, inputs: dict, mesh) -> dict:
+    """[dp] every case of DP_CASES for 3 steps from the same state and
+    draws: the single-device steps when `mesh` is None, else the
+    data-parallel steps over it. Per case: losses, launches, the final
+    parameters and codes (on the CPU)."""
+    import dataclasses
+    import torch
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        ExperimentConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.data.device_bank \
+        import DeviceSampleBank
+    from latent_diffusion_models_for_shape_sdfs_torch.parallel import dp
+    from latent_diffusion_models_for_shape_sdfs_torch.train.auto_decoder \
+        import init_ad_state, make_ad_train_step, make_bank_step
+
+    ad3 = ExperimentConfig.load(ROOT / "configs" / "config3_chairs_joint").ad
+    bank = DeviceSampleBank(*(t.to(dev) for t in inputs["bank"]))
+    batches = [tuple(t.to(dev) for t in b) for b in inputs["batches"]]
+    out = {}
+    for route, feed, rate in DP_CASES:
+        c = dataclasses.replace(
+            ad3, num_scenes=64, use_pallas=route == "fused",
+            decoder=dataclasses.replace(ad3.decoder, use_dropout=rate > 0))
+        st = init_ad_state(c, params=inputs["params"], codes=inputs["codes"],
+                           device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(DP_SEED)
+        if feed == "bank":
+            step = (make_bank_step(st.decoder, c, bank, gen) if mesh is None
+                    else dp.make_dp_bank_step(st.decoder, c, mesh, bank, gen))
+        else:
+            step = (make_ad_train_step(st.decoder, c) if mesh is None
+                    else dp.make_dp_ad_train_step(st.decoder, c, mesh))
+        reset_train_launches()
+        losses, grads0 = [], None
+        for i, (ids, xyz, sdf) in enumerate(batches):
+            args = (ids,) if feed == "bank" else (ids, xyz, sdf)
+            m = step(st, *args, 100.0 * (i + 1), 4242 + i)
+            losses.append([m[k] for k in ("loss", "loss_l1", "loss_reg")])
+            if i == 0:      # step 0's (summed) gradients, as Adam took them
+                grads0 = {k: p.grad.detach().cpu()
+                          for k, p in st.decoder.named_parameters()}
+                grads0["codes"] = st.codes.grad.detach().cpu()
+        torch.cuda.synchronize()
+        out[f"{route}/{feed}/{rate}"] = dict(
+            loss=[float(v[0]) for v in losses],
+            terms0=[float(v) for v in losses[0]], grads0=grads0,
+            lr=(c.lr_decoder, c.lr_latent), launches=train_launches(),
+            checksum=(int(dp.state_checksum(st)) if mesh is None
+                      else dp.check_replicas(st, mesh)),
+            params={k: v.detach().cpu()
+                    for k, v in st.decoder.state_dict().items()},
+            codes=st.codes.detach().cpu())
+        del st, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dp_rank(rank: int, port: int, workdir: str) -> None:
+    """[dp] one of two ranks on the one card (a spawned process): a gloo
+    group, then _dp_runs over the 2-rank mesh; results to workdir."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    from latent_diffusion_models_for_shape_sdfs_torch.parallel import (
+        make_mesh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        inputs = torch.load(pathlib.Path(workdir) / "inputs.pt",
+                            weights_only=False)
+        res = _dp_runs(dev, inputs, make_mesh())
+        torch.save(res, pathlib.Path(workdir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dp_compare(ref: dict, got: dict) -> dict:
+    """`got` (2 ranks) against `ref` (one device): step 0's loss terms
+    relative; step 0's summed gradients, each tensor's max |diff| over
+    its max; after the last step, each parameter's and the codes' max
+    |diff| over its max, the share of entries that differ by more than
+    DP_PARAM_TOL of their tensor's max, and the largest |diff| in units
+    of the tensor's Adam lr."""
+    loss0 = max(abs(a - b) / max(abs(a), 1e-30)
+                for a, b in zip(ref["terms0"], got["terms0"]))
+    g0 = {k: float((got["grads0"][k] - v).abs().max())
+          / max(float(v.abs().max()), 1e-30) for k, v in ref["grads0"].items()}
+    after = dict(ref["params"], codes=ref["codes"])
+    mine = dict(got["params"], codes=got["codes"])
+    rel, over, n, in_lr = {}, 0, 0, 0.0
+    for k, v in after.items():
+        d = (mine[k] - v).abs()
+        top = max(float(v.abs().max()), 1e-30)
+        rel[k] = float(d.max()) / top
+        over += int((d > DP_PARAM_TOL * top).sum())
+        n += d.numel()
+        lr = ref["lr"][1] if k == "codes" else ref["lr"][0]
+        in_lr = max(in_lr, float(d.max()) / lr)
+    worst = max(rel, key=rel.get)
+    gworst = max(g0, key=g0.get)
+    return dict(loss0_rel=loss0, grad0_worst=gworst, grad0_rel=g0[gworst],
+                worst=worst, worst_rel=rel[worst], share_over=over / n,
+                max_in_lr=in_lr,
+                loss_rel=max(abs(a - b) / abs(a)
+                             for a, b in zip(ref["loss"], got["loss"])))
+
+
+def dp_phase(dev, card) -> dict:
+    """[dp] data-parallel stage-1 steps (parallel/dp.py) on config 3's ad
+    block at full width, cut to 64 scenes: on both routes, from the host
+    feed and from the bank, 3 steps of two ranks on the one card (gloo)
+    against the single-device steps from the same state and draws (the
+    DP_* tolerances), the ranks equal bit for bit, and a 1-rank NCCL
+    group's steps equal to the single-device steps bit for bit."""
+    import datetime
+    import multiprocessing
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        ExperimentConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.data import (
+        analytic_device as adv)
+    from latent_diffusion_models_for_shape_sdfs_torch.data.sdf_dataset \
+        import SdfDataset
+    from latent_diffusion_models_for_shape_sdfs_torch.parallel import (
+        make_mesh)
+    from latent_diffusion_models_for_shape_sdfs_torch.utils.checkpoint \
+        import load_stage1_pack
+
+    t_phase = time.perf_counter()
+    ad3 = ExperimentConfig.load(ROOT / "configs" / "config3_chairs_joint").ad
+    S, P = ad3.scenes_per_batch, ad3.samples_per_scene
+    sd, codes = load_stage1_pack(ROOT.joinpath(*PACK))
+    shapes = train_split()
+    bank = adv.bank_from_chairs(shapes, 11, BANK_N, device=dev)
+    # the host feed's batches: 3 balanced draws from the bank's rows
+    ds = SdfDataset([bank.pos[i, :bank.pos_count[i]].cpu().numpy()
+                     for i in range(len(shapes))],
+                    [bank.neg[i, :bank.neg_count[i]].cpu().numpy()
+                     for i in range(len(shapes))])
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(3):            # one batch an epoch of 64 scenes
+        b = next(ds.epoch_batches(rng, S, P))
+        batches.append((torch.from_numpy(b.scene_ids.astype(np.int64)),
+                        torch.from_numpy(b.xyz), torch.from_numpy(b.sdf)))
+    # codes of chairs 64-127: a start away from the optimum, where the
+    # batch gradient does not cancel
+    inputs = dict(params=sd, codes=codes[64:128], batches=batches,
+                  bank=tuple(t.cpu() for t in bank))
+    del bank, ds
+    torch.cuda.empty_cache()
+    single = _dp_runs(dev, inputs, None)
+    with tempfile.TemporaryDirectory() as wd:
+        torch.save(inputs, pathlib.Path(wd) / "inputs.pt")
+        port = _free_port()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_dp_rank, args=(r, port, wd))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=600)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+        ranks_s = time.perf_counter() - t0
+        codes_ = [p.exitcode for p in procs]
+        if codes_ != [0, 0]:
+            raise RuntimeError(f"[dp] rank processes exited {codes_}")
+        ranks = [torch.load(pathlib.Path(wd) / f"rank{r}.pt",
+                            weights_only=False) for r in range(2)]
+    # a 1-rank NCCL group in this process
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        nccl1 = _dp_runs(dev, inputs, make_mesh())
+    finally:
+        dist.destroy_process_group()
+    out = dict(cases={}, ranks_s=ranks_s)
+    log(f"[dp] config 3's ad block (8x{ad3.decoder.hidden_dim} bf16, "
+        f"{S} x {P} a step) cut to 64 scenes (chairs 0-63 with the codes of "
+        f"chairs 64-127); two ranks share the one card over gloo, which "
+        f"the phase names itself: NCCL refuses two ranks on one device; "
+        f"dropout off where 2 ranks are held against 1 (each rank folds "
+        f"its rank into the dropout seed, so its masks differ by design)")
+    bad = []
+    for route, feed, rate in DP_CASES:
+        key = f"{route}/{feed}/{rate}"
+        s, r0, r1, one = single[key], ranks[0][key], ranks[1][key], \
+            nccl1[key]
+        replicas = r0["checksum"] == r1["checksum"] and all(
+            torch.equal(r0["params"][k], r1["params"][k])
+            for k in r0["params"]) and torch.equal(r0["codes"], r1["codes"])
+        exact1 = s["loss"] == one["loss"] and s["checksum"] == \
+            one["checksum"] and all(torch.equal(s["params"][k],
+                                                one["params"][k])
+                                    for k in s["params"])
+        rec = dict(loss_single=s["loss"], loss_2rank=r0["loss"],
+                   replicas_equal=replicas, nccl1_bitwise=exact1,
+                   launches_rank0=r0["launches"],
+                   launches_rank1=r1["launches"],
+                   launches_single=s["launches"])
+        if rate == 0:
+            rec.update(_dp_compare(s, r0))
+            ok = (rec["loss0_rel"] <= DP_LOSS_RTOL
+                  and rec["grad0_rel"] <= DP_GRAD_TOL
+                  and rec["loss_rel"] <= DP_LOSS3_RTOL)
+        else:
+            ok = True
+        ok = ok and replicas and exact1
+        if not ok:
+            bad.append(key)
+        out["cases"][key] = rec
+        agree = (f"step-0 loss terms {rec['loss0_rel']:.2e} rel (tol "
+                 f"{DP_LOSS_RTOL}), step-0 gradients worst "
+                 f"{rec['grad0_worst']} {rec['grad0_rel']:.2e} of its max "
+                 f"(tol {DP_GRAD_TOL}); losses of 3 steps "
+                 f"{rec['loss_rel']:.2e} rel (tol {DP_LOSS3_RTOL}); worst "
+                 f"after 3 steps {rec['worst']} {rec['worst_rel']:.2e} of its "
+                 f"max, {100 * rec['share_over']:.4f}% of entries beyond "
+                 f"{DP_PARAM_TOL} of their max, largest diff "
+                 f"{rec['max_in_lr']:.3f} lr" if rate == 0 else
+                 f"losses {[round(v, 6) for v in r0['loss']]} (masks of "
+                 f"rank-folded seeds)")
+        log(f"[dp] {route} route, {feed} feed, dropout {rate}: 2 ranks vs "
+            f"1: {agree}; replicas equal {replicas}; 1-rank NCCL == single "
+            f"device bit for bit {exact1}; launches per rank "
+            f"{r0['launches']} / {r1['launches']} (single "
+            f"{s['launches']})")
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[dp] phase {out['s']:.1f} s (the two ranks {ranks_s:.1f} s) "
+        f"[{card}]")
+    if bad:
+        raise RuntimeError(f"[dp] cases out of tolerance: {bad}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--details", type=pathlib.Path, default=None,
@@ -2207,6 +2768,7 @@ def main() -> int:
     dataset = SdfDataset.from_analytic(train_split(), 20_000, seed=0,
                                        workers=8)
     banks = multicat_banks()
+    store = cli_store()
     details["data_s"] = time.perf_counter() - t0
     for th in threads:
         th.join()
@@ -2700,47 +3262,57 @@ def main() -> int:
     del trained, dataset, xyz_t, xyz_w, sdf_t, ids_t, z_t, z_far
     torch.cuda.empty_cache()
 
-    # ---- phase 8: [pairs] kernel #2 vs its plain version
+    # ---- phase 8: [bank] stage 1 from the on-device sample bank
+    bk = bank_phase(dev, card, train["fused_train"]["ms_per_step"], ms_ft)
+    details["bank"] = bk
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: [dp] data-parallel stage-1 steps, 2 ranks on the card
+    details["dp"] = dp_phase(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: [pairs] kernel #2 vs its plain version
     sd_m, codes_m = load_stage1_pack(ROOT.joinpath(*MULTICAT))
     pr = pairs_phase(dev, card, sd_m, codes_m)
     pairs = pr.pop("pairs")
     details["pairs"] = pr
 
-    # ---- phase 9: [flat] config 4's 64-shape batched decode at 256^3
+    # ---- phase 11: [flat] config 4's 64-shape batched decode at 256^3
     fl = flat_phase(dev, card, pairs, sd_m, codes_m)
     apply1 = fl.pop("apply1")
     details["flat"] = fl
     torch.cuda.empty_cache()
 
-    # ---- phase 10: [train_diff] config 4's stage 2 on the multicat codes
+    # ---- phase 12: [train_diff] config 4's stage 2 on the multicat codes
     td = train_diff_phase(dev, card, codes_m, banks)
     details["train_diff"] = td["out"]
     del banks
     torch.cuda.empty_cache()
 
-    # ---- phase 11: [generate] config 4's generation, trained weights
+    # ---- phase 13: [generate] config 4's generation, trained weights
     details["generate"] = generate_phase(dev, card, pairs, apply1,
                                          td.pop("trained"))
     torch.cuda.empty_cache()
 
-    # ---- phase 12: [unet] config 2-unet's stage 2 on the chair codes
+    # ---- phase 14: [unet] config 2-unet's stage 2 on the chair codes
     un = unet_phase(dev, card)
     details["unet"] = un["out"]
     torch.cuda.empty_cache()
 
-    # ---- phase 13: [recon] reconstruction from observations, 4 modes
+    # ---- phase 15: [recon] reconstruction from observations, 4 modes
     details["recon"] = recon_phase(dev, card, un.pop("trained"))
     torch.cuda.empty_cache()
 
-    # ---- phase 14: [cli] the main path through the CLI
-    details["cli"] = cli_phase(dev, card)
+    # ---- phase 16: [cli] the main path through the CLI
+    details["cli"] = cli_phase(dev, card, store)
+    del store
     torch.cuda.empty_cache()
 
-    # ---- phase 15: [realdata] real meshes in, read-outs on trained weights
+    # ---- phase 17: [realdata] real meshes in, read-outs on trained weights
     rl = realdata_phase(dev, card)
     details["realdata"] = rl
 
-    # ---- phase 16: summary
+    # ---- phase 18: summary
     t512 = drop_t[512]
     kernels = [{
         "name": "fused_decoder_eval",
@@ -2763,7 +3335,7 @@ def main() -> int:
         "replaces": "latent_diffusion_models_for_shape_sdfs_tpu/ops/"
                     "pallas_kernels.py:289",
         "launches": train["relu_dropout"]["launches"]["relu_dropout_fwd"]
-        + rl["launches_k3"],
+        + bk["autograd"]["launches"]["relu_dropout_fwd"] + rl["launches_k3"],
         "max_abs_err": 0.0,
         "ms": t512["fwd"],
         "plain_ms": t512["plain_fwd"],
@@ -2777,6 +3349,7 @@ def main() -> int:
         "replaces": "latent_diffusion_models_for_shape_sdfs_tpu/ops/"
                     "pallas_kernels.py:346",
         "launches": train["relu_dropout"]["launches"]["relu_dropout_bwd"]
+        + bk["autograd"]["launches"]["relu_dropout_bwd"]
         + rl["launches_k3b"],
         "max_abs_err": 0.0,
         "ms": t512["bwd"],
@@ -2790,7 +3363,9 @@ def main() -> int:
         "source": SRC + "fused_train.cu",
         "replaces": "latent_diffusion_models_for_shape_sdfs_tpu/ops/"
                     "fused_train.py:51",
-        "launches": train["fused_train"]["launches"]["fused_train"],
+        "launches": train["fused_train"]["launches"]["fused_train"]
+        + bk["fused"]["launches"]["fused_train"]
+        + bk["launches"]["csg"]["fused_train"],
         "max_abs_err": ft_err,
         "ms": ms_ft,
         "plain_ms": plain_ft,

@@ -32,5 +32,8 @@ and read-outs: `utils.meshio` (readers, winding, vertex normals),
 `utils.image`, latent interpolation, `evaluation.generative` and
 `evaluation.device_metrics` (MMD / COV / 1-NNA over Chamfer and
 Sinkhorn-EMD), and the rest of `ops.grid_eval` (the batched and
-device-resident hierarchical decodes).
+device-resident hierarchical decodes). Stage 1 from the on-device sample
+bank and data parallel: `data.device_bank`, the chair and CSG bank
+producers of `data.analytic_device`, and `parallel` (the data mesh and
+the data-parallel steps over `torch.distributed`).
 """

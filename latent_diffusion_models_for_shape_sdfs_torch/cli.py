@@ -9,7 +9,10 @@ and `preprocess`. Every training and eval command takes an experiment
 directory holding specs.json (write one with `init-experiment`; override
 fields with --set dotted.key=value). `--device` (default cuda) picks the
 device every command runs on; JAX picks its platform from the
-environment instead.
+environment instead. `train-ad` also runs data-parallel under torchrun
+(`torchrun --nproc-per-node N -m latent_diffusion_models_for_shape_sdfs_torch
+train-ad <dir>` with `ad.data_parallel` set): one rank a card over NCCL,
+or `--dist-backend gloo`.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ def cmd_train_ad(args):
     run_train_ad(args.exp_dir, resume=args.resume,
                  fault_inject_epoch=args.fault_inject,
                  debug_nans=args.debug_nans, tensorboard=args.tensorboard,
-                 device=args.device)
+                 device=args.device, dist_backend=args.dist_backend)
     print("stage-1 training complete")
 
 
@@ -314,6 +317,10 @@ def main(argv=None):
                    help="run under torch.autograd.detect_anomaly")
     s.add_argument("--tensorboard", action="store_true",
                    help="not ported (raises)")
+    s.add_argument("--dist-backend", default="nccl", choices=("nccl", "gloo"),
+                   help="torch.distributed backend under torchrun "
+                   "(WORLD_SIZE > 1): nccl for one card a rank (the "
+                   "default), gloo for CPU ranks or ranks sharing a card")
     s.set_defaults(fn=cmd_train_ad)
 
     s = sub.add_parser("train-diff", help="stage-2 diffusion training")

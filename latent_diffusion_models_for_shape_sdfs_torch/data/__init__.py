@@ -1,1 +1,2 @@
-"""Data sources: analytic SDF shapes and the per-scene sample store."""
+"""Data sources: analytic SDF shapes, the per-scene sample store, and the
+device-resident sample bank."""

@@ -8,6 +8,7 @@ computed in float32, the epoch ramp too.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -29,13 +30,15 @@ def code_reg(batch_codes: torch.Tensor, epoch, code_reg_lambda: float = 1e-4,
     """lambda * min(1, epoch/warmup) * sum_i ||z_i|| / num_sdf_samples.
 
     `batch_codes` holds the gathered codes of this step (rows, latent);
-    `squared=True` sums squared norms (the paper form) instead."""
+    `squared=True` sums squared norms (the paper form) instead. The
+    epoch ramp is computed on the host in float32, so a step on the card
+    copies nothing to it."""
     z = batch_codes.float()
     sq = torch.sum(z * z, dim=-1)
     size_loss = torch.sum(sq) if squared else torch.sum(torch.sqrt(sq))
-    e = torch.as_tensor(epoch, dtype=torch.float32, device=z.device)
-    ramp = torch.clamp(e / warmup_epochs, max=1.0)
-    return code_reg_lambda * ramp * size_loss / num_sdf_samples
+    scale = float(np.float32(code_reg_lambda) * np.minimum(
+        np.float32(epoch) / np.float32(warmup_epochs), np.float32(1.0)))
+    return scale * size_loss / num_sdf_samples
 
 
 def eps_mse(eps: torch.Tensor, eps_hat: torch.Tensor) -> torch.Tensor:

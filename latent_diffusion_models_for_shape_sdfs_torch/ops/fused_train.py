@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch.nn import functional as F
@@ -470,12 +470,23 @@ def _detached(ew: EvalWeights) -> EvalWeights:
         for lay in ew.layers), ew.use_tanh, ew.latent_size)
 
 
-def make_fused_ad_loss_grads(decoder: SdfDecoder, cfg: AdConfig
+def make_fused_ad_loss_grads(decoder: SdfDecoder, cfg: AdConfig,
+                             reg_scene_count: Optional[int] = None,
+                             all_reduce: Optional[Callable] = None
                              ) -> Callable:
     """value_and_grads(codes, scene_ids, xyz, sdf, epoch, seed) ->
     (loss, aux): runs the fused pass and leaves the gradients in the
     `.grad` of the decoder's parameters and of `codes` (a dense leaf
-    tensor), as `loss.backward()` does on the autograd route."""
+    tensor), as `loss.backward()` does on the autograd route.
+
+    Data parallelism (parallel/dp.py): `reg_scene_count` normalises the
+    code-reg term (default: the local batch's scene count; a shard passes
+    the global `cfg.scenes_per_batch`; the clamped-L1 term already
+    divides by the global S x P), and `all_reduce(tensors)` sums a list
+    of f32 tensors over the ranks in place. It gets the loss terms, the
+    dense code gradient and the folded-weight gradients, before the
+    fold's chain rounds them to the weights' bf16, so a shard's step
+    rounds the global sum as one device does."""
     if cfg.code_bound not in (0, 0.0):
         raise NotImplementedError(
             "code_bound > 0 under use_pallas: the fused route does not "
@@ -494,6 +505,19 @@ def make_fused_ad_loss_grads(decoder: SdfDecoder, cfg: AdConfig
             z = gather_codes(codes.detach(), scene_ids)
             l1, dz, g_folded = fused_train_loss_grads(
                 _detached(ew), z, xyz, sdf, N, cfg.clamp_dist, rate, seed)
+        with torch.enable_grad():
+            zr = gather_codes(codes, scene_ids)
+            reg = losses.code_reg(zr, epoch, cfg.code_reg_lambda,
+                                  cfg.code_reg_warmup_epochs,
+                                  num_sdf_samples=(reg_scene_count
+                                                   or zr.shape[0]),
+                                  squared=cfg.code_reg_squared)
+            reg.backward()
+        codes.grad.index_add_(0, scene_ids, dz)
+        reg = reg.detach()
+        if all_reduce is not None:
+            all_reduce([l1, reg, codes.grad,
+                        *(gr[k] for gr in g_folded for k in gr)])
         tensors, cotangents = [], []
         for lay, gr in zip(ew.layers, g_folded):
             for k in _KEYS:
@@ -502,15 +526,6 @@ def make_fused_ad_loss_grads(decoder: SdfDecoder, cfg: AdConfig
                     tensors.append(t)
                     cotangents.append(gr[k].to(t.dtype))
         torch.autograd.backward(tensors, cotangents)
-        with torch.enable_grad():
-            zr = gather_codes(codes, scene_ids)
-            reg = losses.code_reg(zr, epoch, cfg.code_reg_lambda,
-                                  cfg.code_reg_warmup_epochs,
-                                  num_sdf_samples=zr.shape[0],
-                                  squared=cfg.code_reg_squared)
-            reg.backward()
-        codes.grad.index_add_(0, scene_ids, dz)
-        loss = l1 + reg.detach()
-        return loss, {"loss_l1": l1, "loss_reg": reg.detach()}
+        return l1 + reg, {"loss_l1": l1, "loss_reg": reg}
 
     return value_and_grads

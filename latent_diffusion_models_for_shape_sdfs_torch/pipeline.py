@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 from typing import Optional
 
 import numpy as np
@@ -80,18 +81,37 @@ def run_train_ad(exp_dir: str, resume: bool = False,
                  dataset: Optional[SdfDataset] = None,
                  fault_inject_epoch: Optional[int] = None,
                  debug_nans: bool = False, tensorboard: bool = False,
-                 device="cuda") -> AdTrainState:
+                 device="cuda", dist_backend: str = "nccl") -> AdTrainState:
     """Stage-1 training with a full-state checkpoint every
     `ad.snapshot_every` epochs and after the last. `resume` continues from
     the latest checkpoint. `fault_inject_epoch`: exit with SystemExit(42)
     right after that epoch's checkpoint (the failure-recovery drill;
     resume with `resume=True`). `debug_nans`: run under
-    torch.autograd.detect_anomaly. `tensorboard`: not ported (raises)."""
+    torch.autograd.detect_anomaly. `tensorboard`: not ported (raises).
+
+    Under `torchrun` (WORLD_SIZE > 1) each process is one rank: it starts
+    the process group from the environment with `dist_backend` (nccl: one
+    card a rank, pinned to cuda:LOCAL_RANK; gloo: any), trains with the
+    data-parallel step when `ad.data_parallel` is set, and at the end
+    checks that every rank holds the same parameters (one all_reduce of
+    a checksum). Only rank 0 writes the log and the checkpoints; every
+    rank reads them on resume."""
+    import torch.distributed as dist
     cfg = ExperimentConfig.load(exp_dir)
     lay = experiment_layout(exp_dir)
-    logger = MetricLogger(lay["logs"] / "train_ad.jsonl", echo=True,
-                          tensorboard=(lay["logs"] / "tb" / "ad")
-                          if tensorboard else None)
+    started = (int(os.environ.get("WORLD_SIZE", "1")) > 1
+               and not dist.is_initialized())
+    if started:
+        from latent_diffusion_models_for_shape_sdfs_torch.parallel.mesh \
+            import init_from_env
+        device = init_from_env(dist_backend, device)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if rank == 0:
+        logger = MetricLogger(lay["logs"] / "train_ad.jsonl", echo=True,
+                              tensorboard=(lay["logs"] / "tb" / "ad")
+                              if tensorboard else None)
+    else:
+        logger = MetricLogger()
     dataset = dataset or build_dataset(cfg)
     dev = resolve_device(device)
     decoder = SdfDecoder(cfg.ad.decoder)
@@ -103,19 +123,29 @@ def run_train_ad(exp_dir: str, resume: bool = False,
         logger.log("resume", stage="auto_decoder", epoch=start_epoch)
 
     def save(epoch, st):
-        ckpt.save(epoch, ad_state_tree(st, epoch))
+        if rank == 0:
+            ckpt.save(epoch, ad_state_tree(st, epoch))
         if fault_inject_epoch is not None and epoch >= fault_inject_epoch:
             logger.log("fault_injected", epoch=epoch)
             raise SystemExit(42)
 
     ctx = (torch.autograd.detect_anomaly(check_nan=True) if debug_nans
            else contextlib.nullcontext())
-    with ctx:
-        _, state, _ = train_auto_decoder(
-            cfg.ad, dataset, logger=logger, decoder=decoder, state=state,
-            start_epoch=start_epoch, checkpoint_fn=save, device=dev)
-    save(cfg.ad.num_epochs - 1, state)
-    logger.close()
+    try:
+        with ctx:
+            _, state, _ = train_auto_decoder(
+                cfg.ad, dataset, logger=logger, decoder=decoder, state=state,
+                start_epoch=start_epoch, checkpoint_fn=save, device=dev)
+        save(cfg.ad.num_epochs - 1, state)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            from latent_diffusion_models_for_shape_sdfs_torch.parallel import (
+                dp, mesh)
+            logger.log("replicas_equal", ranks=dist.get_world_size(),
+                       checksum=dp.check_replicas(state, mesh.make_mesh()))
+    finally:
+        logger.close()
+        if started:
+            dist.destroy_process_group()
     return state
 
 

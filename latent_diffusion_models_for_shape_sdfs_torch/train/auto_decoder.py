@@ -19,10 +19,14 @@ gradient is dense, so untouched rows move through Adam's m/v as in the
 lineage) and one `torch.optim.Adam` with a decoder group and a latent
 group; a step updates them in place.
 
-`data_parallel=True` takes the single-device step when at most one device
-is visible, as the JAX package does; with more than one CUDA device it
-raises NotImplementedError (no `torch.distributed` route yet). Not ported:
-`device_data=True` (the on-device sample bank), which raises.
+Two feeds: the host feed (a producer thread draws each batch's samples
+from the `SdfDataset`) and, with `device_data=True`, the on-device sample
+bank (data/device_bank.py): the host sends only scene ids and the
+balanced draw runs on the device. `data_parallel=True` over an
+initialised `torch.distributed` group of more than one rank takes the
+data-parallel step of parallel/dp.py on either feed and route; without
+a group, or with a group of one rank, it takes the single-device step,
+as the JAX package does on one device.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ import torch
 
 from latent_diffusion_models_for_shape_sdfs_torch import losses
 from latent_diffusion_models_for_shape_sdfs_torch.config import AdConfig
+from latent_diffusion_models_for_shape_sdfs_torch.data.device_bank import (
+    DeviceSampleBank)
 from latent_diffusion_models_for_shape_sdfs_torch.data.sdf_dataset import (
     SdfDataset)
 from latent_diffusion_models_for_shape_sdfs_torch.models.decoder import (
@@ -100,13 +106,19 @@ def pallas_train_ok(cfg: AdConfig) -> bool:
     return bool(cfg.use_pallas)
 
 
-def make_ad_train_step(decoder: SdfDecoder, cfg: AdConfig) -> Callable:
+def make_ad_train_step(decoder: SdfDecoder, cfg: AdConfig,
+                       reg_scene_count: Optional[int] = None,
+                       all_reduce: Optional[Callable] = None) -> Callable:
     """step(state, scene_ids [S], xyz [S,P,3], sdf [S,P], epoch, seed)
     -> metrics (tensors on the state's device). Updates `state` in place.
 
     The loss and gradients come from the fused kernel (ops/fused_train.py)
     when `cfg.use_pallas`, else from autograd; either leaves them in
-    `.grad`, and one Adam update follows."""
+    `.grad`, and one Adam update follows. For a data-parallel shard
+    (parallel/dp.py): `reg_scene_count` normalises the code-reg term
+    (default: the local batch's scene count; a shard passes the global
+    `cfg.scenes_per_batch`), and `all_reduce(tensors)` sums the loss
+    terms and the gradients over the ranks in place before the update."""
     S, P = cfg.scenes_per_batch, cfg.samples_per_scene
     num_sdf_samples = S * P
 
@@ -121,17 +133,21 @@ def make_ad_train_step(decoder: SdfDecoder, cfg: AdConfig) -> Callable:
         # equal samples per scene that is the sum over scenes / S
         reg = losses.code_reg(z, epoch, cfg.code_reg_lambda,
                               cfg.code_reg_warmup_epochs,
-                              num_sdf_samples=z.shape[0],
+                              num_sdf_samples=reg_scene_count or z.shape[0],
                               squared=cfg.code_reg_squared)
-        loss = l1 + reg
-        loss.backward()
-        return loss.detach(), {"loss_l1": l1.detach(),
-                               "loss_reg": reg.detach()}
+        (l1 + reg).backward()
+        l1, reg = l1.detach(), reg.detach()
+        if all_reduce is not None:
+            all_reduce([l1, reg, codes.grad,
+                        *(p.grad for p in decoder.parameters())])
+        return l1 + reg, {"loss_l1": l1, "loss_reg": reg}
 
     if pallas_train_ok(cfg):
         from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_train \
             import make_fused_ad_loss_grads
-        value_and_grads = make_fused_ad_loss_grads(decoder, cfg)
+        value_and_grads = make_fused_ad_loss_grads(decoder, cfg,
+                                                   reg_scene_count,
+                                                   all_reduce)
     else:
         value_and_grads = autograd_value_and_grads
 
@@ -159,44 +175,99 @@ def make_ad_train_step(decoder: SdfDecoder, cfg: AdConfig) -> Callable:
     return step
 
 
-def train_auto_decoder(cfg: AdConfig, dataset: SdfDataset,
+def make_bank_step(decoder: SdfDecoder, cfg: AdConfig,
+                   bank: DeviceSampleBank,
+                   generator: torch.Generator) -> Callable:
+    """bank_step(state, scene_ids [S], epoch, seed) -> metrics: the
+    balanced draw from `bank` (uniforms from `generator`, on the bank's
+    device), then make_ad_train_step's step on either route."""
+    step = make_ad_train_step(decoder, cfg)
+    P = cfg.samples_per_scene
+
+    def bank_step(state: AdTrainState, scene_ids, epoch, seed: int):
+        xyz, sdf = bank.sample_batch(generator, scene_ids, P)
+        return step(state, scene_ids, xyz, sdf, epoch, seed)
+
+    return bank_step
+
+
+def _dp_mesh(cfg: AdConfig):
+    """The data mesh when `cfg.data_parallel` and an initialised
+    torch.distributed group has more than one rank, else None."""
+    if not cfg.data_parallel:
+        return None
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return None
+    from latent_diffusion_models_for_shape_sdfs_torch.parallel.mesh import (
+        make_mesh)
+    return make_mesh()
+
+
+def train_auto_decoder(cfg: AdConfig, dataset: Optional[SdfDataset] = None,
                        logger: Optional[MetricLogger] = None,
                        decoder: Optional[SdfDecoder] = None,
                        state: Optional[AdTrainState] = None,
                        start_epoch: int = 0,
                        checkpoint_fn: Optional[Callable] = None,
                        on_step: Optional[Callable] = None,
-                       device="cuda") -> tuple:
+                       device="cuda",
+                       bank: Optional[DeviceSampleBank] = None) -> tuple:
     """Full stage-1 loop. Returns (decoder, final AdTrainState, metrics).
 
-    A producer thread draws each epoch's batches with
+    A producer thread makes each epoch's batches with
     `np.random.default_rng(cfg.seed + 1)` (the JAX package's batch
     stream) and puts them, as pinned host tensors on a card, into a queue
     of depth 2; the loop copies each batch host -> device with
     `non_blocking=True` and keeps its host tensors alive until that copy's
-    event has fired. xyz travels as bf16 when `use_pallas` or bf16
-    compute is set (the decoder rounds it to bf16 anyway), else as f32.
-    Dropout seeds come from `np.random.default_rng((cfg.seed, 2))`.
+    event has fired. On the host feed a batch is the dataset's balanced
+    draw; xyz travels as bf16 when `use_pallas` or bf16 compute is set
+    (the decoder rounds it to bf16 anyway), else as f32. With
+    `cfg.device_data` a batch is only its scene ids (each epoch a
+    permutation in `scenes_per_batch` slices, the last padded from a
+    fresh permutation) and the draw runs on the device from a
+    `torch.Generator` there seeded with `cfg.seed`; `bank` (a prebuilt
+    DeviceSampleBank, e.g. from data/analytic_device.py) then makes
+    `dataset` optional, else the bank is uploaded from `dataset`. The
+    host reads nothing back between steps. Dropout seeds come from
+    `np.random.default_rng((cfg.seed, 2))`.
 
     `checkpoint_fn(epoch, state)` runs every `cfg.snapshot_every` epochs
     and after the last; `on_step(step, epoch, metrics)` after every step;
     `logger` gets an `ad_epoch` record every 10 epochs and after the last.
     """
-    if cfg.device_data:
-        raise NotImplementedError("device_data=True (the on-device sample "
-                                  "bank) is not ported")
     dev = resolve_device(device)
-    if (cfg.data_parallel and dev.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError("data_parallel=True over more than one "
-                                  "device is not ported")
-    if len(dataset) != cfg.num_scenes:
-        raise ValueError(f"dataset has {len(dataset)} scenes, config says "
-                         f"{cfg.num_scenes}")
+    if dataset is not None:
+        if len(dataset) != cfg.num_scenes:
+            raise ValueError(f"dataset has {len(dataset)} scenes, config "
+                             f"says {cfg.num_scenes}")
+    elif bank is None or not cfg.device_data:
+        raise ValueError("dataset=None needs a prebuilt bank and "
+                         "cfg.device_data")
+    if not cfg.device_data:
+        bank = None
+    elif bank is None:
+        bank = DeviceSampleBank.from_dataset(dataset, device=dev)
+    if bank is not None and (bank.pos.shape[0] != cfg.num_scenes
+                             or bank.pos.device != dev):
+        raise ValueError(f"bank of {bank.pos.shape[0]} scenes on "
+                         f"{bank.pos.device}; config says {cfg.num_scenes} "
+                         f"scenes on {dev}")
     if state is None:
         state = init_ad_state(cfg, decoder, seed=cfg.seed, device=dev)
     decoder = state.decoder
-    step_fn = make_ad_train_step(decoder, cfg)
+    mesh = _dp_mesh(cfg)
+    if mesh is not None:
+        from latent_diffusion_models_for_shape_sdfs_torch.parallel import dp
+    if bank is not None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(cfg.seed))
+        step_fn = (make_bank_step(decoder, cfg, bank, gen) if mesh is None
+                   else dp.make_dp_bank_step(decoder, cfg, mesh, bank, gen))
+    else:
+        step_fn = (make_ad_train_step(decoder, cfg) if mesh is None
+                   else dp.make_dp_ad_train_step(decoder, cfg, mesh))
     logger = logger or MetricLogger()
     rng = np.random.default_rng(cfg.seed + 1)
     seed_rng = np.random.default_rng((cfg.seed, 2))
@@ -205,18 +276,31 @@ def train_auto_decoder(cfg: AdConfig, dataset: SdfDataset,
                 else torch.float32)
     pin = dev.type == "cuda"
 
-    def to_host(batch):
-        t = (torch.from_numpy(batch.scene_ids.astype(np.int64)),
-             torch.from_numpy(batch.xyz).to(xyz_wire),
-             torch.from_numpy(batch.sdf))
+    def to_host(*t):
         return tuple(x.pin_memory() for x in t) if pin else t
+
+    def batches(epoch):
+        if bank is None:
+            for b in dataset.epoch_batches(rng, cfg.scenes_per_batch,
+                                           cfg.samples_per_scene):
+                yield to_host(torch.from_numpy(b.scene_ids.astype(np.int64)),
+                              torch.from_numpy(b.xyz).to(xyz_wire),
+                              torch.from_numpy(b.sdf))
+            return
+        n, spb = cfg.num_scenes, cfg.scenes_per_batch
+        order = rng.permutation(n)
+        for start in range(0, n, spb):
+            ids = order[start:start + spb]
+            if len(ids) < spb:
+                pad = rng.permutation(n)[:spb - len(ids)]
+                ids = np.concatenate([ids, pad])
+            yield to_host(torch.from_numpy(ids.astype(np.int64)))
 
     def producer(q, epochs):
         try:
             for epoch in epochs:
-                for batch in dataset.epoch_batches(rng, cfg.scenes_per_batch,
-                                                   cfg.samples_per_scene):
-                    q.put((epoch, to_host(batch)))
+                for host in batches(epoch):
+                    q.put((epoch, host))
         except BaseException as e:     # re-raised by the consumer
             q.put(e)
         finally:
@@ -255,7 +339,7 @@ def train_auto_decoder(cfg: AdConfig, dataset: SdfDataset,
         epoch, host = item
         if saw_batch and epoch != cur_epoch:
             on_epoch_end(cur_epoch)
-        ids, xyz, sdf = (x.to(dev, non_blocking=pin) for x in host)
+        on_dev = [x.to(dev, non_blocking=pin) for x in host]
         if pin:
             ev = torch.cuda.Event()
             ev.record()
@@ -263,7 +347,10 @@ def train_auto_decoder(cfg: AdConfig, dataset: SdfDataset,
             while in_flight and in_flight[0][0].query():
                 in_flight.popleft()
         seed = int(seed_rng.integers(0, 2 ** 31 - 1))
-        last_metrics = step_fn(state, ids, xyz, sdf, epoch, seed)
+        if bank is None:
+            last_metrics = step_fn(state, *on_dev, epoch, seed)
+        else:
+            last_metrics = step_fn(state, on_dev[0], epoch, seed)
         if on_step is not None:
             on_step(steps_done, epoch, last_metrics)
         steps_done += 1

@@ -1018,6 +1018,82 @@ def test_batched_decode_through_kernel_matches_single_shapes(cuda):
         assert st1["active_l3"] == st["active_l3"][i] > 0
 
 
+def _bank_setup(cuda, route):
+    """A chair bank built on the card and a small stage-1 state on it."""
+    from latent_diffusion_models_for_shape_sdfs_torch.config import AdConfig
+    from latent_diffusion_models_for_shape_sdfs_torch.data import (
+        analytic, analytic_device as adv)
+    from latent_diffusion_models_for_shape_sdfs_torch.train import (
+        auto_decoder as tad)
+    shapes = analytic.make_synthetic_split("chair", 8, seed=11)
+    bank = adv.bank_from_chairs(shapes, 11, 4096, chunk=4, device=cuda)
+    cfg = AdConfig(decoder=DecoderConfig(**{
+        **PLANS["small"], "use_dropout": True, "dropout_prob": 0.2,
+        "dropout_impl": "pallas", "compute_dtype": "bfloat16"}),
+        num_scenes=8, scenes_per_batch=4, samples_per_scene=1024,
+        device_data=True, use_pallas=route == "fused")
+    st = tad.init_ad_state(cfg, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    return shapes, bank, cfg, st, gen
+
+
+def test_chair_bank_on_card(cuda):
+    """bank_from_chairs on the card: labels equal chair_sdf of the rows on
+    the card and the host SDF to 3e-6; each side's counted rows have its
+    sign; gather on the card equals gather on the CPU bit for bit for the
+    same uniforms."""
+    from latent_diffusion_models_for_shape_sdfs_torch.data import (
+        analytic, analytic_device as adv)
+    from latent_diffusion_models_for_shape_sdfs_torch.data.device_bank import (
+        DeviceSampleBank)
+    shapes, bank, *_ = _bank_setup(cuda, "fused")
+    params = adv.pack_chairs(shapes, device=cuda)
+    assert torch.equal(adv.chair_sdf(params, bank.pos[..., :3]),
+                       bank.pos[..., 3])
+    for i, s in enumerate(shapes):
+        pc, nc = int(bank.pos_count[i]), int(bank.neg_count[i])
+        assert pc + nc == 4096
+        assert bool((bank.pos[i, :pc, 3] >= 0).all())
+        assert bool((bank.neg[i, :nc, 3] < 0).all())
+        rows = bank.pos[i].cpu().numpy()
+        np.testing.assert_allclose(rows[:, 3], analytic.sdf(s, rows[:, :3]),
+                                   atol=3e-6, rtol=0)
+    ids = torch.tensor([3, 0, 7, 3], device=cuda)
+    u1, u2 = bank.uniforms(torch.Generator(device=cuda).manual_seed(0), 4,
+                           1000)
+    on_card = bank.gather(ids, u1, u2)
+    host = DeviceSampleBank(*(t.cpu() for t in bank))
+    on_cpu = host.gather(ids.cpu(), u1.cpu(), u2.cpu())
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("route", ["fused", "autograd"])
+def test_bank_step_waits_on_nothing(route, cuda):
+    """A bank step (the draw on the card, then either kernel route and
+    Adam) under set_sync_debug_mode("error"): no host sync; the kernels
+    launch (#4 on the fused route, #3/#3b on the autograd one)."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        fused_train as ft, relu_dropout as rd)
+    from latent_diffusion_models_for_shape_sdfs_torch.train import (
+        auto_decoder as tad)
+    _, bank, cfg, st, gen = _bank_setup(cuda, route)
+    step = tad.make_bank_step(st.decoder, cfg, bank, gen)
+    ids = torch.tensor([[1, 5, 2, 6], [0, 3, 7, 4]], device=cuda)
+    step(st, ids[0], 0.0, 1)
+    before = (ft.LAUNCHES["fused_train"], rd.LAUNCHES["relu_dropout_fwd"])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = step(st, ids[1], 1.0, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(m["loss"]))
+    after = (ft.LAUNCHES["fused_train"], rd.LAUNCHES["relu_dropout_fwd"])
+    assert (after[0] > before[0]) == (route == "fused")
+    assert (after[1] > before[1]) == (route == "autograd")
+
+
 def test_recon_capture_failure_raises(cuda):
     """A step that cannot be captured (a prior that reads a value on the
     host) raises; the run does not fall back to the eager loop. Last in

@@ -295,17 +295,14 @@ def test_train_loop_logs_checkpoints_and_learns(tmp_path):
             device="cpu")
 
 
-@pytest.mark.parametrize("opt", ["device_data", "data_parallel"])
+@pytest.mark.parametrize("opt", ["data_parallel"])
 def test_unported_options_raise(opt, monkeypatch):
-    """device_data raises. data_parallel on one device takes the
-    single-device step, as the JAX package does: the same trajectory bit
-    for bit as data_parallel=False; it raises only with more than one
-    CUDA device."""
-    if opt == "device_data":
-        with pytest.raises(NotImplementedError, match=opt):
-            tad.train_auto_decoder(_loop_cfg(device_data=True), None,
-                                   device="cpu")
-        return
+    """data_parallel without an initialised torch.distributed group takes
+    the single-device step, as the JAX package does on one device: the
+    same trajectory bit for bit as data_parallel=False, also with more
+    than one CUDA device visible (the data-parallel step runs over a
+    group: tests/test_torch_dp.py). device_data no longer raises: its
+    route is held in tests/test_torch_device_bank.py."""
     ds = SdfDataset.from_analytic(analytic.make_synthetic_split(
         "sphere", 3, seed=0), 2000, workers=1)
     runs = []
@@ -322,11 +319,8 @@ def test_unported_options_raise(opt, monkeypatch):
     sd1 = s1.decoder.state_dict()
     for k, v in s0.decoder.state_dict().items():
         assert torch.equal(v, sd1[k]), k
-    monkeypatch.setattr(tad, "resolve_device",
-                        lambda device: torch.device("cuda", 0))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="data_parallel"):
-        tad.train_auto_decoder(_loop_cfg(data_parallel=True), ds)
+    assert tad._dp_mesh(_loop_cfg(data_parallel=True)) is None
 
 
 def test_unported_fused_options_raise():
