@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check, serve,
 train (from the host feed and the on-device bank, on one and on two
-ranks), generate, reconstruct, real meshes in, renders and metrics out.
+ranks), decode on two ranks, generate, export, reconstruct, real meshes
+in, renders and metrics out.
 
     python3 chip_smoke.py [--details PATH]
 
@@ -66,6 +67,14 @@ before CUDA is), then:
      the ranks equal bit for bit, a 1-rank NCCL group's steps equal to
      the single-device steps bit for bit, and with dropout 0.2 the
      launches of #4 and #3/#3b per rank;
+     then the decode half of parallel/dp.py in the same ranks (and the
+     1-rank NCCL group) against its single-device counterparts, bit for
+     bit: serve_meshes_sharded of 8 trained chairs at 256^3,
+     make_dp_sparse_decode_fn's payloads, decode_points_sharded at
+     2^20+131 points, decode_grid_sharded at 128^3, make_dp_pairs_fn
+     under the flat decode of 8 multicat shapes at 128^3 (kernels #1
+     and #2); dp_ddim_sample of 64 config-4 latents within 1e-5 of
+     max|z| of ddim_sample;
  10. [pairs] holds the per-point-latent eval kernel (#2) against its plain
      version (bf16 fast_apply over codes[sids]) on the committed multicat
      decoder with rows of 64 codes read by shuffled shape ids at 2^19 and
@@ -94,6 +103,17 @@ before CUDA is), then:
      (CFG 2.0, DDIM-50 and DPM-10; same seed, same latents), decodes them
      through the flat decode (at least one must have a surface) and two
      through generate_meshes;
+ 13b. [export] the serving artifacts through the CLI verbs on config 4's
+     specs: export-decoder at config 5's 512^3 with the default caps,
+     reloaded from its bytes; [generate]'s 64 latents through it, each
+     payload bit-equal to the live decode (kernel #1's launches per call
+     counted by its op), 8 meshes bit-equal to serve_meshes's, cut caps
+     raising CapacityExceeded; config 5's sample decode (serve_meshes of
+     the 64 latents at 512^3: ms a mesh, faces, escalations, caps, peak
+     card memory; every grid with both signs meshes non-empty);
+     export-sampler of [train_diff]'s EMA, DDIM-50 and DPM-10, each equal
+     to the eager sampler from the same z_T bit for bit, with the export
+     and load seconds, bytes and ms beside the eager sampler's;
  14. [unet] trains config 2-unet's stage 2 (the 1-D conv UNet, batch 256)
      on the 6,144 committed chair codes: one chunk eager == graphed bit for
      bit (two chunks), ms a step of each, one traced graphed chunk, 10,000
@@ -947,7 +967,296 @@ def generate_phase(dev, card, pairs, apply1, trained) -> dict:
     out.update(flat_caps=caps, surfaced=surfaced, raw_surfaced=raw_surfaced,
                flat_actives=[st["active_l1"], st["active_l2"],
                              st["active_l3"]],
-               meshes=[(len(v), len(f)) for v, f, _ in meshes])
+               meshes=[(len(v), len(f)) for v, f, _ in meshes],
+               latents=unnormalize_codes(z_ddim, mu, sigma))
+    return out
+
+
+EXPORT_RES = 512             # config 5's sample.grid_res
+EXPORT_MESHES = 8            # artifact meshes held against serve_meshes
+EXPORT_CLASS = 3             # export-sampler --class-id
+
+
+def _both_signs(arrs, n1: int, n2: int, res: int, dq) -> bool:
+    """Whether the grid a v2 payload reconstructs holds both signs: the
+    b2 fill of the blocks without fine rows, and the fine rows."""
+    import numpy as np
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.grid_eval import (
+        _sparse2_dequant, sparse2_fill2)
+    c1, c2, i1, v2, i2 = (a.cpu().numpy() for a in arrs)
+    fill2 = sparse2_fill2(c1, c2, i1, n1, res, 16, 4, dq)
+    keep = np.ones(fill2.shape[0], bool)
+    keep[i2[:n2]] = False
+    vals = np.concatenate([fill2[keep],
+                           _sparse2_dequant(v2[:n2], dq).reshape(-1)])
+    return bool((vals < 0).any() and (vals > 0).any())
+
+
+def export_phase(dev, card, apply1, sd_m, codes_m, trained,
+                 latents) -> dict:
+    """[export] the serving artifacts on the card, through the CLI verbs
+    on an experiment of config 4's specs holding the committed multicat
+    decoder (configs 4 and 5) and [train_diff]'s stage 2:
+    export-decoder at config 5's 512^3 with _default_caps(512), reloaded
+    from its bytes and held against the live decode of [generate]'s 64
+    latents (payloads bit for bit, kernel #1's launches per call counted
+    by its op) and against serve_meshes (8 meshes bit for bit); an
+    artifact with cut caps raising CapacityExceeded; config 5's sample
+    decode (serve_meshes of the 64 latents at 512^3, int8, as
+    pipeline._decode_latents_to_meshes runs it) with its ms a mesh,
+    faces, escalations, caps and peak card memory; export-sampler of the
+    EMA (CFG 2.0, one class, 64 latents), DDIM-50 and DPM-10, each equal
+    to the eager sampler from the same z_T bit for bit."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from latent_diffusion_models_for_shape_sdfs_torch import cli
+    from latent_diffusion_models_for_shape_sdfs_torch import (
+        export_artifact as ea)
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        ExperimentConfig, override)
+    from latent_diffusion_models_for_shape_sdfs_torch.diffusion.sampler import (
+        ddim_sample, dpm_solver_sample, guided_denoise_fn)
+    from latent_diffusion_models_for_shape_sdfs_torch.diffusion.schedule import (
+        DiffusionSchedule)
+    from latent_diffusion_models_for_shape_sdfs_torch.models.denoiser import (
+        CondDenoiser)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        cuda_kernels as ck)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.grid_eval import (
+        decode_grid_hierarchical3_sparse2, hier3_int8_scale)
+    from latent_diffusion_models_for_shape_sdfs_torch.serve import (
+        _default_caps, serve_meshes)
+    from latent_diffusion_models_for_shape_sdfs_torch.train.auto_decoder \
+        import init_ad_state
+    from latent_diffusion_models_for_shape_sdfs_torch.utils.checkpoint \
+        import StageCheckpointer, ad_state_tree, diff_state_tree
+
+    t_phase = time.perf_counter()
+    res = EXPORT_RES
+    caps = _default_caps(res)
+    kw = dict(safety=1.2, safety3=2.0, out_dtype="int8")
+    dq = hier3_int8_scale(res, 4, kw["safety"])
+    state, mu, sigma = trained
+    lat = list(latents)
+    out: dict = {"res": res, "caps": list(caps)}
+
+    def run_cli(*argv):
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            cli.main(["--device", str(dev), *map(str, argv)])
+        return text.getvalue()
+
+    with tempfile.TemporaryDirectory() as td:
+        exp = pathlib.Path(td) / "config4_export"
+        c4 = ExperimentConfig.load(ROOT / "configs" / "config4_conditional")
+        override(c4, **{"ad.num_scenes": len(codes_m)}).save(exp)
+        cfg = ExperimentConfig.load(exp)
+        ad = init_ad_state(cfg.ad, params=sd_m, codes=codes_m, device=dev)
+        StageCheckpointer(exp, "auto_decoder").save(0, ad_state_tree(ad, 0))
+        StageCheckpointer(exp, "diffusion").save(
+            state.step, diff_state_tree(state, mu, sigma))
+        del ad
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_cli("export-decoder", exp, "--res", res)
+        out["export_s"] = time.perf_counter() - t0
+        blob = (exp / f"decoder_{res}.zip").read_bytes()
+        t0 = time.perf_counter()
+        art = ea.load_decode_program(blob)
+        out["load_s"] = time.perf_counter() - t0
+        out["artifact_bytes"] = len(blob)
+        if art.meta["platforms"] != ["cuda"] or art.meta["res"] != res or \
+                [art.meta[k] for k in ("cap1", "cap2", "cap3")] != list(caps):
+            raise RuntimeError(f"[export] artifact meta {art.meta}")
+
+        # every latent: the artifact's payload == the live decode's
+        fits, signs, per_call = [], [], []
+        for i, z in enumerate(lat):
+            arrs, st = decode_grid_hierarchical3_sparse2(
+                apply1, z, res, 16, 4, 2, *caps, check_overflow=True, **kw)
+            n0 = ck.LAUNCHES["fused_eval"]
+            got = art.payload(z)
+            torch.cuda.synchronize()
+            per_call.append(ck.LAUNCHES["fused_eval"] - n0)
+            counts = [st["active_l1"], st["active_l2"], st["active_l3"]]
+            same = (all(torch.equal(a, b) for a, b in zip(got[:5], arrs))
+                    and [int(x) for x in got[5:]] == counts)
+            if not same:
+                raise RuntimeError(f"[export] latent {i}: artifact payload "
+                                   f"differs from the live decode")
+            if not st["capacity_exceeded"]:
+                fits.append(i)
+                signs.append((i, _both_signs(arrs, counts[0], counts[1],
+                                             res, dq)))
+            del arrs, got
+        if min(per_call) < 1:
+            raise RuntimeError(f"[export] kernel #1 launches per artifact "
+                               f"call {per_call}")
+        out.update(launches_per_call=per_call[0],
+                   launches=int(sum(per_call)), fits=len(fits))
+
+        def timed(fn):
+            fn(lat[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for z in lat:
+                fn(z)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / len(lat) * 1e3
+
+        out["artifact_ms"] = timed(art.payload)
+        out["live_ms"] = timed(lambda z: decode_grid_hierarchical3_sparse2(
+            apply1, z, res, 16, 4, 2, *caps, check_overflow=False, **kw))
+        log(f"[export] export-decoder --res {res} (caps {caps}): "
+            f"{out['export_s']:.2f} s, {len(blob)} bytes, reloaded from its "
+            f"bytes in {out['load_s']:.2f} s; {len(lat)} generated latents: "
+            f"payloads and counts bit-equal to the live decode, kernel #1 "
+            f"{per_call[0]} launches per artifact call (counted by the op); "
+            f"{out['artifact_ms']:.2f} ms a latent through the artifact, "
+            f"{out['live_ms']:.2f} live; {len(fits)} of {len(lat)} within "
+            f"the caps [{card}]")
+
+        # meshes: the artifact's against serve_meshes's
+        pick = fits[:EXPORT_MESHES]
+        if len(pick) < EXPORT_MESHES:
+            raise RuntimeError(f"[export] only {len(fits)} latents fit the "
+                               "default caps")
+        live_m = list(serve_meshes(apply1, [lat[i] for i in pick], res=res))
+        for i, (v, f, _) in zip(pick, live_m):
+            va, fa = art.mesh(lat[i])
+            if not (np.array_equal(va, v) and np.array_equal(fa, f)):
+                raise RuntimeError(f"[export] latent {i}: artifact mesh "
+                                   "differs from serve_meshes's")
+        del live_m
+        small = (caps[0] // 32, caps[1] // 32, caps[2] // 32)
+        cut = ea.load_decode_program(ea.export_decode_program(
+            apply1, apply1.ew.latent_size, res, small, device=dev))
+        try:
+            cut.grid(lat[0])
+            raised = False
+        except ea.CapacityExceeded:
+            raised = True
+        log(f"[export] {len(pick)} artifact meshes bit-equal to "
+            f"serve_meshes's; caps cut to {small}: CapacityExceeded "
+            f"{raised}")
+        if not raised:
+            raise RuntimeError("[export] cut caps did not raise")
+        del cut, art
+
+        # config 5's sample decode: 64 latents at 512^3, int8 payload
+        cfg5 = ExperimentConfig.load(ROOT / "configs" / "config5_multicat_dp")
+        payload = ("float32" if cfg5.ad.decoder.compute_dtype == "float32"
+                   else "int8")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        n0 = apply1.launches
+        t0 = time.perf_counter()
+        meshes = list(serve_meshes(apply1, lat, res=cfg5.sample.grid_res,
+                                   iso=cfg5.sample.iso_level,
+                                   out_dtype=payload, device=dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        faces = [len(f) for _, f, _ in meshes]
+        esc = [st["escalations"] for _, _, st in meshes]
+        final = [(st["cap1"], st["cap2"], st["cap3"]) for _, _, st in meshes
+                 if st["escalations"]]
+        for i, (_, _, st) in enumerate(meshes):
+            if st["escalations"]:     # its grid at the caps it ended with
+                arrs, st2 = decode_grid_hierarchical3_sparse2(
+                    apply1, lat[i], res, 16, 4, 2, st["cap1"], st["cap2"],
+                    st["cap3"], check_overflow=True, **kw)
+                signs.append((i, _both_signs(arrs, st2["active_l1"],
+                                             st2["active_l2"], res, dq)))
+        empty = [i for i, both in signs if both and faces[i] == 0]
+        out["config5"] = dict(
+            ms_per_mesh=wall / len(lat) * 1e3, faces=faces,
+            escalations=esc, escalated_caps=final, peak_bytes=peak,
+            launches=apply1.launches - n0, payload=payload,
+            both_signs=sum(b for _, b in signs), empty_with_both=empty,
+            capacity_exceeded=sum(st["capacity_exceeded"]
+                                  for _, _, st in meshes))
+        c5 = out["config5"]
+        log(f"[export] config 5's sample decode (serve_meshes of the "
+            f"{len(lat)} latents at {cfg5.sample.grid_res}^3, {payload}): "
+            f"{c5['ms_per_mesh']:.1f} ms a mesh, faces median "
+            f"{int(np.median(faces))} (max {max(faces)}), escalations "
+            f"{sum(1 for e in esc if e)} shapes (caps {caps} -> "
+            f"{sorted(set(final))}), still over caps "
+            f"{c5['capacity_exceeded']}; peak card memory "
+            f"{peak / 2 ** 30:.3f} GiB; {c5['launches']} kernel #1 "
+            f"launches; {c5['both_signs']} grids with both signs, empty "
+            f"meshes among them {empty} [{card}]")
+        if empty or c5["capacity_exceeded"] or c5["launches"] < 1:
+            raise RuntimeError(f"[export] config 5's decode: {c5}")
+        out["launches"] += c5["launches"]
+        del meshes
+
+        # the sampler artifacts from the EMA
+        model = CondDenoiser(cfg.diff.denoiser).to(dev)
+        model.load_state_dict(state.ema)
+        model.eval()
+        sched = DiffusionSchedule.create(cfg.diff.timesteps,
+                                         cfg.diff.beta_start,
+                                         cfg.diff.beta_end, device=dev)
+        n = len(lat)
+        L = cfg.diff.denoiser.latent_size
+        fn = guided_denoise_fn(model, cfg.sample.guidance_scale,
+                               class_id=torch.full((n,), EXPORT_CLASS,
+                                                   device=dev))
+        z_T = torch.randn(n, L, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        out["sampler"] = {}
+        for name, steps, live_fn in (("ddim", cfg.sample.ddim_steps,
+                                      ddim_sample),
+                                     ("dpm", cfg.sample.dpm_steps,
+                                      dpm_solver_sample)):
+            path = exp / f"sampler_{name}{steps}.zip"
+            t0 = time.perf_counter()
+            run_cli("export-sampler", exp, "--num", n, "--steps", steps,
+                    "--sampler", name, "--class-id", EXPORT_CLASS)
+            t_exp = time.perf_counter() - t0
+            blob = path.read_bytes()
+            t0 = time.perf_counter()
+            sart = ea.load_sampler_program(blob)
+            t_load = time.perf_counter() - t0
+            got = sart.sample(z_T)
+            want = (live_fn(fn, sched, None, n, L, steps=steps, z_init=z_T)
+                    * sigma + mu).cpu().numpy()
+            same = np.array_equal(got, want)
+
+            def ms(f):
+                f()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f()
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3
+
+            rec = dict(export_s=t_exp, load_s=t_load, bytes=len(blob),
+                       bitwise=same,
+                       max_diff=float(np.abs(got - want).max()),
+                       z_abs_max=float(np.abs(want).max()),
+                       ms=ms(lambda: sart.sample(z_T)),
+                       eager_ms=ms(lambda: live_fn(
+                           fn, sched, None, n, L, steps=steps,
+                           z_init=z_T).cpu()))
+            out["sampler"][name] = rec
+            log(f"[export] export-sampler {name.upper()}-{steps} (CFG "
+                f"{cfg.sample.guidance_scale}, class {EXPORT_CLASS}, {n} "
+                f"latents, EMA of [train_diff]): {t_exp:.2f} s, "
+                f"{len(blob)} bytes, loaded in {t_load:.2f} s; sample(z_T) "
+                f"== the eager sampler from the same z_T, unnormalized, bit "
+                f"for bit: {same} (max diff {rec['max_diff']:.3e}); "
+                f"{rec['ms']:.1f} ms through the artifact, "
+                f"{rec['eager_ms']:.1f} eager [{card}]")
+            if not same:
+                raise RuntimeError(f"[export] {name} artifact differs from "
+                                   f"the eager sampler: {rec}")
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[export] phase {out['s']:.1f} s [{card}]")
     return out
 
 
@@ -2503,6 +2812,149 @@ def _dp_runs(dev, inputs: dict, mesh) -> dict:
     return out
 
 
+DP_DECODE_RES = 256       # serve_meshes_sharded, the sparse decode
+DP_GRID_RES = 128         # decode_grid_sharded, the flat decode
+DP_POINTS = (1 << 20) + 131
+DP_DDIM_TOL = 1e-5        # dp_ddim_sample vs ddim_sample, of max|z|
+
+
+def _digest(*arrays) -> str:
+    """SHA-256 of arrays' dtypes, shapes and bytes (tensors or numpy): two
+    results are bit-equal when their digests are."""
+    import hashlib
+    import numpy as np
+    import torch
+    h = hashlib.sha256()
+    for a in arrays:
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu().contiguous()
+            h.update(f"{a.dtype}{tuple(a.shape)}".encode())
+            h.update(a.reshape(-1).view(torch.uint8).numpy().tobytes())
+        else:
+            a = np.ascontiguousarray(a)
+            h.update(f"{a.dtype}{a.shape}".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _dp_decode_runs(dev, mesh) -> dict:
+    """[dp] the decode half of parallel/dp.py over `mesh`, or with `mesh`
+    None its single-device counterparts: serve_meshes_sharded (vs
+    serve_meshes) of 8 trained chairs at 256^3, make_dp_sparse_decode_fn
+    (vs the per-shape decode) of the same chairs, decode_points_sharded
+    at 2^20+131 points (vs one KernelApply call), decode_grid_sharded at
+    128^3 (vs decode_grid), make_dp_pairs_fn under the flat decode of 8
+    multicat shapes at 128^3 (vs the flat decode), each as a digest;
+    dp_ddim_sample (vs ddim_sample) of 64 latents through config 4's
+    CondDenoiser (seeded weights, CFG 2.0 over class + 512 observed
+    points, on the exact denoiser of N(0, I) data so the latents stay
+    O(1)); and the launches of kernels #1 and #2 meanwhile."""
+    import numpy as np
+    import torch
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        DecoderConfig, ExperimentConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.diffusion.sampler import (
+        ddim_sample, guided_denoise_fn)
+    from latent_diffusion_models_for_shape_sdfs_torch.diffusion.schedule import (
+        DiffusionSchedule)
+    from latent_diffusion_models_for_shape_sdfs_torch.models.decoder import (
+        SdfDecoder)
+    from latent_diffusion_models_for_shape_sdfs_torch.models.denoiser import (
+        CondDenoiser)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        cuda_kernels as ck)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import grid_eval as ge
+    from latent_diffusion_models_for_shape_sdfs_torch.parallel import dp
+    from latent_diffusion_models_for_shape_sdfs_torch.parallel.mesh import (
+        batch_sharded)
+    from latent_diffusion_models_for_shape_sdfs_torch.serve import (
+        _default_caps, serve_meshes, serve_meshes_sharded)
+    from latent_diffusion_models_for_shape_sdfs_torch.utils.checkpoint \
+        import load_stage1_pack
+
+    n0 = dict(ck.LAUNCHES)
+    sd, codes = load_stage1_pack(ROOT.joinpath(*PACK))
+    apply = ck.make_kernel_apply(SdfDecoder(DecoderConfig()), sd, device=dev)
+    sd_m, codes_m = load_stage1_pack(ROOT.joinpath(*MULTICAT))
+    pairs = ck.make_kernel_apply_pairs(SdfDecoder(DecoderConfig()), sd_m,
+                                       device=dev)
+    lat = list(codes[::768])
+    zs = torch.from_numpy(np.stack(lat)).to(dev)
+    res, caps = DP_DECODE_RES, _default_caps(DP_DECODE_RES)
+    out = {}
+    meshes = list(serve_meshes(apply, lat, res=res, device=dev)
+                  if mesh is None else
+                  serve_meshes_sharded(apply, lat, mesh, res=res, device=dev))
+    out["serve_n"] = len(meshes)
+    out["serve"] = _digest(*(a for v, f, _ in meshes for a in (v, f)))
+    out["serve_faces"] = [len(f) for _, f, _ in meshes]
+    del meshes
+    if mesh is None:
+        per = [ge.decode_grid_hierarchical3_sparse2(
+            apply, z, res, 16, 4, 2, *caps, safety=1.2, safety3=2.0,
+            out_dtype="int8", check_overflow=False) for z in zs]
+        sparse = [torch.stack([p[0][j] for p in per]) for j in range(5)] + [
+            torch.stack([p[1][k] for p in per])
+            for k in ("active_l1", "active_l2", "active_l3")]
+        del per
+    else:
+        arrs, counts = dp.make_dp_sparse_decode_fn(apply, res, len(lat),
+                                                   mesh, caps)(zs)
+        sparse = dp.all_gather_rows(mesh, [*arrs, *counts])
+        del arrs, counts
+    out["sparse"] = _digest(*sparse)
+    del sparse
+    xyz = torch.rand(DP_POINTS, 3, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(7)) * 2 - 1
+    out["points"] = _digest(apply(zs[0], xyz) if mesh is None else
+                            dp.decode_points_sharded(apply, zs[0], xyz, mesh))
+    out["grid"] = _digest(
+        ge.decode_grid(apply, zs[0], DP_GRID_RES).cpu().numpy()
+        if mesh is None else
+        dp.decode_grid_sharded(apply, zs[0], DP_GRID_RES, mesh))
+    zm = torch.from_numpy(codes_m[:8]).to(dev)
+    grids, st = ge.decode_grid_hierarchical3_batch_flat(
+        pairs if mesh is None else dp.make_dp_pairs_fn(pairs, mesh), zm,
+        DP_GRID_RES, 16, 4, 2, out_dtype="bfloat16", **FLAT_KW)
+    if st["capacity_exceeded"]:
+        raise RuntimeError(f"[dp] flat decode over its caps: {st}")
+    out["flat"] = _digest(grids)
+    del grids, xyz
+
+    exp = ExperimentConfig.load(ROOT / "configs" / "config4_conditional")
+    dc, n = exp.diff.denoiser, 64
+    torch.manual_seed(DP_SEED)
+    model = CondDenoiser(dc).eval().to(dev)
+    rng = np.random.default_rng(DP_SEED)
+    ox = torch.from_numpy(rng.uniform(-1, 1, (n, dc.partial_points, 3))
+                          .astype(np.float32)).to(dev)
+    od = torch.from_numpy((0.1 * rng.normal(size=(n, dc.partial_points)))
+                          .astype(np.float32)).to(dev)
+    rows = torch.arange(n, device=dev)
+    if mesh is not None:
+        rows = batch_sharded(mesh, rows)
+    g = guided_denoise_fn(model, exp.sample.guidance_scale,
+                          class_id=rows % dc.num_classes, obs_xyz=ox[rows],
+                          obs_sdf=od[rows])
+    sched = DiffusionSchedule.create(exp.diff.timesteps, exp.diff.beta_start,
+                                     exp.diff.beta_end, device=dev)
+
+    def fn(z, t):
+        a = sched.alpha_bars[t.long()][:, None]
+        return torch.sqrt(1 - a) * z + 0.2 * g(z, t)
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    steps = exp.sample.ddim_steps
+    z = (ddim_sample(fn, sched, gen, n, dc.latent_size, steps=steps)
+         if mesh is None else
+         dp.dp_ddim_sample(fn, sched, gen, n, dc.latent_size, mesh,
+                           steps=steps))
+    out["ddim"] = z.cpu()
+    torch.cuda.synchronize()
+    out["launches"] = {k: ck.LAUNCHES[k] - n0[k] for k in n0}
+    return out
+
+
 def _dp_rank(rank: int, port: int, workdir: str) -> None:
     """[dp] one of two ranks on the one card (a spawned process): a gloo
     group, then _dp_runs over the 2-rank mesh; results to workdir."""
@@ -2523,6 +2975,7 @@ def _dp_rank(rank: int, port: int, workdir: str) -> None:
         inputs = torch.load(pathlib.Path(workdir) / "inputs.pt",
                             weights_only=False)
         res = _dp_runs(dev, inputs, make_mesh())
+        res["decode"] = _dp_decode_runs(dev, make_mesh())
         torch.save(res, pathlib.Path(workdir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -2613,6 +3066,7 @@ def dp_phase(dev, card) -> dict:
     del bank, ds
     torch.cuda.empty_cache()
     single = _dp_runs(dev, inputs, None)
+    single["decode"] = _dp_decode_runs(dev, None)
     with tempfile.TemporaryDirectory() as wd:
         torch.save(inputs, pathlib.Path(wd) / "inputs.pt")
         port = _free_port()
@@ -2643,6 +3097,7 @@ def dp_phase(dev, card) -> dict:
                             timeout=datetime.timedelta(seconds=300))
     try:
         nccl1 = _dp_runs(dev, inputs, make_mesh())
+        nccl1["decode"] = _dp_decode_runs(dev, make_mesh())
     finally:
         dist.destroy_process_group()
     out = dict(cases={}, ranks_s=ranks_s)
@@ -2696,12 +3151,64 @@ def dp_phase(dev, card) -> dict:
             f"device bit for bit {exact1}; launches per rank "
             f"{r0['launches']} / {r1['launches']} (single "
             f"{s['launches']})")
+    out["decode"] = _dp_decode_compare(single["decode"],
+                                       [r["decode"] for r in ranks],
+                                       nccl1["decode"], bad, card)
     out["s"] = time.perf_counter() - t_phase
     log(f"[dp] phase {out['s']:.1f} s (the two ranks {ranks_s:.1f} s) "
         f"[{card}]")
     if bad:
         raise RuntimeError(f"[dp] cases out of tolerance: {bad}")
     return out
+
+
+def _dp_decode_compare(single: dict, ranks: list, nccl1: dict,
+                       bad: list, card: str) -> dict:
+    """[dp]'s decode half: every digest of the two gloo ranks and of the
+    1-rank NCCL group equal to the single-device one (serve_meshes_sharded
+    yields on rank 0 only), dp_ddim_sample within DP_DDIM_TOL of max|z| on
+    2 ranks and bit-equal on one; appends the failures to `bad`."""
+    import torch
+    keys = ("serve", "sparse", "points", "grid", "flat")
+    rec = {}
+    for k in keys:
+        rec[k] = [r[k] == single[k] for r in (ranks[0], nccl1)]
+        if k != "serve":
+            rec[k].append(ranks[1][k] == single[k])
+    rank1_serves = ranks[1]["serve_n"]
+    top = float(single["ddim"].abs().max())
+    diff = float((ranks[0]["ddim"] - single["ddim"]).abs().max())
+    rec.update(ddim_rel=diff / top, ddim_max=top,
+               ddim_ranks_equal=bool(torch.equal(ranks[0]["ddim"],
+                                                 ranks[1]["ddim"])),
+               ddim_nccl1_bitwise=bool(torch.equal(nccl1["ddim"],
+                                                   single["ddim"])),
+               launches=[r["launches"] for r in ranks]
+               + [nccl1["launches"]], single_launches=single["launches"],
+               serve_faces=single["serve_faces"])
+    log(f"[dp] decode half, 2 ranks (rank 0, NCCL 1-rank[, rank 1]) vs one "
+        f"device, bit for bit: serve_meshes_sharded of 8 chairs at "
+        f"{DP_DECODE_RES}^3 {rec['serve']} (rank 1 yields "
+        f"{rank1_serves} meshes), make_dp_sparse_decode_fn {rec['sparse']}, "
+        f"decode_points_sharded at {DP_POINTS} points {rec['points']}, "
+        f"decode_grid_sharded at {DP_GRID_RES}^3 {rec['grid']}, "
+        f"make_dp_pairs_fn under the flat decode of 8 multicat shapes at "
+        f"{DP_GRID_RES}^3 {rec['flat']}; dp_ddim_sample of 64 config-4 "
+        f"latents vs ddim_sample: max diff {diff:.3e} = "
+        f"{rec['ddim_rel']:.3e} of max|z| {top:.2f} (tol {DP_DDIM_TOL}), "
+        f"ranks equal {rec['ddim_ranks_equal']}, 1-rank NCCL bitwise "
+        f"{rec['ddim_nccl1_bitwise']}; launches (#1, #2) per rank "
+        f"{[(r['fused_eval'], r['fused_eval_pairs']) for r in rec['launches']]}"
+        f", single {single['launches']} [{card}]")
+    ok = (all(all(v) for k, v in rec.items() if k in keys)
+          and rank1_serves == 0 and rec["ddim_rel"] <= DP_DDIM_TOL
+          and rec["ddim_ranks_equal"] and rec["ddim_nccl1_bitwise"]
+          and all(r["fused_eval"] > 0 and r["fused_eval_pairs"] > 0
+                  for r in rec["launches"]))
+    if not ok:
+        bad.append("decode half")
+    return rec
+
 
 
 def main() -> int:
@@ -3290,8 +3797,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 13: [generate] config 4's generation, trained weights
-    details["generate"] = generate_phase(dev, card, pairs, apply1,
-                                         td.pop("trained"))
+    trained_diff = td.pop("trained")
+    gen_out = generate_phase(dev, card, pairs, apply1, trained_diff)
+    generated = gen_out.pop("latents")
+    details["generate"] = gen_out
+    torch.cuda.empty_cache()
+
+    # ---- phase 13b: [export] the serving artifacts, config 5's 512^3 decode
+    ex = export_phase(dev, card, apply1, sd_m, codes_m, trained_diff,
+                      generated)
+    details["export"] = ex
+    del trained_diff, generated
     torch.cuda.empty_cache()
 
     # ---- phase 14: [unet] config 2-unet's stage 2 on the chair codes
@@ -3314,6 +3830,7 @@ def main() -> int:
 
     # ---- phase 18: summary
     t512 = drop_t[512]
+    dp_launches = details["dp"]["decode"]["launches"]
     kernels = [{
         "name": "fused_decoder_eval",
         "route": "cuda",
@@ -3321,7 +3838,8 @@ def main() -> int:
                   "fused_eval.cu",
         "replaces": "latent_diffusion_models_for_shape_sdfs_tpu/ops/"
                     "pallas_kernels.py:46",
-        "launches": launches + rl["launches_k1"],
+        "launches": launches + rl["launches_k1"] + ex["launches"]
+        + sum(r["fused_eval"] for r in dp_launches),
         "max_abs_err": max_err,
         "ms": ms_shape,
         "plain_ms": plain_shape,
@@ -3378,7 +3896,8 @@ def main() -> int:
         "source": SRC + "fused_eval_pairs.cu",
         "replaces": "latent_diffusion_models_for_shape_sdfs_tpu/ops/"
                     "pallas_kernels.py:163",
-        "launches": fl["launches"],
+        "launches": fl["launches"]
+        + sum(r["fused_eval_pairs"] for r in dp_launches),
         "max_abs_err": pr["max_abs_err"],
         "ms": pr["ms"],
         "plain_ms": pr["plain_ms"],

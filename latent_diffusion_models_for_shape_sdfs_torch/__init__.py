@@ -35,5 +35,9 @@ Sinkhorn-EMD), and the rest of `ops.grid_eval` (the batched and
 device-resident hierarchical decodes). Stage 1 from the on-device sample
 bank and data parallel: `data.device_bank`, the chair and CSG bank
 producers of `data.analytic_device`, and `parallel` (the data mesh and
-the data-parallel steps over `torch.distributed`).
+the data-parallel steps over `torch.distributed`). Serving artifacts and
+decoding on several ranks: `export_artifact` (`torch.export` programs of
+the decode and the sampler; `ops.fused_eval_op` makes the decoder-eval
+kernel the custom op `sdfldm::fused_eval` they call), the decode half of
+`parallel.dp` and `serve.serve_meshes_sharded`.
 """

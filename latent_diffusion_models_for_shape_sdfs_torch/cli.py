@@ -4,10 +4,11 @@
 
 Counterpart of the JAX package's `cli.py`, with its flags, for
 `init-experiment`, `train-ad`, `train-diff`, `train-encoder`, `sample`,
-`interpolate`, `render`, `reconstruct`, `eval`, `decode`, `serve-daemon`
-and `preprocess`. Every training and eval command takes an experiment
-directory holding specs.json (write one with `init-experiment`; override
-fields with --set dotted.key=value). `--device` (default cuda) picks the
+`interpolate`, `render`, `reconstruct`, `eval`, `decode`,
+`export-decoder`, `serve-daemon`, `export-sampler` and `preprocess`.
+Every training and eval command takes an experiment directory holding
+specs.json (write one with `init-experiment`; override fields with --set
+dotted.key=value). `--device` (default cuda) picks the
 device every command runs on; JAX picks its platform from the
 environment instead. `train-ad` also runs data-parallel under torchrun
 (`torchrun --nproc-per-node N -m latent_diffusion_models_for_shape_sdfs_torch
@@ -235,6 +236,33 @@ def cmd_decode(args):
               f"{out_dir / name}.{args.format}")
 
 
+def cmd_export_decoder(args):
+    """Serialize the trained decoder's serving decode as an artifact
+    (torch.export program on --device, weights as its constants, kernel
+    #1 as the op sdfldm::fused_eval on a card; loadable without model
+    code via export_artifact.load_decode_program)."""
+    from latent_diffusion_models_for_shape_sdfs_torch.export_artifact import (
+        export_decode_program)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.cuda_kernels import (
+        make_kernel_apply)
+    from latent_diffusion_models_for_shape_sdfs_torch.pipeline import (
+        decoder_params, load_ad_state)
+    from latent_diffusion_models_for_shape_sdfs_torch.serve import (
+        _default_caps)
+
+    decoder, ad_state = load_ad_state(args.exp_dir, device=args.device)
+    apply_fn = make_kernel_apply(decoder, decoder_params(ad_state),
+                                 device=args.device)
+    out = args.out or str(pathlib.Path(args.exp_dir)
+                          / f"decoder_{args.res}.zip")
+    blob = export_decode_program(
+        apply_fn, decoder.cfg.latent_size, args.res,
+        _default_caps(args.res),
+        platforms=args.platforms.split(",") if args.platforms else None,
+        path=out, device=apply_fn.device)
+    print(f"wrote {out} ({len(blob)} bytes, res {args.res})")
+
+
 def cmd_serve_daemon(args):
     """Watch-folder serving loop: latent .npy requests in, meshes out
     (serve.watch_and_serve); with --reconstruct, .npz observation requests
@@ -271,6 +299,47 @@ def cmd_serve_daemon(args):
                         simplify_faces=args.simplify_faces,
                         simplify_ratio=args.simplify)
     print(f"served {n} request files")
+
+
+def cmd_export_sampler(args):
+    """Serialize the trained (EMA) denoiser's sampler as an artifact:
+    z_T [num, L] -> decoder-space latents, loadable without model code
+    via export_artifact.load_sampler_program. Pairs with export-decoder
+    for a no-model-code noise -> meshes serving stack."""
+    import torch
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        ExperimentConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.diffusion.sampler \
+        import guided_denoise_fn
+    from latent_diffusion_models_for_shape_sdfs_torch.diffusion.schedule \
+        import DiffusionSchedule
+    from latent_diffusion_models_for_shape_sdfs_torch.export_artifact import (
+        export_sampler_program)
+    from latent_diffusion_models_for_shape_sdfs_torch.pipeline import (
+        load_diff_state)
+
+    cfg = ExperimentConfig.load(args.exp_dir)
+    model, dstate, (mu, sigma) = load_diff_state(args.exp_dir,
+                                                 device=args.device)
+    model.load_state_dict(dstate.ema)
+    model.eval()
+    dev = mu.device
+    schedule = DiffusionSchedule.create(cfg.diff.timesteps,
+                                        cfg.diff.beta_start,
+                                        cfg.diff.beta_end, device=dev)
+    cid = (torch.full((args.num,), args.class_id, dtype=torch.long,
+                      device=dev)
+           if args.class_id is not None else None)
+    fn = guided_denoise_fn(model, cfg.sample.guidance_scale, class_id=cid)
+    out = args.out or str(pathlib.Path(args.exp_dir)
+                          / f"sampler_{args.sampler}{args.steps}.zip")
+    blob = export_sampler_program(
+        fn, schedule, args.num, cfg.diff.denoiser.latent_size,
+        steps=args.steps, sampler=args.sampler, mu=mu, sigma=sigma,
+        platforms=args.platforms.split(",") if args.platforms else None,
+        path=out)
+    print(f"wrote {out} ({len(blob)} bytes, {args.sampler}-{args.steps}, "
+          f"batch {args.num})")
 
 
 def cmd_preprocess(args):
@@ -430,6 +499,16 @@ def main(argv=None):
     _add_lod_flags(s)
     s.set_defaults(fn=cmd_decode)
 
+    s = sub.add_parser("export-decoder", help="serving artifact "
+                       "(torch.export, weights baked in)")
+    s.add_argument("exp_dir")
+    s.add_argument("--res", type=int, default=256)
+    s.add_argument("--out")
+    s.add_argument("--platforms",
+                   help="comma list; must name the --device type (a "
+                   "torch.export program runs where it was traced)")
+    s.set_defaults(fn=cmd_export_decoder)
+
     s = sub.add_parser("serve-daemon", help="watch-folder serving loop: "
                        "latent .npy requests -> meshes")
     s.add_argument("exp_dir")
@@ -452,6 +531,20 @@ def main(argv=None):
                    help="latent-opt steps refining the encoder one-shot")
     _add_lod_flags(s)
     s.set_defaults(fn=cmd_serve_daemon)
+
+    s = sub.add_parser("export-sampler", help="sampler artifact "
+                       "(torch.export: z_T -> decoder-space latents)")
+    s.add_argument("exp_dir")
+    s.add_argument("--num", type=int, default=64,
+                   help="exported batch size (static in the artifact)")
+    s.add_argument("--steps", type=int, default=50)
+    s.add_argument("--sampler", choices=("ddim", "dpm"), default="ddim")
+    s.add_argument("--class-id", type=int, default=None)
+    s.add_argument("--out")
+    s.add_argument("--platforms",
+                   help="comma list; must name the --device type (a "
+                   "torch.export program runs where it was traced)")
+    s.set_defaults(fn=cmd_export_sampler)
 
     s = sub.add_parser("preprocess", help="mesh -> SDF samples (native)")
     s.add_argument("mesh", help="mesh file or directory")

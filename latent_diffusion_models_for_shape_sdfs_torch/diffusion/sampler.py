@@ -28,9 +28,11 @@ def _normal(generator: torch.Generator, shape: tuple,
                        device=device)
 
 
-def _tb(num: int, t, device) -> torch.Tensor:
-    """The timestep of every latent of the batch, [num] int32."""
-    return torch.full((num,), int(t), dtype=torch.int32, device=device)
+def _tb(num: int, t: int, device) -> torch.Tensor:
+    """The timestep of every latent of the batch, [num] int32, from a host
+    integer: nothing reads the device, so `torch.export` traces the loop
+    (each step's timestep is a constant of the program)."""
+    return torch.full((num,), t, dtype=torch.int32, device=device)
 
 
 @torch.no_grad()
@@ -53,7 +55,12 @@ def ddpm_sample(denoise_fn: DenoiseFn, schedule: DiffusionSchedule,
 
 def ddim_timesteps(T: int, steps: int) -> torch.Tensor:
     """Strided subsequence t_i = (i*T)//steps, i = 0..steps-1 (ascending)."""
-    return (torch.arange(steps, dtype=torch.int64) * T) // steps
+    return torch.tensor(_strided(T, steps), dtype=torch.int64)
+
+
+def _strided(T: int, steps: int) -> list:
+    """ddim_timesteps as host integers."""
+    return [i * T // steps for i in range(steps)]
 
 
 @torch.no_grad()
@@ -70,8 +77,8 @@ def ddim_sample(denoise_fn: DenoiseFn, schedule: DiffusionSchedule,
     dev = schedule.device
     z = (_normal(generator, (num, latent_size), dev) if z_init is None
          else z_init.to(device=dev, dtype=torch.float32))
-    ts = ddim_timesteps(schedule.timesteps, steps)
-    abar = schedule.alpha_bars[ts.to(dev)]
+    ts = _strided(schedule.timesteps, steps)
+    abar = schedule.alpha_bars[torch.tensor(ts, device=dev)]
     abar_prev = torch.cat([torch.ones(1, device=dev), abar[:-1]])
     sqrt_1m = torch.sqrt(1.0 - abar)
     sqrt_a = torch.sqrt(abar)
@@ -100,8 +107,8 @@ def dpm_solver_sample(denoise_fn: DenoiseFn, schedule: DiffusionSchedule,
     dev = schedule.device
     z = (_normal(generator, (num, latent_size), dev) if z_init is None
          else z_init.to(device=dev, dtype=torch.float32))
-    ts_desc = ddim_timesteps(schedule.timesteps, steps).flip(0)
-    abar = schedule.alpha_bars[ts_desc.to(dev)]
+    ts_desc = _strided(schedule.timesteps, steps)[::-1]
+    abar = schedule.alpha_bars[torch.tensor(ts_desc, device=dev)]
     a_from = torch.sqrt(abar)
     s_from = torch.sqrt(1.0 - abar)
     a_to = torch.cat([a_from[1:], torch.ones(1, device=dev)])

@@ -40,28 +40,11 @@ from latent_diffusion_models_for_shape_sdfs_torch.models.decoder import (
 from latent_diffusion_models_for_shape_sdfs_torch.ops import _build
 from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
     EvalWeights, fast_apply, precompute_eval_weights)
+from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_eval_op import (  # noqa: F401
+    EVAL_LAYOUT, EVAL_WIDTHS, LAUNCHES, MAX_LATENT, MAX_LAYERS, MAX_WIDTH,
+    PAIRS_LAYOUT, _fused_eval_lib, fused_eval)
 from latent_diffusion_models_for_shape_sdfs_torch.utils.device import (
     resolve_device)
-
-MAX_WIDTH = 512    # both eval kernels' MAX_WIDTH (checked at load)
-MAX_LAYERS = 16    # both eval kernels' MAX_LAYERS
-MAX_LATENT = 512   # csrc/fused_eval_pairs.cu MAX_LATENT (checked at load)
-EVAL_WIDTHS = (64, 128, 256, 512)    # both eval kernels' padded widths
-# csrc/fused_eval_pairs.cu's shared-memory layout (checked at load): bytes
-# of a ring slot (one slab), the byte strides between 8x8 core matrices of
-# a weight slab and of an activation or latent tile (wgmma's K-major layout
-# without swizzle), next 8 inputs (LBO) and next 8 rows (SBO), and the
-# slabs per ring stage (every layer's slab count is a multiple of it)
-PAIRS_LAYOUT = dict(slot_bytes=16384, slab_lbo=128, slab_sbo=256,
-                    tile_lbo=1024, tile_sbo=128, stage_slabs=2)
-# csrc/fused_eval.cu's (checked at load): the same, and the width of its
-# xyz tile (bf16 x, y, z, then zeros), the inputs of an xyz slab
-EVAL_LAYOUT = dict(PAIRS_LAYOUT, xyz_cols=16)
-# launches of each kernel over every wrapper in the process (each wrapper
-# also counts its own in `launches`): what a caller that does not hold the
-# wrapper, such as a CLI run, reads
-LAUNCHES = {"fused_eval": 0, "fused_eval_pairs": 0}
-
 
 def _pad2(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return F.pad(w, (0, cols - w.shape[1], 0, rows - w.shape[0]))
@@ -204,36 +187,14 @@ def pack_weights_pairs(ew: EvalWeights) -> tuple:
             lzx)
 
 
-def _fused_eval_lib():
-    lib = _build.load("fused_eval.cu")
-    if not getattr(lib, "_argtypes_set", False):
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        ip = ctypes.POINTER(ctypes.c_int)
-        lib.fused_eval_launch.restype = i32
-        lib.fused_eval_launch.argtypes = [
-            vp, vp, i64, vp, vp, ctypes.POINTER(i64), i32, i32, vp]
-        lib.fused_eval_config.restype = i32
-        lib.fused_eval_config.argtypes = [ip, ip, ip, ip]
-        lib.fused_eval_layout.restype = None
-        lib.fused_eval_layout.argtypes = [ip]
-        lib.fused_eval_max_width.restype = i32
-        lib.fused_eval_max_width.argtypes = []
-        layout = (ctypes.c_int * len(EVAL_LAYOUT))()
-        lib.fused_eval_layout(layout)
-        if (lib.fused_eval_max_width() != MAX_WIDTH
-                or list(layout) != list(EVAL_LAYOUT.values())):
-            raise RuntimeError("csrc/fused_eval.cu and cuda_kernels.py "
-                               "disagree on the widest layer or on the "
-                               "shared-memory layout")
-        lib._argtypes_set = True
-    return lib
-
-
 class KernelApply:
     """(z [L], xyz [N,3] f32) -> sdf [N] f32 through the fused kernel.
 
-    `launches` counts kernel launches (one per call on a CUDA tensor);
-    callers reset it to 0 before a run they want to account for."""
+    `launches` counts the launches of this wrapper's calls (one per call
+    on a CUDA tensor, as the op counted them; an exported program's are
+    counted only in LAUNCHES); callers reset it to 0 before a run they
+    want to account for. `meta` is the layer table as a numpy array,
+    `meta_t` as the CPU tensor the op reads."""
 
     def __init__(self, ew: EvalWeights, device: torch.device):
         self.ew = ew
@@ -242,6 +203,7 @@ class KernelApply:
         if device.type == "cuda":
             _fused_eval_lib()
             w, self.meta = pack_weights(ew)
+            self.meta_t = torch.from_numpy(self.meta)
             self.w = w.to(device)
 
     def config(self) -> dict:
@@ -256,32 +218,13 @@ class KernelApply:
                         (o.value for o in out)))
 
     def launch(self, xyz: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-        """One kernel launch on the current stream: xyz [N,3] f32 and the
-        rows of hoisted_rows(self.ew, self.meta, z) -> sdf [N] f32."""
-        if (xyz.dtype != torch.float32 or xyz.ndim != 2
-                or xyz.shape[1] != 3 or not xyz.is_contiguous()):
-            raise ValueError("fused kernel: xyz must be a contiguous "
-                             f"float32 [N, 3] tensor, got {xyz.dtype} "
-                             f"{tuple(xyz.shape)}")
-        n_rows = int(self.meta[:, 1].sum())
-        if (rows.dtype != torch.float32 or tuple(rows.shape) != (n_rows,)
-                or not rows.is_contiguous() or rows.device != xyz.device):
-            raise ValueError(f"fused kernel: rows must be a contiguous "
-                             f"float32 [{n_rows}] tensor on {xyz.device}, "
-                             f"got {rows.dtype} {tuple(rows.shape)} on "
-                             f"{rows.device}")
-        out = torch.empty(xyz.shape[0], dtype=torch.float32,
-                          device=xyz.device)
-        rc = _fused_eval_lib().fused_eval_launch(
-            xyz.data_ptr(), out.data_ptr(), xyz.shape[0], self.w.data_ptr(),
-            rows.data_ptr(),
-            self.meta.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
-            len(self.meta), int(self.ew.use_tanh),
-            torch.cuda.current_stream(xyz.device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"fused_eval_launch failed: cudaError {rc}")
-        self.launches += 1
-        LAUNCHES["fused_eval"] += 1
+        """One kernel launch on the current stream, through the custom op
+        `sdfldm::fused_eval` (so `torch.export` traces it): xyz [N,3] f32
+        and the rows of hoisted_rows(self.ew, self.meta, z) -> sdf [N]
+        f32."""
+        n0 = LAUNCHES["fused_eval"]
+        out = fused_eval(xyz, self.w, rows, self.meta_t, self.ew.use_tanh)
+        self.launches += LAUNCHES["fused_eval"] - n0
         return out
 
     def __call__(self, z: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,12 @@
 """End-to-end mesh-serving path: latents -> meshes.
 
 Counterpart of the JAX package's `serve.py` (`serve_meshes`,
-`generate_meshes`, `watch_and_serve`). Latents -> three-level sparse hierarchical decode on
-the card (every point evaluation through the fused decoder-eval kernel
-when `apply_fn` is `ops.cuda_kernels.make_kernel_apply`) -> compact int8
-near-surface payload -> copied to pinned host buffers -> meshed directly
-by the native C++ library (no dense grid on the host; reconstruct +
+`serve_meshes_sharded`, `generate_meshes`, `watch_and_serve`). Latents ->
+three-level sparse hierarchical decode on the card (every point
+evaluation through the fused decoder-eval kernel when `apply_fn` is
+`ops.cuda_kernels.make_kernel_apply`) -> compact int8 near-surface
+payload -> copied to pinned host buffers -> meshed directly by the
+native C++ library (no dense grid on the host; reconstruct +
 marching tetrahedra is the fallback).
 
 Pipelining: every decode is enqueued on the current CUDA stream up front,
@@ -260,6 +261,93 @@ def serve_meshes(apply_fn, latents: Sequence, res: int = 256,
         futures = [pool.submit(mesh_job, *job) for job in jobs()]
         for fut in futures:
             yield fut.result()
+
+
+def serve_meshes_sharded(apply_fn, latents: Sequence, mesh,
+                         res: int = 256, safety: float = 1.2,
+                         safety3: float = 2.0, iso: float = 0.0,
+                         caps: Optional[tuple] = None,
+                         out_dtype: str = "int8",
+                         simplify_faces: Optional[int] = None,
+                         simplify_ratio: Optional[float] = None,
+                         device="cuda") -> Iterator[tuple]:
+    """serve_meshes over a parallel.mesh.DataMesh: the latent batch is split
+    over the ranks (parallel.dp.make_dp_sparse_decode_fn), each rank
+    decodes its shapes' compact v2 payloads on its device, and the
+    payloads, sliced to row buckets shared by the batch (the largest
+    shape's), are gathered (parallel.dp.all_gather_rows). Rank 0 meshes
+    them on host threads and yields (verts, faces, stats) in input order.
+    A shape whose shell overflows the shared capacities is re-decoded on
+    rank 0 through the single-device serve_meshes with doubled caps. The
+    latent list is padded to a multiple of mesh.size internally.
+
+    Every rank must drive the generator, since the decode and the gathers
+    are collective; on every rank but 0 it yields nothing. `latents` and
+    the arguments must be the same on every rank, and `apply_fn`
+    evaluates on `device` (this rank's card, or "cpu").
+    """
+    from latent_diffusion_models_for_shape_sdfs_torch.parallel.dp import (
+        all_gather_rows, make_dp_sparse_decode_fn)
+
+    if len(latents) == 0:
+        return
+    if iso != 0.0 and out_dtype in ("int8", "int4"):
+        raise ValueError(
+            "serve_meshes_sharded: iso != 0 needs a magnitude-preserving "
+            "payload; pass out_dtype='float32' (or 'bfloat16')")
+    dev = resolve_device(device)
+    cap1, cap2, cap3 = caps or _default_caps(res)
+    dq = (hier3_int8_scale(res, 4, safety)
+          if out_dtype in ("int8", "int4") else None)
+    n_shapes = len(latents)
+    pad = (-n_shapes) % mesh.size
+    zs = np.stack([np.asarray(z, np.float32) for z in latents]
+                  + [np.asarray(latents[0], np.float32)] * pad)
+    fn = make_dp_sparse_decode_fn(apply_fn, res, len(zs), mesh,
+                                  (cap1, cap2, cap3), safety, safety3,
+                                  out_dtype=out_dtype)
+    (c1a, c2a, i1, v2, i2), counts = fn(torch.from_numpy(zs).to(dev))
+    n1, n2, n3 = (c.cpu().numpy() for c in all_gather_rows(mesh, counts))
+    # row buckets shared by the whole batch, sliced at the largest shape
+    k1 = _bucket(int(n1[:n_shapes].max()), cap1)
+    k2 = _bucket(int(n2[:n_shapes].max()), cap2)
+    c1a, c2a, i1, v2, i2 = (_host_array(a.cpu()) for a in all_gather_rows(
+        mesh, [c1a, c2a[:, :k1], i1[:, :k1], v2[:, :k2], i2[:, :k2]]))
+    if mesh.rank != 0:
+        return
+
+    def mesh_job(i):
+        verts, faces, mesher = _mesh_v2_payload(
+            c1a[i], c2a[i], i1[i], v2[i], i2[i],
+            min(int(n1[i]), cap1), min(int(n2[i]), cap2), res, iso, dq)
+        verts, faces, nf0 = _maybe_simplify(verts, faces, simplify_faces,
+                                            simplify_ratio)
+        stats = {
+            "active_l1": int(n1[i]), "active_l2": int(n2[i]),
+            "active_l3": int(n3[i]), "escalations": 0,
+            "cap1": cap1, "cap2": cap2, "cap3": cap3,
+            "capacity_exceeded": False, "mesher": mesher,
+            "payload_bytes": int(sum(a[i].nbytes for a in
+                                     (c1a, c2a, i1, v2, i2)))}
+        if nf0 is not None:
+            stats["faces_before"] = nf0
+        return verts, faces, stats
+
+    # host meshing overlapped across shapes; escalation re-decodes stay on
+    # this thread (one device stream)
+    with ThreadPoolExecutor(max_workers=_auto_workers()) as pool:
+        futures = {i: pool.submit(mesh_job, i) for i in range(n_shapes)
+                   if not (n1[i] > cap1 or n2[i] > cap2 or n3[i] > cap3)}
+        for i in range(n_shapes):
+            if i in futures:
+                yield futures[i].result()
+            else:
+                yield next(iter(serve_meshes(
+                    apply_fn, [zs[i]], res=res, safety=safety,
+                    safety3=safety3, iso=iso, out_dtype=out_dtype,
+                    caps=(2 * cap1, 2 * cap2, 2 * cap3),
+                    simplify_faces=simplify_faces,
+                    simplify_ratio=simplify_ratio, device=dev)))
 
 
 def generate_meshes(apply_fn, denoise_fn, schedule, generator, n: int,

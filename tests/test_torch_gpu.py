@@ -138,6 +138,68 @@ def test_kernel_launch_config(cuda):
     assert cfg["smem"] <= 232448 and cfg["max_clusters"] >= 1
 
 
+def test_fused_eval_op_exports_and_counts_launches(cuda):
+    """Kernel #1 as the op sdfldm::fused_eval under torch.export: a program
+    around KernelApply.launch holds the op and equals the live launch bit
+    for bit; a decode artifact equals the live decode bit for bit, and
+    its launches are counted by the op (LAUNCHES), not by the wrapper it
+    was traced from."""
+    from latent_diffusion_models_for_shape_sdfs_torch.export_artifact import (
+        _Program, export_decode_program, load_decode_program)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        cuda_kernels as ck)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.grid_eval import (
+        _decode_grid_hier3_impl)
+    dec, sd, z = _decoder("small")
+    apply = make_kernel_apply(dec, sd, device=cuda)
+    zt = torch.from_numpy(z).to(cuda)
+    rows = ck.hoisted_rows(apply.ew, apply.meta, zt)
+    xyz = torch.rand(5000, 3, device=cuda) * 2 - 1
+    ep = torch.export.export(_Program(lambda x: apply.launch(x, rows)),
+                             (xyz,), strict=False)
+    assert any("sdfldm.fused_eval" in str(n.target) for n in ep.graph.nodes)
+    n0 = ck.LAUNCHES["fused_eval"]
+    got = ep.module()(xyz)
+    assert ck.LAUNCHES["fused_eval"] == n0 + 1
+    assert torch.equal(got, apply.launch(xyz, rows))
+
+    caps = (64, 1024, 4096)
+    art = load_decode_program(export_decode_program(
+        apply, dec.cfg.latent_size, 64, caps, device=cuda))
+    assert art.meta["platforms"] == ["cuda"]
+    n0, l0 = ck.LAUNCHES["fused_eval"], apply.launches
+    got = art.payload(zt)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["fused_eval"] - n0 == 4 and apply.launches == l0
+    live, *counts = _decode_grid_hier3_impl(
+        apply, zt, 64, 16, 4, 2, *caps, safety=1.2, safety3=2.0,
+        out_dtype="int8")
+    for a, b in zip(got, [*live, *counts]):
+        assert torch.equal(a, b)
+
+
+def test_fused_eval_op_raises_on_malformed_operands(cuda):
+    """On CUDA tensors the op launches or raises: a short rows vector, a
+    layer table on the card, fp32 weights; nothing is launched."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        cuda_kernels as ck)
+    dec, sd, z = _decoder("tanh")
+    apply = make_kernel_apply(dec, sd, device=cuda)
+    rows = ck.hoisted_rows(apply.ew, apply.meta, torch.from_numpy(z).to(cuda))
+    xyz = torch.rand(100, 3, device=cuda)
+    n0 = ck.LAUNCHES["fused_eval"]
+    op = torch.ops.sdfldm.fused_eval
+    with pytest.raises(ValueError, match="rows must be"):
+        op(xyz, apply.w, rows[:-1], apply.meta_t, True)
+    with pytest.raises(ValueError, match="meta must be"):
+        op(xyz, apply.w, rows, apply.meta_t.to(cuda), True)
+    with pytest.raises(ValueError, match="w must be"):
+        op(xyz, apply.w.float(), rows, apply.meta_t, True)
+    assert ck.LAUNCHES["fused_eval"] == n0
+    assert torch.equal(op(xyz, apply.w, rows, apply.meta_t, True),
+                       apply.launch(xyz, rows))
+
+
 def snapped_cube(z, xyz):
     """An SDF whose float32 evaluation is exact on any device."""
     q = torch.abs(torch.round(xyz * 256.0))
