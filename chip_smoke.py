@@ -35,9 +35,11 @@ before CUDA is), then:
      0 and 0.2, checks two passes are bit-identical, and times it; splits
      one traced pass into its forward, dgrad and wgrad GEMMs and side
      kernels, each beside its bound (the forward and dgrad launches must
-     be the wgmma engine's); times the engine's forward (dropout 0.2 and
-     0) and dgrad roles alone at 2^20 x 512 x 512 beside torch.matmul of
-     the same bf16 product (a yardstick the port never calls);
+     be the wgmma engine's tn_gemm_kernel, the 7 wgrad launches its
+     MN-major mn_wgrad_kernel); times the engine's forward (dropout 0.2
+     and 0), dgrad and wgrad roles alone at 2^20 x 512 x 512 (wgrad held
+     against its plain version) beside torch.matmul of the same bf16
+     product (a yardstick the port never calls);
   7. [train] trains config 3's `ad` block (cut to 64 scenes, 20,000
      samples per shape, 4 epochs of one step) from the committed pack
      through both kernel routes (relu+dropout kernels; fused train
@@ -294,21 +296,43 @@ class SmiSampler:
                 f"{s['power_w_max']:.0f} W over {s['n']} nvidia-smi samples")
 
 
-def device_profile(fn, cpu_ops: dict | None = None) -> tuple:
+def device_profile(fn, cpu_ops: dict | None = None,
+                   warmup=None) -> tuple:
     """Runs fn() once under torch.profiler; returns (wall s, device busy
     ms as the union of device spans, [(name, ms, count)] by device time).
-    `cpu_ops`, if given, receives the count of each host-side op name."""
+    `cpu_ops`, if given, receives the count of each host-side op name.
+    `warmup`, if given, runs first in the same trace, then the card idles
+    for 50 ms, and only events that start after the middle of that gap
+    count: the profiler can drop the first launches of a trace (one pass
+    of kernel #4 lost its first ~28, 2.5 ms of device time), so a gate on
+    exact launch counts takes a warm-up."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        if warmup is not None:
+            with record_function("device_profile.warmup"):
+                warmup()
+                torch.cuda.synchronize()
+            time.sleep(0.05)
+        with record_function("device_profile.measured"):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    events = prof.events()
+    start = float("-inf")
+    if warmup is not None:
+        mark = {e.name: e.time_range for e in events
+                if e.name.startswith("device_profile.")}
+        start = (mark["device_profile.warmup"].end
+                 + mark["device_profile.measured"].start) / 2
     spans, by_name = [], {}
-    for e in prof.events():
+    for e in events:
+        if e.time_range.start < start or e.name.startswith(
+                "device_profile."):
+            continue
         if cpu_ops is not None and e.device_type == DeviceType.CPU:
             cpu_ops[e.name] = cpu_ops.get(e.name, 0) + 1
         if e.device_type == DeviceType.CUDA:         # kernels and copies
@@ -395,12 +419,12 @@ def gemm_bound(m: int, n: int, k: int, read: int, write: int) -> tuple:
 
 def train_role(name: str) -> str:
     """Kernel #4's launch roles by kernel name: the wgmma engine's forward
-    (epilogue 0) and dgrad (epilogue 1) instantiations, the mma.sync wgrad
-    GEMM, and every other launch of the pass."""
+    (epilogue 0) and dgrad (epilogue 1) instantiations, its MN-major wgrad
+    kernel, and every other launch of the pass."""
     import re
     if "tn_gemm_kernel" in name:
         return "forward" if re.search(r", 0>|ELi0E", name) else "dgrad"
-    if "gemm_kernel" in name:
+    if "mn_wgrad_kernel" in name:
         return "wgrad"
     return "side"
 
@@ -413,7 +437,7 @@ def train_roles(ft, ft_args, card) -> dict:
     n_pts = xyz.shape[0] * xyz.shape[1]
     widths = [-(-lay.b.shape[0] // 128) * 128 for lay in ew.layers[:-1]]
     bounds = {"forward": 0.0, "dgrad": 0.0, "wgrad": 0.0}
-    k_split = 16384
+    k_split = ft.wgrad_chunk(n_pts)        # the chunk the pass gives wgrad
     for i in range(1, len(widths)):
         k, n = widths[i - 1], widths[i]
         bounds["forward"] += gemm_bound(n_pts, n, k, 2 * n_pts * k,
@@ -422,8 +446,9 @@ def train_roles(ft, ft_args, card) -> dict:
                                       2 * n_pts * k)[0]
         bounds["wgrad"] += gemm_bound(n, k, n_pts, 2 * n_pts * (n + k),
                                       4 * (n_pts // k_split) * n * k)[0]
-    wall, busy, top = device_profile(lambda: ft.fused_train_loss_grads(
-        *ft_args))
+    wall, busy, top = device_profile(
+        lambda: ft.fused_train_loss_grads(*ft_args),
+        warmup=lambda: ft.fused_train_loss_grads(*ft_args))
     log_profile("fused_train", "one traced pass", wall, busy, top, card)
     roles = {r: dict(ms=0.0, launches=0) for r in
              ("forward", "dgrad", "wgrad", "side")}
@@ -436,17 +461,19 @@ def train_roles(ft, ft_args, card) -> dict:
         log(f"[fused_train]   {r:8s} {v['ms']:8.3f} ms in {v['launches']:4d} "
             f"launches" + (f", bound {v['bound_ms']:.3f} ms (sum of the "
                            "launches' bounds)" if r in bounds else ""))
-    if roles["forward"]["launches"] != len(widths) - 1 or \
-            roles["dgrad"]["launches"] != len(widths) - 1:
-        raise RuntimeError(f"kernel #4's forward/dgrad launches are not the "
-                           f"wgmma engine's: {[n for n, _, _ in top]}")
+    if any(roles[r]["launches"] != len(widths) - 1
+           for r in ("forward", "dgrad", "wgrad")):
+        raise RuntimeError(f"kernel #4's forward/dgrad/wgrad launches are "
+                           f"not the wgmma engine's {len(widths) - 1} each: "
+                           f"{[(n, c) for n, _, c in top]}")
     return dict(roles, busy_ms=busy, wall_s=wall, top=top[:16])
 
 
 def train_gemms(ft, dev, card) -> dict:
-    """[fused_train] the engine's forward role (dropout 0.2 and 0) and
-    dgrad role alone at 2^20 x 512 x 512, against the plain version and
-    torch.matmul of the same bf16 product."""
+    """[fused_train] the engine's forward role (dropout 0.2 and 0), dgrad
+    and wgrad roles alone at 2^20 x 512 x 512, against the plain version
+    and torch.matmul of the same bf16 product; the wgrad role's partials
+    held against its plain version (1e-3 of their max)."""
     import torch
     m, k, n = 1 << 20, 512, 512
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -456,9 +483,26 @@ def train_gemms(ft, dev, card) -> dict:
     rows = torch.randn(1, n, generator=gen, device=dev)
     g = (torch.randn(m, n, generator=gen, device=dev) * 1e-3).to(bf)
     wt = w.t().contiguous()
+    k_split = ft.wgrad_chunk(m)
     out = {}
     fwd_b = gemm_bound(m, n, k, 2 * m * k, 2 * m * n)
     dgrad_b = gemm_bound(m, k, n, 2 * m * (n + k), 2 * m * k)
+    wgrad_b = gemm_bound(n, k, m, 2 * m * (n + k),
+                         4 * (m // k_split) * n * k)
+    got = ft.gemm_wgrad(g, h, k_split)
+    want = ft.gemm_wgrad_reference(g, h, k_split)
+    wgrad_err = float((got - want).abs().max())
+    wgrad_max = float(want.abs().max())
+    same = torch.equal(got, ft.gemm_wgrad(g, h, k_split))
+    log(f"[fused_train] engine wgrad at 2^20 x 512 x 512, {m // k_split} "
+        f"chunks of {k_split} points: max |kernel - plain| {wgrad_err:.3e} "
+        f"of max {wgrad_max:.3e} (tol 1e-3 of max); two launches "
+        f"bit-identical: {same}")
+    if wgrad_err > 1e-3 * wgrad_max or not same:
+        raise RuntimeError("the wgrad role disagrees with its plain version "
+                           f"({wgrad_err} of {wgrad_max}) or is not "
+                           f"deterministic ({same})")
+    del got, want
     for name, fn, plain, (bnd, by) in [
             ("forward, dropout 0.2",
              lambda: ft.gemm_fwd(h, w, rows, m, seed=9, rate=RATE),
@@ -468,12 +512,17 @@ def train_gemms(ft, dev, card) -> dict:
              lambda: ft.gemm_fwd(h, w, rows, m),
              lambda: ft.gemm_fwd_reference(h, w, rows, m), fwd_b),
             ("dgrad", lambda: ft.gemm_dgrad(g, wt, h, 1.25),
-             lambda: ft.gemm_dgrad_reference(g, wt, h, 1.25), dgrad_b)]:
+             lambda: ft.gemm_dgrad_reference(g, wt, h, 1.25), dgrad_b),
+            ("wgrad", lambda: ft.gemm_wgrad(g, h, k_split),
+             lambda: ft.gemm_wgrad_reference(g, h, k_split), wgrad_b)]:
         ms = time_ms(fn, 20)
         out[name] = dict(ms=ms, plain_ms=time_ms(plain, 2), bound_ms=bnd,
                          bound_by=by)
+    out["wgrad"].update(max_abs_err=wgrad_err, max_abs=wgrad_max,
+                        k_split=k_split)
     lib = {"forward": time_ms(lambda: torch.matmul(h, w.t()), 20),
-           "dgrad": time_ms(lambda: torch.matmul(g, wt.t()), 20)}
+           "dgrad": time_ms(lambda: torch.matmul(g, wt.t()), 20),
+           "wgrad": time_ms(lambda: torch.matmul(g.t(), h), 20)}
     for name, v in out.items():
         v["library_ms"] = lib[name.split(",")[0]]
         log(f"[fused_train] engine {name} at 2^20 x 512 x 512: {v['ms']:.3f} "
@@ -2664,8 +2713,8 @@ def bank_phase(dev, card, host_ms: float, k4_ms: float) -> dict:
     log_profile("bank", f"one traced epoch ({len(events)} steps) of the "
                 "fused route from the bank", twall, busy, top, card)
     want = {"fused_train": len(events), "gemm_fwd": 7 * len(events),
-            "gemm_dgrad": 7 * len(events), "relu_dropout_fwd": 0,
-            "relu_dropout_bwd": 0}
+            "gemm_dgrad": 7 * len(events), "gemm_wgrad": 7 * len(events),
+            "relu_dropout_fwd": 0, "relu_dropout_bwd": 0}
     if launches != want:
         raise RuntimeError(f"[bank] fused route launches {launches}, "
                            f"expected {want}")
@@ -3696,11 +3745,12 @@ def main() -> int:
             f"{[round(v, 6) for v in l1]}, {ms_step:.1f} ms/step after one "
             f"warm-up step, launches {route_launches} [{card}]")
         want = ({"relu_dropout_fwd": 32, "relu_dropout_bwd": 32,
-                 "fused_train": 0, "gemm_fwd": 0, "gemm_dgrad": 0}
+                 "fused_train": 0, "gemm_fwd": 0, "gemm_dgrad": 0,
+                 "gemm_wgrad": 0}
                 if route != "fused_train" else
                 {"relu_dropout_fwd": 0, "relu_dropout_bwd": 0,
                  "fused_train": 4, "gemm_fwd": 4 * n_gemm,
-                 "gemm_dgrad": 4 * n_gemm})
+                 "gemm_dgrad": 4 * n_gemm, "gemm_wgrad": 4 * n_gemm})
         if route_launches != want:
             raise RuntimeError(f"route {route}: launches {route_launches}, "
                                f"expected {want}")

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) primitives shared by the port's wgmma kernels
 // (csrc/fused_eval_pairs.cu, csrc/fused_train.cu): shared-memory
-// addresses, wgmma shared-memory descriptors (no swizzle and 128-byte
-// swizzle, both K-major), mbarriers, bulk and tensor (TMA) copies,
+// addresses, wgmma shared-memory descriptors (no swizzle K-major; 128-byte
+// swizzle K-major and MN-major), mbarriers, bulk and tensor (TMA) copies,
 // clusters, proxy fences, setmaxnreg, and the wgmma products themselves.
 
 #pragma once
@@ -36,6 +36,21 @@ constexpr uint32_t SW128_SBO = 1024;
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(SW128_SBO >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// wgmma descriptor of an MN-major operand (M or N contiguous, read with
+// the transpose bit set) in the 128-byte swizzle layout that a TMA box of
+// 64 MN elements (one 128-byte row) x K rows writes: row k of an 8-row
+// group at 128 k bytes, 16-byte chunk c of a row at c ^ (k % 8), 8-row
+// groups of K SW128_SBO bytes apart, and 64-element MN atoms (the next
+// box) `lbo` bytes apart. A k16 step starts at tile + 16 * 128 * step, two
+// whole 8-row groups on, so the swizzle phase and the base offset stay 0.
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr,
+                                                  uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>(SW128_SBO >> 4) << 32) |
          (static_cast<uint64_t>(1) << 62);
 }
@@ -200,7 +215,9 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
 }
 
-// ---- wgmma: D[64, NW] += A[64, 16] B[NW, 16]^T, both K-major in shared memory
+// ---- wgmma: D[64, NW] += A[64, 16] B[NW, 16]^T from shared memory, both
+// operands K-major (TRANS = 0) or both MN-major (TRANS = 1: the transpose
+// immediates imm-trans-a = imm-trans-b = 1, bf16 only)
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
@@ -217,25 +234,25 @@ __device__ __forceinline__ void wgmma_wait() {
 
 #define SM90_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 
-template <int NW>
+template <int NW, int TRANS = 0>
 struct Wgmma;
 
-template <>
-struct Wgmma<32> {
+template <int TRANS>
+struct Wgmma<32, TRANS> {
   __device__ __forceinline__ static void run(float (&d)[16], uint64_t a,
                                              uint64_t b) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      "}, %16, %17, p, 1, 1, %19, %19;\n}\n"
       : SM90_F4(0), SM90_F4(4), SM90_F4(8), SM90_F4(12)
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS));
   }
 };
 
-template <>
-struct Wgmma<64> {
+template <int TRANS>
+struct Wgmma<64, TRANS> {
   __device__ __forceinline__ static void run(float (&d)[32], uint64_t a,
                                              uint64_t b) {
     asm volatile(
@@ -243,15 +260,15 @@ struct Wgmma<64> {
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %35;\n}\n"
       : SM90_F4(0), SM90_F4(4), SM90_F4(8), SM90_F4(12), SM90_F4(16),
         SM90_F4(20), SM90_F4(24), SM90_F4(28)
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS));
   }
 };
 
-template <>
-struct Wgmma<128> {
+template <int TRANS>
+struct Wgmma<128, TRANS> {
   __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,
                                              uint64_t b) {
     asm volatile(
@@ -261,17 +278,17 @@ struct Wgmma<128> {
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %67;\n}\n"
       : SM90_F4(0), SM90_F4(4), SM90_F4(8), SM90_F4(12), SM90_F4(16),
         SM90_F4(20), SM90_F4(24), SM90_F4(28), SM90_F4(32), SM90_F4(36),
         SM90_F4(40), SM90_F4(44), SM90_F4(48), SM90_F4(52), SM90_F4(56),
         SM90_F4(60)
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS));
   }
 };
 
-template <>
-struct Wgmma<256> {
+template <int TRANS>
+struct Wgmma<256, TRANS> {
   __device__ __forceinline__ static void run(float (&d)[128], uint64_t a,
                                              uint64_t b) {
     asm volatile(
@@ -285,7 +302,7 @@ struct Wgmma<256> {
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %131;\n}\n"
       : SM90_F4(0), SM90_F4(4), SM90_F4(8), SM90_F4(12), SM90_F4(16),
         SM90_F4(20), SM90_F4(24), SM90_F4(28), SM90_F4(32), SM90_F4(36),
         SM90_F4(40), SM90_F4(44), SM90_F4(48), SM90_F4(52), SM90_F4(56),
@@ -293,7 +310,7 @@ struct Wgmma<256> {
         SM90_F4(80), SM90_F4(84), SM90_F4(88), SM90_F4(92), SM90_F4(96),
         SM90_F4(100), SM90_F4(104), SM90_F4(108), SM90_F4(112),
         SM90_F4(116), SM90_F4(120), SM90_F4(124)
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS));
   }
 };
 

@@ -21,10 +21,12 @@ mask of `ops.relu_dropout` for layer seed seed + 7919 * layer and row =
 the point's index in the flat [S*P] batch, so with dropout on this pass
 sees the same mask as the decoder's `dropout_impl="pallas"` forward.
 
-The forward and dgrad GEMMs of the pass run on the kernel's Hopper GEMM
-engine (TMA ring, wgmma, persistent CTAs; its layout is modelled in
-`ops.train_gemm`), callable alone as `gemm_fwd` / `gemm_dgrad` with plain
-versions `gemm_fwd_reference` / `gemm_dgrad_reference`.
+The forward, dgrad and wgrad GEMMs of the pass run on the kernel's
+Hopper GEMM engine (TMA ring, wgmma, persistent CTAs; wgrad with both
+operands transposed and split-K over fixed chunks of points; the layouts
+are modelled in `ops.train_gemm`), callable alone as `gemm_fwd` /
+`gemm_dgrad` / `gemm_wgrad` with plain versions `gemm_fwd_reference` /
+`gemm_dgrad_reference` / `gemm_wgrad_reference`.
 
 `make_fused_ad_loss_grads(decoder, cfg)` is the training step's loss and
 gradient function: it folds the decoder's parameters with torch autograd
@@ -38,7 +40,6 @@ scatters the dz rows into the dense code gradient with `index_add_`
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Callable, Optional
 
 import torch
@@ -52,15 +53,16 @@ from latent_diffusion_models_for_shape_sdfs_torch.models.latent_table import (
     gather_codes)
 from latent_diffusion_models_for_shape_sdfs_torch.ops import _build
 from latent_diffusion_models_for_shape_sdfs_torch.ops.train_gemm import (
-    TN_LAYOUT, check_shape)
+    TN_LAYOUT, WGRAD_LAYOUT, check_shape, check_wgrad_shape, wgrad_chunk)
 from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
     EvalLayer, EvalWeights, precompute_eval_weights)
 from latent_diffusion_models_for_shape_sdfs_torch.ops.relu_dropout import (
     dropout_keep_mask, keep_threshold, layer_seed)
 
-LAUNCHES = {"fused_train": 0, "gemm_fwd": 0, "gemm_dgrad": 0}
+LAUNCHES = {"fused_train": 0, "gemm_fwd": 0, "gemm_dgrad": 0,
+            "gemm_wgrad": 0}
 TILE = 256          # points per colsum chunk; P % TILE == 0 (the TPU tile)
-_PAD = 128          # hidden widths are padded to the GEMM's block tile
+_PAD = 128          # hidden widths are padded to the GEMMs' tile rows
 _KEYS = ("w_h", "w_z", "w_x", "b")
 
 
@@ -162,7 +164,7 @@ def _lib():
             "ft_gemm_fwd": [vp, vp, i32, i32, i32, i32, vp, ll, ll, vp, vp,
                             u32, u32, f32, i32, vp, vp],
             "ft_gemm_dgrad": [vp, vp, i32, i32, i32, i32, vp, f32, vp, vp],
-            "ft_gemm_wgrad": [vp, ll, vp, ll, i32, i32, ll, ll, vp, vp],
+            "ft_gemm_wgrad": [vp, vp, i32, i32, ll, ll, i32, vp, vp],
             "ft_scene_rows": [vp, vp, vp, vp, i32, i32, i32, vp],
             "ft_layer0": [vp, vp, vp, vp, ll, ll, i32, u32, u32, f32, i32,
                           vp],
@@ -177,17 +179,22 @@ def _lib():
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             fn.argtypes = args
-        consts = (ctypes.c_int * 5)()
+        consts = (ctypes.c_int * 2)()
         lib.ft_constants.restype = None
         lib.ft_constants(consts)
         layout = (ctypes.c_int * len(TN_LAYOUT))()
         lib.ft_gemm_layout.restype = None
         lib.ft_gemm_layout(layout)
-        if (list(consts) != [_PAD, _PAD, 32, 64, TILE]
-                or list(layout) != list(TN_LAYOUT.values())):
+        wlayout = (ctypes.c_int * len(WGRAD_LAYOUT))()
+        lib.ft_wgrad_layout.restype = None
+        lib.ft_wgrad_layout(wlayout)
+        if (list(consts) != [64, TILE]
+                or list(layout) != list(TN_LAYOUT.values())
+                or list(wlayout) != list(WGRAD_LAYOUT.values())):
             raise RuntimeError("csrc/fused_train.cu and fused_train.py / "
                                "train_gemm.py disagree on tile sizes or the "
-                               f"GEMM layout: {list(consts)} {list(layout)}")
+                               f"GEMM layouts: {list(consts)} {list(layout)} "
+                               f"{list(wlayout)}")
         lib._argtypes_set = True
     return lib
 
@@ -304,6 +311,48 @@ def gemm_dgrad(g: torch.Tensor, wt: torch.Tensor, hprev: torch.Tensor,
     return out
 
 
+def gemm_wgrad_reference(g: torch.Tensor, h: torch.Tensor,
+                         k_split: int) -> torch.Tensor:
+    """Plain version of the wgrad GEMM role: the f32 partials [K //
+    k_split, M, N] of g^T h, chunk c summing points c k_split .. (c + 1)
+    k_split - 1 of g [K, M] and h [K, N] (bf16 operands, f32 products and
+    sums)."""
+    c = g.shape[0] // k_split
+    return torch.bmm(g.float().reshape(c, k_split, -1).transpose(1, 2),
+                     h.float().reshape(c, k_split, -1))
+
+
+def gemm_wgrad(g: torch.Tensor, h: torch.Tensor, k_split: int
+               ) -> torch.Tensor:
+    """The wgrad GEMM role, per-chunk partials [K // k_split, M, N] f32 of
+    g [K, M]^T h [K, N] (bf16, K = the points, M the layer's output width,
+    N its input width; see gemm_wgrad_reference): on any device the shapes
+    are checked first (M a multiple of 128, N of 128, k_split a multiple of
+    64 dividing K; contiguous, 16-byte aligned bf16 operands; raises
+    otherwise), then the plain version runs on CPU tensors and one launch
+    of the wgrad kernel on CUDA tensors. The caller sums the chunks in a
+    fixed order."""
+    for t in (g, h):
+        if (t.dtype != torch.bfloat16 or t.ndim != 2 or not t.is_contiguous()
+                or t.device != g.device or t.data_ptr() % 16):
+            raise ValueError(f"gemm_wgrad: operands must be contiguous, "
+                             f"16-byte aligned bf16 matrices on one device, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if g.shape[0] != h.shape[0]:
+        raise ValueError(f"gemm_wgrad: K (points) of {tuple(g.shape)} and "
+                         f"{tuple(h.shape)}")
+    (k, m), n = g.shape, h.shape[1]
+    bn = check_wgrad_shape(m, n, k, k_split)
+    if g.device.type == "cpu":
+        return gemm_wgrad_reference(g, h, k_split)
+    part = torch.empty(k // k_split, m, n, dtype=torch.float32,
+                       device=g.device)
+    _call("ft_gemm_wgrad", g.data_ptr(), h.data_ptr(), m, n, k, k_split, bn,
+          part.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream)
+    LAUNCHES["gemm_wgrad"] += 1
+    return part
+
+
 def _pad2(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return F.pad(w, (0, cols - w.shape[1], 0, rows - w.shape[0])).contiguous()
 
@@ -402,7 +451,7 @@ def _fused_train_cuda(ew: EvalWeights, z, xyz, sdf, num_sdf_samples,
 
     # ---- hidden layers, top down
     dz = torch.zeros(S, L, dtype=torch.float32, device=dev)
-    k_split = math.gcd(N, 16384)
+    k_split = wgrad_chunk(N)
     for i in range(n_lin - 2, -1, -1):
         lay, wi, wt = layers[i], width[i], true_out[i]
         part = torch.empty(N // TILE, 4 * wi, dtype=torch.float32,
@@ -423,11 +472,9 @@ def _fused_train_cuda(ew: EvalWeights, z, xyz, sdf, num_sdf_samples,
                   S, L, wi, 1, stream)
         if i > 0:
             k_in = width[i - 1]
-            part_w = torch.empty(N // k_split, wi * k_in,
-                                 dtype=torch.float32, device=dev)
-            _call("ft_gemm_wgrad", g.data_ptr(), wi, hs[i - 1].data_ptr(),
-                  k_in, wi, k_in, N, k_split, part_w.data_ptr(), stream)
-            dw = _sum_parts(part_w, stream).reshape(wi, k_in)
+            part_w = gemm_wgrad(g, hs[i - 1], k_split)
+            dw = _sum_parts(part_w.reshape(N // k_split, wi * k_in),
+                            stream).reshape(wi, k_in)
             gr["w_h"] = dw[:wt, :lay.w_h.shape[1]]
             g = gemm_dgrad(g, w_h[i].t().contiguous(), hs[i - 1], scale)
         grads[i] = gr

@@ -1,18 +1,24 @@
-"""Layout of kernel #4's forward/dgrad GEMM engine, in plain Python.
+"""Layout of kernel #4's GEMM engine, in plain Python.
 
-`csrc/fused_train.cu` (`tn_gemm_kernel`) computes C[M, N] = A[M, K]
-B[N, K]^T with TMA copies into a ring of 128-byte-swizzled shared-memory
-stages, wgmma products and persistent CTAs. What the card cannot debug is
-modelled here: the constants (`TN_LAYOUT`, which the wrapper checks
-against the kernel at load), the tensor maps' boxes, the persistent tile
-schedule, the swizzle the TMA copies write and the wgmma descriptors read,
-the accumulator's (row, col) map with the Philox block exchange of the
-forward epilogue, and the output tile the epilogue stores into and the
-TMA store reads. tests/test_torch_train_gemm.py checks the models on the
-CPU; nothing here runs on the card.
+`csrc/fused_train.cu` (`tn_gemm_kernel`) computes the forward and dgrad
+roles, C[M, N] = A[M, K] B[N, K]^T, with TMA copies into a ring of
+128-byte-swizzled shared-memory stages, wgmma products and persistent
+CTAs; `mn_wgrad_kernel` computes the wgrad role, per-chunk partials of
+g^T h over the points, on the same ring, warps and wgmma with both
+operands read MN-major (transposed) from their stored [points][cols]
+layout. What the card cannot debug is modelled here: the constants
+(`TN_LAYOUT`, `WGRAD_LAYOUT`, which the wrapper checks against the kernel
+at load), the tensor maps' boxes, the persistent tile and split-K unit
+schedules, the swizzle the TMA copies write and the K-major and MN-major
+wgmma descriptors read, the accumulator's (row, col) map with the Philox
+block exchange of the forward epilogue, and the output tile the epilogue
+stores into and the TMA store reads. tests/test_torch_train_gemm.py
+checks the models on the CPU; nothing here runs on the card.
 """
 
 from __future__ import annotations
+
+import math
 
 # csrc/fused_train.cu ft_gemm_layout(), in this order
 TN_LAYOUT = dict(bm=128,            # tile rows: 64 per consumer warpgroup
@@ -27,6 +33,21 @@ TN_LAYOUT = dict(bm=128,            # tile rows: 64 per consumer warpgroup
                  # the ring, the 128 x 256 output tile, 8 barriers, slack
                  smem=3 * 49152 + 65536 + 8 * 8 + 1024)
 WG_ROWS = 64                        # rows of a tile per consumer warpgroup
+# csrc/fused_train.cu ft_wgrad_layout(), in this order
+WGRAD_LAYOUT = dict(bm=128,         # tile rows (out): 64 per consumer warpgroup
+                    bk=64,          # points per ring stage
+                    max_bn=256,     # widest tile (in)
+                    stages=4,       # ring stages
+                    swizzle_bytes=128,
+                    lbo=8192,       # descriptor: bytes between 64-column atoms
+                    sbo=1024,       # descriptor: bytes between 8-point groups
+                    stage_bytes=49152,  # g 2 boxes + h 4 boxes of 8 KB
+                    threads=384,    # two consumer warpgroups + a producer's
+                    # the ring, 8 barriers, slack
+                    smem=4 * 49152 + 8 * 8 + 1024)
+BOX = 64                            # a wgrad TMA box: 64 columns x 64 points
+BOX_BYTES = BOX * WGRAD_LAYOUT["bk"] * 2
+WGRAD_CHUNK = 16384                 # the most points a split-K chunk takes
 
 
 def tile_width(n: int) -> int:
@@ -158,3 +179,88 @@ def dropout_words(warp: int, lane: int, j: int, row0: int = 0,
              (own, 2) if odd else (other, sent[0]),
              (own, 3) if odd else (other, sent[1])]
     return [(r, g, w) for (r, g), w in words]
+
+
+# ------------------------------------------------------------ wgrad role
+
+
+def wgrad_chunk(n_points: int) -> int:
+    """The split-K chunk the pass gives the wgrad role for n_points: the
+    largest power of two dividing n_points, at most WGRAD_CHUNK. It
+    depends on the shape alone (never on the card's SM count), so the
+    partials, and their fixed-order sum, are the same on any grid."""
+    return math.gcd(n_points, WGRAD_CHUNK)
+
+
+def check_wgrad_shape(m: int, n: int, k: int, k_split: int) -> int:
+    """Raises ValueError unless the wgrad kernel takes partials [k //
+    k_split, m, n] from K = k points; returns the tile width."""
+    if m <= 0 or m % WGRAD_LAYOUT["bm"]:
+        raise ValueError(f"wgrad GEMM: out width {m} is not a positive "
+                         f"multiple of {WGRAD_LAYOUT['bm']}")
+    bn = tile_width(n)
+    if (k_split <= 0 or k_split % WGRAD_LAYOUT["bk"] or k <= 0
+            or k % k_split or k >= 2 ** 31):
+        raise ValueError(f"wgrad GEMM: chunk {k_split} must be a positive "
+                         f"multiple of {WGRAD_LAYOUT['bk']} points dividing "
+                         f"K = {k}")
+    return bn
+
+
+def mn_tensor_map(points: int, cols: int) -> dict:
+    """The 2-D tensor map the wgrad kernel encodes for a row-major
+    [points][cols] bf16 operand (g or h): dims and box innermost first,
+    the row stride in bytes; a box is 64 columns (one 128-byte row) x 64
+    points."""
+    return dict(dims=(cols, points), strides=(2 * cols,),
+                box=(BOX, WGRAD_LAYOUT["bk"]),
+                swizzle=WGRAD_LAYOUT["swizzle_bytes"])
+
+
+def wgrad_maps(m: int, n: int, k: int, k_split: int) -> tuple:
+    """(map of g [k][m], map of h [k][n], tile width)."""
+    bn = check_wgrad_shape(m, n, k, k_split)
+    return mn_tensor_map(k, m), mn_tensor_map(k, n), bn
+
+
+def wgrad_schedule(m: int, n: int, bn: int, k: int, k_split: int,
+                   grid: int) -> list:
+    """Per CTA, the (m0, n0, k0) of the units it walks: unit u = (tile u %
+    tiles, chunk u // tiles), tile = (m block, n block) with n fastest;
+    CTA b takes u = b, b + grid, ...; the chunk of unit u covers points
+    k0 .. k0 + k_split - 1."""
+    n_tiles = n // bn
+    tiles = (m // WGRAD_LAYOUT["bm"]) * n_tiles
+    units = tiles * (k // k_split)
+    return [[(((u % tiles) // n_tiles) * WGRAD_LAYOUT["bm"],
+              (u % tiles) % n_tiles * bn, (u // tiles) * k_split)
+             for u in range(b, units, grid)] for b in range(min(grid, units))]
+
+
+def mn_tma_offset(point: int, col: int) -> int:
+    """Byte offset from a 1024-aligned stage operand at which the wgrad
+    kernel's TMA copies put element (point, col), point < 64: box col //
+    64 (8 KB each, side by side), in it row = point (128 bytes), the
+    128-byte swizzle."""
+    return (col // BOX) * BOX_BYTES + swizzle128(
+        point * WGRAD_LAYOUT["swizzle_bytes"] + 2 * (col % BOX))
+
+
+def mn_sw128_desc(addr: int, lbo: int) -> int:
+    """The wgmma descriptor csrc/sm90.cuh desc_sw128_mn builds for an
+    MN-major operand at shared address addr in the 128-byte swizzle mode:
+    LBO between 64-element MN atoms, SBO between 8-row groups of K."""
+    return (((addr & 0x3FFFF) >> 4) | (((lbo >> 4) & 0x3FFF) << 16)
+            | ((WGRAD_LAYOUT["sbo"] >> 4) << 32) | (1 << 62))
+
+
+def mn_wgmma_address(desc: int, mn: int, k: int) -> int:
+    """Shared address wgmma reads (transpose bit set) for element (mn, k),
+    k < 16, of an MN-major operand in the 128-byte swizzle mode: 64-element
+    MN atoms LBO apart, each K row of an atom 128 bytes, 8-row groups of K
+    SBO apart, the swizzle applied to the address."""
+    f = desc_fields(desc)
+    if f["mode"] != 1 or f["base"] != 0:
+        raise ValueError(f"not a 128-byte swizzle descriptor: {f}")
+    return swizzle128(f["start"] + (mn // BOX) * f["lbo"] + (k // 8) * f["sbo"]
+                      + (k % 8) * 128 + 2 * (mn % BOX))

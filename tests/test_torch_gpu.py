@@ -478,6 +478,42 @@ def test_train_gemm_wrappers_check_inputs(cuda):
         ft.gemm_dgrad(h[:, :96].contiguous(), w[:, :96].contiguous(), h, 1.0)
 
 
+# ------------- kernel #4's wgrad role (MN-major TMA + wgmma, split-K)
+
+WGRAD_WIDTHS = [(512, 512), (256, 512), (512, 256), (128, 128)]  # (out, in)
+
+
+@pytest.mark.parametrize("m,n", WGRAD_WIDTHS)
+@pytest.mark.parametrize("k_split", [3072, 16384])
+def test_train_gemm_wgrad_matches_plain_version(m, n, k_split, cuda):
+    """The wgrad role at the decoder's (out, in) width pairs and two chunk
+    sizes over 3 x 16,384 points: small-integer bf16 operands, whose f32
+    sums are exact in any order, equal the plain version bit for bit (a
+    layout or transpose fault shows as a wrong value, not as noise);
+    random operands within 1e-3 of the output's max; two launches
+    bit-identical."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import fused_train as ft
+    k = 3 * 16384
+    rng = np.random.default_rng(m + n + k_split)
+    g, h = (torch.from_numpy(rng.integers(-3, 4, (k, w)).astype(np.float32))
+            .to(torch.bfloat16).to(cuda) for w in (m, n))
+    n0 = ft.LAUNCHES["gemm_wgrad"]
+    got = ft.gemm_wgrad(g, h, k_split)
+    torch.cuda.synchronize()
+    assert ft.LAUNCHES["gemm_wgrad"] == n0 + 1
+    assert got.shape == (k // k_split, m, n)
+    assert torch.equal(got, ft.gemm_wgrad_reference(g, h, k_split))
+    g = _bf16(rng, (k, m), 1e-3, cuda)
+    h = torch.relu(_bf16(rng, (k, n), cuda=cuda))
+    got = ft.gemm_wgrad(g, h, k_split)
+    again = ft.gemm_wgrad(g, h, k_split)
+    want = ft.gemm_wgrad_reference(g, h, k_split)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    assert err <= 1e-3 * float(want.abs().max()), err
+    assert torch.equal(got, again)
+
+
 # ------------------------------------- per-point-latent eval kernel (#2)
 
 MULTICAT = (pathlib.Path(__file__).resolve().parents[1] / "runs"

@@ -1,11 +1,13 @@
-"""Probe the forward/dgrad GEMM engine of kernel #4 (csrc/fused_train.cu,
-tn_gemm_kernel) on the card: which part of it binds.
+"""Probe the GEMM engine of kernel #4 (csrc/fused_train.cu: tn_gemm_kernel
+for the forward and dgrad roles, mn_wgrad_kernel for the wgrad role) on
+the card: which part of it binds.
 
     python3 tools/train_gemm_probe.py [--out PATH]
 
 Builds the kernel and variants of its source, each with a part taken out
 or changed, into csrc/build/probe/:
-  - "no output store": the epilogue into shared memory, no TMA store;
+  - "no output store": the epilogue into shared memory, no TMA store (the
+    wgrad role: no partial stores);
   - "no epilogue": the products and the pipeline; nothing is stored (the
     dgrad's h_prev loads stay);
   - "no wgmma": the loads, the pipeline and the epilogue on zeros;
@@ -13,11 +15,12 @@ or changed, into csrc/build/probe/:
     0 bytes); the products on whatever the ring holds, and the epilogue
     (with its output stores and the dgrad's h_prev loads);
   - "1 consumer warpgroup": 64-row tiles, one consumer warpgroup.
-Times each at 2^20 x 512 x 512 in three roles: forward with dropout 0.2,
-forward without dropout (the Philox work taken out at run time), dgrad;
-checks the complete kernels against the plain versions; prints one line
-per variant and role with the card and the bounds. Needs one CUDA card;
-`--out` writes the numbers as JSON.
+Times each at 2^20 x 512 x 512 in four roles: forward with dropout 0.2,
+forward without dropout (the Philox work taken out at run time), dgrad,
+and wgrad (partials over 16,384-point chunks); checks the complete
+kernels against the plain versions; prints one line per variant and role
+with the card and the bounds. Needs one CUDA card; `--out` writes the
+numbers as JSON.
 """
 
 from __future__ import annotations
@@ -45,6 +48,11 @@ def _rep(text: str, old: str, new: str) -> str:
 def variants(src: str) -> dict:
     """name -> source text of each probed variant."""
     def no_store(t):
+        t = _rep(t, "        *reinterpret_cast<float2*>(out + 8 * j) =",
+                 "        if (false) *reinterpret_cast<float2*>(out + 8 * j) =")
+        t = _rep(t, "        *reinterpret_cast<float2*>(out + 8LL * p.n + 8 * j) =",
+                 "        if (false)\n"
+                 "        *reinterpret_cast<float2*>(out + 8LL * p.n + 8 * j) =")
         return _rep(t, "          tma_store_2d(&map_o,",
                     "          if (false) tma_store_2d(&map_o,")
 
@@ -53,10 +61,20 @@ def variants(src: str) -> dict:
                     "      if (false) tn_epilogue<BN, EPI>(acc,")
 
     def no_wgmma(t):
+        t = _rep(t, "          Wgmma<BN, 1>::run(",
+                 "          if (false) Wgmma<BN, 1>::run(")
         return _rep(t, "          Wgmma<BN>::run(acc,",
                     "          if (false) Wgmma<BN>::run(acc,")
 
     def no_tma(t):
+        t = _rep(t, "mbar_expect_tx(f, (TN_BM + BN) * WG_BK * 2);",
+                 "mbar_expect_tx(f, 0u);")
+        t = _rep(t, "            tma_load_2d(s + b * WG_BOX_BYTES, &map_g,",
+                 "            if (false) tma_load_2d(s + b * WG_BOX_BYTES, "
+                 "&map_g,")
+        t = _rep(t, "            tma_load_2d(s + WG_A_BYTES + b * WG_BOX_BYTES,",
+                 "            if (false) tma_load_2d(s + WG_A_BYTES + b * "
+                 "WG_BOX_BYTES,")
         t = _rep(t, "mbar_expect_tx(f, (TN_BM + BN) * TN_BK * 2);",
                  "mbar_expect_tx(f, 0u);")
         t = _rep(t, "          tma_load_2d(s, &map_a,",
@@ -137,12 +155,15 @@ def main() -> int:
     rows = torch.randn(1, n, generator=gen, device=dev)
     g = (torch.randn(m, n, generator=gen, device=dev) * 1e-3).to(bf)
     wt = w.t().contiguous()
+    k_split = tg.wgrad_chunk(m)
     ops_ms = 2.0 * m * n * k / PEAK_BF16_FLOPS * 1e3
     bounds = {"forward, dropout 0.2": max(ops_ms, 4.0 * m * 512 /
                                           PEAK_HBM_BYTES * 1e3),
               "forward, dropout 0": max(ops_ms, 4.0 * m * 512 /
                                         PEAK_HBM_BYTES * 1e3),
-              "dgrad": max(ops_ms, 6.0 * m * 512 / PEAK_HBM_BYTES * 1e3)}
+              "dgrad": max(ops_ms, 6.0 * m * 512 / PEAK_HBM_BYTES * 1e3),
+              "wgrad": max(ops_ms, (4.0 * m * 512 + 4.0 * (m // k_split)
+                                    * n * k) / PEAK_HBM_BYTES * 1e3)}
     roles = {"forward, dropout 0.2":
              (lambda: ft.gemm_fwd(h, w, rows, m, seed=9, rate=0.2),
               lambda: ft.gemm_fwd_reference(h, w, rows, m, seed=9, rate=0.2)),
@@ -150,17 +171,23 @@ def main() -> int:
              (lambda: ft.gemm_fwd(h, w, rows, m),
               lambda: ft.gemm_fwd_reference(h, w, rows, m)),
              "dgrad": (lambda: ft.gemm_dgrad(g, wt, h, 1.25),
-                       lambda: ft.gemm_dgrad_reference(g, wt, h, 1.25))}
+                       lambda: ft.gemm_dgrad_reference(g, wt, h, 1.25)),
+             "wgrad": (lambda: ft.gemm_wgrad(g, h, k_split),
+                       lambda: ft.gemm_wgrad_reference(g, h, k_split))}
     print(f"[probe] {card}; 2^20 x 512 x 512; bounds {bounds} ms (products "
           f"{ops_ms:.3f} ms)", flush=True)
     layout = dict(tg.TN_LAYOUT)
+    wlayout = dict(tg.WGRAD_LAYOUT)
     results = {}
     for name, lib in libs.items():
-        # route the wrapper to this variant's library and layout
+        # route the wrapper to this variant's library and layouts
         cdll = ctypes.CDLL(str(lib))
-        got = (ctypes.c_int * len(layout))()
-        cdll.ft_gemm_layout(got)
-        tg.TN_LAYOUT.update(zip(layout, got))
+        for fn, lay, model in ((cdll.ft_gemm_layout, layout, tg.TN_LAYOUT),
+                               (cdll.ft_wgrad_layout, wlayout,
+                                tg.WGRAD_LAYOUT)):
+            got = (ctypes.c_int * len(lay))()
+            fn(got)
+            model.update(zip(lay, got))
         _build._LOADED["fused_train.cu"] = cdll
         results[name] = {}
         for role, (fn, plain) in roles.items():
@@ -178,6 +205,7 @@ def main() -> int:
                   f"{bounds[role]:.3f} ms), max err {err}", flush=True)
     _build._LOADED.pop("fused_train.cu", None)
     tg.TN_LAYOUT.update(layout)
+    tg.WGRAD_LAYOUT.update(wlayout)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(dict(card=card, bounds_ms=bounds,
