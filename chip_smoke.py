@@ -40,6 +40,17 @@ before CUDA is), then:
      and 0), dgrad and wgrad roles alone at 2^20 x 512 x 512 (wgrad held
      against its plain version) beside torch.matmul of the same bf16
      product (a yardstick the port never calls);
+ 6b. [profile] utils/profiling on the committed 8x512 decoder: under
+     debug_nans a fused pass (#4) with one NaN sdf label, #3 on a [2^20,
+     512] bf16 input with one NaN row and #1 through KernelApply with a
+     NaN code each raise FloatingPointError naming the kernel; the
+     healthy pass and one autograd-route step (#3/#3b) bit-equal with the
+     checker and without, and the pass's time with it beside without;
+     cost_analysis of one #4 pass, one #1 launch and one #2 launch at
+     2^20 points within 1% of their plain versions' aten counts, each
+     count over the time measured above as TFLOP/s (#3/#3b: bytes, as
+     GB/s); a trace of one fused pass and one 256^3 decode must name
+     tn_gemm_kernel, mn_wgrad_kernel and fused_eval_kernel;
   7. [train] trains config 3's `ad` block (cut to 64 scenes, 20,000
      samples per shape, 4 epochs of one step) from the committed pack
      through both kernel routes (relu+dropout kernels; fused train
@@ -132,7 +143,9 @@ before CUDA is), then:
      through kernel #1 with its Chamfer-L2 (gates: MAP l1_last < 0.005,
      SDS < 0.01, encoder loss < 0.6, every mesh non-empty);
  16. [cli] runs the CLI in process on config 4's specs, cut in scale:
-     init-experiment, train-ad (150 epochs), train-diff, train-diff
+     init-experiment, train-ad (150 epochs) and train-diff with
+     --tensorboard (each event file read back: every TFRecord CRC, one
+     record per mirrored scalar of the JSONL log), train-diff
      --resume, sample at 256^3, eval, train-encoder (500 steps), reconstruct
      (MAP, --diffusion-prior, --encoder --refine-steps 0, --encoder) and
      serve-daemon --reconstruct encoder on one observation request, timing
@@ -1912,12 +1925,54 @@ def cli_store():
         workers=8)
 
 
+def check_event_file(logdir: pathlib.Path, jsonl: pathlib.Path) -> dict:
+    """[cli]: the one TensorBoard event file under `logdir`, read as
+    TFRecords with every masked CRC-32C checked (this machine has no
+    proto decoder), and its record count against the JSONL log's: the
+    file-version record plus one scalar per numeric field of each record
+    with a step or epoch."""
+    import struct
+    from latent_diffusion_models_for_shape_sdfs_torch.utils.logging import (
+        masked_crc32c)
+    f, = logdir.glob("events.out.tfevents.*")
+    data, off, n = f.read_bytes(), 0, 0
+    while off + 12 <= len(data):
+        head = data[off:off + 8]
+        size, = struct.unpack("<Q", head)
+        body = data[off + 12:off + 12 + size]
+        crcs = struct.unpack("<II", data[off + 8:off + 12]
+                             + data[off + 12 + size:off + 16 + size])
+        if crcs != (masked_crc32c(head), masked_crc32c(body)):
+            raise RuntimeError(f"{f}: record {n} fails its CRC")
+        off, n = off + 16 + size, n + 1
+    want = 1
+    for line in jsonl.read_text().splitlines():
+        rec = json.loads(line)
+        fields = {k: v for k, v in rec.items() if k not in ("event", "time")}
+        if fields.get("step", fields.get("epoch")) is None:
+            continue
+        for k, v in fields.items():
+            if k in ("step", "epoch"):
+                continue
+            try:
+                float(v)
+            except (TypeError, ValueError):
+                continue
+            want += 1
+    if off != len(data) or n != want:
+        raise RuntimeError(f"{f}: {n} records in {off} of {len(data)} "
+                           f"bytes, the log mirrors {want - 1} scalars")
+    return dict(file=f.name, bytes=len(data), records=n)
+
+
 def cli_phase(dev, card, store) -> dict:
     """[cli] the CLI in process on config 4's specs (every field passed
     with --set), cut in scale: init-experiment, train-ad, train-diff,
     train-diff --resume, sample at 256^3, eval; each stage's wall time and
-    the launches of kernels #3/#3b (train-ad) and #1 (sample, eval). The
-    stages take `store` (cli_store) for their analytic store."""
+    the launches of kernels #3/#3b (train-ad) and #1 (sample, eval);
+    train-ad's and train-diff's --tensorboard event files (read back by
+    check_event_file). The stages take `store` (cli_store) for their
+    analytic store."""
     import contextlib
     import io
     import torch
@@ -1956,8 +2011,8 @@ def cli_phase(dev, card, store) -> dict:
                                  specs["data_source"], *sets(specs),
                                  *(a for k, v in cuts.items()
                                    for a in ("--set", f"{k}={v}"))]),
-            ("train-ad", ["train-ad", exp]),
-            ("train-diff", ["train-diff", exp]),
+            ("train-ad", ["train-ad", exp, "--tensorboard"]),
+            ("train-diff", ["train-diff", exp, "--tensorboard"]),
             ("train-diff --resume", ["train-diff", exp, "--resume"]),
             ("sample", ["sample", exp, "--res", str(RES)]),
             ("eval", ["eval", exp, "--points", str(points)]),
@@ -1988,6 +2043,7 @@ def cli_phase(dev, card, store) -> dict:
             return build(cfg)
 
         pipeline.build_dataset = shared
+        tb: dict = {}
         try:
             for name, argv in stages:
                 for d in (rd.LAUNCHES, ck.LAUNCHES):
@@ -2004,6 +2060,12 @@ def cli_phase(dev, card, store) -> dict:
                             "fused_eval": ck.LAUNCHES["fused_eval"]}
                 out["stages"][name] = dict(s=wall, launches=launches)
                 log(f"[cli] {name}: {wall:.2f} s, launches {launches}")
+                if "--tensorboard" in argv:     # before a resume appends
+                    stage = {"train-ad": "ad", "train-diff": "diff"}[name]
+                    tb[stage] = check_event_file(
+                        pathlib.Path(exp) / "logs" / "tb" / stage,
+                        pathlib.Path(exp) / "logs" / (
+                            f"train_{stage}.jsonl"))
         finally:
             pipeline.build_dataset = build
         ev = json.loads((pathlib.Path(exp) / "evals" / "chamfer.json")
@@ -2022,6 +2084,8 @@ def cli_phase(dev, card, store) -> dict:
                        for p in sorted((pathlib.Path(exp) /
                                         "reconstructions").glob("*.obj"))}
         daemon = json.loads((served / "obs.stats.json").read_text())
+    log(f"[cli] --tensorboard event files, every CRC checked, one record "
+        f"per mirrored scalar: {tb}")
     st = out["stages"]
     log(f"[cli] train-encoder's last loss {enc_last['loss']:.4f} at step "
         f"{enc_last['step']}; reconstructions at {cuts['sample.grid_res']}^3"
@@ -2053,7 +2117,7 @@ def cli_phase(dev, card, store) -> dict:
                nc_mean=ev.get("normal_consistency_mean"),
                num_failed=ev["num_failed"], sample_faces=n_faces,
                enc_loss=enc_last["loss"], recon_faces=recon_faces,
-               daemon_faces=daemon[0]["faces"])
+               daemon_faces=daemon[0]["faces"], tensorboard=tb)
     return out
 
 
@@ -2576,6 +2640,228 @@ DP_SEED = 123             # the bank draws' generator in [dp]
 DP_CASES = [("fused", "host", 0.0), ("fused", "bank", 0.0),
             ("autograd", "host", 0.0), ("autograd", "bank", 0.0),
             ("fused", "bank", RATE), ("autograd", "bank", RATE)]
+
+
+def _raises_naming(what: str, name: str, fn) -> str:
+    """[profile]: fn() must raise FloatingPointError whose message names
+    `name`; returns the message."""
+    import torch
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except FloatingPointError as e:
+        if name not in str(e):
+            raise RuntimeError(f"[profile] {what}: the NaN checker named "
+                               f"another op: {e}") from e
+        log(f"[profile] debug_nans, {what}: FloatingPointError({e})")
+        return str(e)
+    raise RuntimeError(f"[profile] {what}: no FloatingPointError")
+
+
+def _same(a, b) -> bool:
+    """Bitwise equality of two nests of tensors, lists and dicts."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def profile_phase(dev, card, decoder, apply, z0, p20, ft_args,
+                  batch: tuple, ad_cfg, sd, codes, ms: dict) -> dict:
+    """[profile] utils/profiling on the card, on the committed 8x512 chair
+    decoder with TF32 off.
+
+    debug_nans: one fused pass of #4 at 64 x 16,384 with one sdf label
+    NaN, #3 on a [2^20, 512] bf16 input with one NaN row and #1 through
+    KernelApply with a NaN code each raise FloatingPointError naming the
+    kernel; the healthy fused pass and one autograd-route step (#3/#3b)
+    are bit-equal with the checker and without; the healthy pass's time
+    with the checker beside its time without (a record, not a gate).
+    cost_analysis: one #4 pass, one #1 launch at 2^20 points and one #2
+    launch (one code, 2^20 points) each count their plain version's FLOPs
+    within 1%; each count over the time [kernel] / [fused_train] /
+    [dropout] measured, as TFLOP/s (GB/s for #3/#3b). trace: one fused
+    pass and one 256^3 decode; the .pt.trace.json names tn_gemm_kernel,
+    mn_wgrad_kernel and fused_eval_kernel. `ms` holds those earlier
+    times; `batch` the [fused_train] batch (ids, xyz, sdf)."""
+    import torch
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        fused_train as ft, relu_dropout as rd)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.cuda_kernels import (
+        hoisted_rows, make_kernel_apply_pairs)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
+        fast_apply)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_eval_op import (
+        packed_plain)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.grid_eval import (
+        decode_grid_hierarchical3_sparse2)
+    from latent_diffusion_models_for_shape_sdfs_torch.serve import (
+        _default_caps)
+    from latent_diffusion_models_for_shape_sdfs_torch.train.auto_decoder import (
+        init_ad_state, make_ad_train_step)
+    from latent_diffusion_models_for_shape_sdfs_torch.utils import (
+        profiling as prof)
+
+    t0 = time.perf_counter()
+    out: dict = {"card": card}
+    nan = float("nan")
+
+    # ---- debug_nans: a NaN reaching each kernel
+    ew, z, xyz, sdf = ft_args[:4]
+    sdf_nan = sdf.clone()
+    sdf_nan.view(-1)[12345] = nan
+    bad_args = (ew, z, xyz, sdf_nan, *ft_args[4:])
+    x = torch.randn(1 << 20, 512, device=dev).to(torch.bfloat16)
+    x[777] = nan
+    f_nan = apply.bind(torch.full_like(z0, nan))     # rows hoisted here
+    msgs = {}
+    with prof.debug_nans():
+        msgs["fused_train"] = _raises_naming(
+            "#4, one sdf label NaN", "fused_train",
+            lambda: ft.fused_train_loss_grads(*bad_args))
+        msgs["relu_dropout_fwd"] = _raises_naming(
+            "#3, one NaN row of [2^20, 512] bf16", "relu_dropout_fwd",
+            lambda: rd.relu_dropout_fwd(x, 1, RATE))
+        msgs["fused_eval"] = _raises_naming(
+            "#1 through KernelApply, a NaN code", "fused_eval",
+            lambda: f_nan(p20))
+    out["nan_messages"] = msgs
+    del sdf_nan, bad_args, x, f_nan
+
+    # ---- debug_nans: healthy work is bit-equal with the checker on
+    plain_pass = ft.fused_train_loss_grads(*ft_args)
+    with prof.debug_nans():
+        checked_pass = ft.fused_train_loss_grads(*ft_args)
+    same_pass = _same(plain_pass, checked_pass)
+    del plain_pass, checked_pass
+    steps = []
+    for checked in (False, True):
+        state = init_ad_state(ad_cfg, params=sd, codes=codes[:64],
+                              device=dev)
+        step = make_ad_train_step(state.decoder, ad_cfg)
+        n0 = dict(rd.LAUNCHES)
+        with prof.debug_nans(checked):
+            m = step(state, *batch, 0.0, 4242)
+            torch.cuda.synchronize()
+        launched = {k: rd.LAUNCHES[k] - n0[k] for k in n0}
+        steps.append(({k: v for k, v in m.items()
+                       if isinstance(v, torch.Tensor)},
+                      state.decoder.state_dict(), state.codes.detach()))
+        del state, step
+    same_step = _same(steps[0], steps[1])
+    if min(launched.values()) < 1:
+        raise RuntimeError(f"[profile] the autograd step launched {launched}")
+    del steps
+    ms_plain = time_ms(lambda: ft.fused_train_loss_grads(*ft_args), 3)
+    with prof.debug_nans():
+        ms_checked = time_ms(lambda: ft.fused_train_loss_grads(*ft_args), 3)
+    log(f"[profile] debug_nans, healthy work: the fused pass bit-equal with "
+        f"the checker and without: {same_pass}; one autograd-route step "
+        f"(#3/#3b launched {launched}) bit-equal: {same_step}; the fused "
+        f"pass {ms_checked:.2f} ms with the checker, {ms_plain:.2f} ms "
+        f"without [{card}]")
+    if not (same_pass and same_step):
+        raise RuntimeError("[profile] the NaN checker changed a result")
+    out.update(same_pass=same_pass, same_step=same_step,
+               pass_ms_checked=ms_checked, pass_ms_plain=ms_plain)
+
+    # ---- cost_analysis: each kernel's count against its plain version's
+    pairs1 = make_kernel_apply_pairs(decoder, sd, device=dev)
+    table1 = pairs1.table(z0[None])
+    sids1 = torch.zeros(1 << 20, dtype=torch.int32, device=dev)
+    cases = {
+        "fused_train": (lambda: ft.fused_train_loss_grads(*ft_args),
+                        lambda: ft.fused_train_reference(*ft_args),
+                        ms["fused_train"]),
+        "fused_eval": (lambda: apply(z0, p20),
+                       lambda: fast_apply(apply.ew, z0, p20),
+                       ms["fused_eval"]),
+        "fused_eval_pairs": (lambda: pairs1.launch(table1, sids1, p20),
+                             lambda: fast_apply(pairs1.ew, z0[None].expand(
+                                 1 << 20, -1), p20),
+                             ms["fused_eval_pairs"])}
+    counts = {}
+    for name, (kernel, plain, k_ms) in cases.items():
+        got = prof.cost_analysis(kernel)
+        want = prof.cost_analysis(plain)
+        rel = abs(got["flops"] / want["flops"] - 1)
+        counts[name] = dict(flops=got["flops"], bytes=got["bytes accessed"],
+                            plain_flops=want["flops"], rel=rel, ms=k_ms,
+                            tflops=got["flops"] / k_ms / 1e9)
+        log(f"[profile] cost_analysis {name}: {got['flops']:.6e} FLOPs, "
+            f"{got['bytes accessed']:.6e} bytes; plain version "
+            f"{want['flops']:.6e} FLOPs ({100 * rel:.3f}% apart, tol 1%); "
+            f"over its {k_ms:.3f} ms: {counts[name]['tflops']:.1f} TFLOP/s "
+            f"[{card}]")
+        if rel > 0.01:
+            raise RuntimeError(f"[profile] {name} counts {got} against its "
+                               f"plain version's {want}")
+    # #1 counts the padded widths it multiplies: its op's own plain version
+    # on the packed operands counts the same; fast_apply, above, the true
+    rows0 = hoisted_rows(apply.ew, apply.meta, z0)
+    op = prof.cost_analysis(apply.launch, p20, rows0)["flops"]
+    packed = prof.cost_analysis(packed_plain, p20, apply.w, rows0,
+                                apply.meta_t, apply.ew.use_tanh)["flops"]
+    log(f"[profile] cost_analysis fused_eval's op alone {op:.6e} FLOPs, "
+        f"packed_plain on the same operands {packed:.6e}")
+    if op != packed:
+        raise RuntimeError(f"[profile] #1's op counts {op}, packed_plain "
+                           f"{packed}")
+    del pairs1, table1, sids1, rows0
+    x512 = torch.randn(1 << 20, 512, device=dev).to(torch.bfloat16)
+    g512 = torch.randn_like(x512)
+    for name, fn, k_ms in (
+            ("relu_dropout_fwd", lambda: rd.relu_dropout_fwd(x512, 1, RATE),
+             ms["relu_dropout_fwd"]),
+            ("relu_dropout_bwd",
+             lambda: rd.relu_dropout_bwd(x512, g512, 1, RATE),
+             ms["relu_dropout_bwd"])):
+        got = prof.cost_analysis(fn)
+        counts[name] = dict(flops=got["flops"], bytes=got["bytes accessed"],
+                            ms=k_ms, gbps=got["bytes accessed"] / k_ms / 1e6)
+        log(f"[profile] cost_analysis {name} [2^20, 512] bf16: "
+            f"{got['flops']:.0f} FLOPs (its plain version counts none), "
+            f"{got['bytes accessed']:.6e} bytes; over its {k_ms:.3f} ms: "
+            f"{counts[name]['gbps']:.0f} GB/s [{card}]")
+    del x512, g512
+    out["cost"] = counts
+
+    # ---- trace: one fused pass and one 256^3 decode
+    cap1, cap2, cap3 = _default_caps(RES)
+    with tempfile.TemporaryDirectory() as td:
+        with prof.trace(td):
+            # the profiler can drop a trace's first launches (~28 seen)
+            warm = torch.ones(1, device=dev)
+            for _ in range(64):
+                warm.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            ft.fused_train_loss_grads(*ft_args)
+            decode_grid_hierarchical3_sparse2(
+                apply, z0, RES, cap1=cap1, cap2=cap2, cap3=cap3,
+                safety=1.2, safety3=2.0)
+            torch.cuda.synchronize()
+        files = list(pathlib.Path(td).glob("*.pt.trace.json"))
+        if len(files) != 1:
+            raise RuntimeError(f"[profile] trace wrote {files}")
+        size = files[0].stat().st_size
+        names = {e.get("name", "") for e in json.loads(
+            files[0].read_text())["traceEvents"]}
+    found = {k: sum(k in n for n in names)
+             for k in ("tn_gemm_kernel", "mn_wgrad_kernel",
+                       "fused_eval_kernel")}
+    log(f"[profile] trace of one fused pass and one {RES}^3 decode: "
+        f"{files[0].name}, {size} bytes; kernel names found {found}")
+    if not all(found.values()):
+        raise RuntimeError(f"[profile] the trace lacks a kernel: {found}")
+    out.update(trace_bytes=size, trace_names=found,
+               s=time.perf_counter() - t0)
+    log(f"[profile] {out['s']:.1f} s")
+    return out
 
 
 def reset_train_launches() -> None:
@@ -3417,7 +3703,7 @@ def main() -> int:
     log(f"[kernel] two launches at 2^20 points bit-identical: {same1}")
     if not same1:
         raise RuntimeError("kernel #1 is not deterministic")
-    pairs1 = make_kernel_apply_pairs(decoder, sd)
+    pairs1 = make_kernel_apply_pairs(decoder, sd, device=dev)
     table1 = pairs1.table(z0[None])
     sids1 = torch.zeros(1 << 20, dtype=torch.int32, device=dev)
     err_k2 = float((pairs1.launch(table1, sids1, p20) - first).abs().max())
@@ -3697,6 +3983,14 @@ def main() -> int:
                                   roles=train_roles(ft, ft_args, card),
                                   gemm=train_gemms(ft, dev, card))
     ew_layers = ew_t.layers
+
+    # ---- phase 6b: [profile] utils/profiling on kernels #1-#4
+    details["profile"] = profile_phase(
+        dev, card, decoder, apply, z0, p20, ft_args, (ids_t, xyz_t, sdf_t), dataclasses.replace(ad0, num_scenes=64), sd,
+        codes, {"fused_train": ms_ft, "fused_eval": ms_20,
+                "fused_eval_pairs": ms_k2,
+                "relu_dropout_fwd": drop_t[512]["fwd"],
+                "relu_dropout_bwd": drop_t[512]["bwd"]})
     del ew_t, ft_args
     torch.cuda.empty_cache()
 

@@ -383,9 +383,11 @@ def main(argv=None):
     s.add_argument("--fault-inject", type=int, default=None,
                    metavar="EPOCH", help="debug: die after EPOCH's ckpt")
     s.add_argument("--debug-nans", action="store_true",
-                   help="run under torch.autograd.detect_anomaly")
+                   help="raise at the first op or kernel that writes a "
+                   "NaN (utils.profiling.debug_nans)")
     s.add_argument("--tensorboard", action="store_true",
-                   help="not ported (raises)")
+                   help="mirror the log's scalars as TensorBoard events "
+                   "under logs/tb/")
     s.add_argument("--dist-backend", default="nccl", choices=("nccl", "gloo"),
                    help="torch.distributed backend under torchrun "
                    "(WORLD_SIZE > 1): nccl for one card a rank (the "
@@ -396,7 +398,8 @@ def main(argv=None):
     s.add_argument("exp_dir")
     s.add_argument("--resume", action="store_true")
     s.add_argument("--tensorboard", action="store_true",
-                   help="not ported (raises)")
+                   help="mirror the log's scalars as TensorBoard events "
+                   "under logs/tb/")
     s.set_defaults(fn=cmd_train_diff)
 
     s = sub.add_parser("train-encoder", help="amortized latent encoder "
@@ -404,7 +407,8 @@ def main(argv=None):
     s.add_argument("exp_dir")
     s.add_argument("--resume", action="store_true")
     s.add_argument("--tensorboard", action="store_true",
-                   help="not ported (raises)")
+                   help="mirror the log's scalars as TensorBoard events "
+                   "under logs/tb/")
     s.set_defaults(fn=cmd_train_encoder)
 
     s = sub.add_parser("sample", help="sample latents -> meshes")

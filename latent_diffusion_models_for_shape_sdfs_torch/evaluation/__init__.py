@@ -1,5 +1,5 @@
 from latent_diffusion_models_for_shape_sdfs_torch.evaluation.chamfer import (  # noqa: F401
-    chamfer_l2,
+    chamfer_l2, chamfer_l2_directed,
 )
 from latent_diffusion_models_for_shape_sdfs_torch.evaluation.fscore import (  # noqa: F401
     fscore, normal_consistency, sdf_normals,

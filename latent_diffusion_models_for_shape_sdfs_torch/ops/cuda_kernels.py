@@ -25,6 +25,10 @@ and an int32 shape id per point (`KernelApplyPairs.indexed`); the
 (z_rows, xyz) call is the case S = N, ids 0..N-1. `pack_weights_pairs`
 packs its slab stream. Its plain version is `fast_apply` in bf16 over
 codes[sids].
+
+Each launch reports its work and is NaN-checked through the hooks of
+`utils.profiling`; kernel #1 does so as the op `sdfldm::fused_eval`,
+kernel #2 in `KernelApplyPairs.launch` (`pairs_flops`).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
 from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_eval_op import (  # noqa: F401
     EVAL_LAYOUT, EVAL_WIDTHS, LAUNCHES, MAX_LATENT, MAX_LAYERS, MAX_WIDTH,
     PAIRS_LAYOUT, _fused_eval_lib, fused_eval)
+from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 from latent_diffusion_models_for_shape_sdfs_torch.utils.device import (
     resolve_device)
 
@@ -290,6 +295,15 @@ def _fused_eval_pairs_lib():
     return lib
 
 
+def pairs_flops(ew: EvalWeights, n_points: int) -> int:
+    """FLOPs of kernel #2 at `n_points`, as its plain version (fast_apply
+    over a latent row per point) counts them: every layer's latent, xyz
+    and hidden products at their true widths, two FLOPs a multiply-add."""
+    return 2 * n_points * sum(t.numel() for lay in ew.layers
+                              for t in (lay.w_h, lay.w_z, lay.w_x)
+                              if t is not None)
+
+
 class KernelApplyPairs:
     """(z_rows [N, L], xyz [N,3] f32) -> sdf [N] f32 through the fused
     pairs kernel: every point is evaluated with its own latent row.
@@ -359,6 +373,11 @@ class KernelApplyPairs:
             raise RuntimeError(f"fused_eval_pairs_launch failed: cudaError {rc}")
         self.launches += 1
         LAUNCHES["fused_eval_pairs"] += 1
+        profiling.check_kernel("fused_eval_pairs", codes, xyz, out)
+        # xyz in, sdf out, 4-byte ids, the table and the weights, once
+        profiling.count_kernel(
+            "fused_eval_pairs", pairs_flops(self.ew, n),
+            20 * n + codes.nbytes + self.w.nbytes + self.rows.nbytes)
         return out
 
     def table(self, codes: torch.Tensor) -> torch.Tensor:

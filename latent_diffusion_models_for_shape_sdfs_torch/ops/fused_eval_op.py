@@ -17,7 +17,10 @@ to a graph holding this op, and the packed weights become the program's
 constants.
 
 The launch counter `LAUNCHES["fused_eval"]` is advanced here, where the
-kernel is launched, so launches from an exported program count too.
+kernel is launched, so launches from an exported program count too. The
+op's FLOPs (`eval_flops`) are registered with `torch.utils.flop_counter`,
+so `utils.profiling.cost_analysis` and a `FlopCounterMode` count them, and
+`utils.profiling.debug_nans` checks the op's inputs and outputs.
 
 This module imports nothing of `models/`: importing it is all a process
 needs to run a `torch.export` program that calls the op (the serving
@@ -30,6 +33,7 @@ import ctypes
 
 import torch
 from torch.nn import functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from latent_diffusion_models_for_shape_sdfs_torch.ops import _build
 
@@ -130,6 +134,20 @@ def fused_eval(xyz: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
 @fused_eval.register_fake
 def _(xyz, w, rows, meta, use_tanh):
     return xyz.new_empty(xyz.shape[0])
+
+
+def eval_flops(n_points: int, meta) -> int:
+    """FLOPs of one launch at `n_points`, as its plain version
+    `packed_plain` counts them on the same operands: per row (k, n, kx) of
+    the layer table, the product of the padded hidden inputs (k x n) and
+    of the 3 xyz inputs (3 x n when kx), two FLOPs a multiply-add."""
+    return 2 * n_points * sum(k * n + (3 * n if kx else 0)
+                              for k, n, kx, _, _ in meta.tolist())
+
+
+@register_flop_formula(torch.ops.sdfldm.fused_eval, get_raw=True)
+def _(xyz, w, rows, meta, use_tanh, out_val=None):
+    return eval_flops(xyz.shape[0], meta)
 
 
 def unslab(flat: torch.Tensor, n: int, k: int) -> torch.Tensor:

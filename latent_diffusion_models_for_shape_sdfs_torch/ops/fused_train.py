@@ -35,6 +35,12 @@ gradients back to (v, g, b) with `torch.autograd.backward` (the JAX
 package's `refold_loss` vjp), adds the code regulariser's gradient and
 scatters the dz rows into the dense code gradient with `index_add_`
 (scene ids repeat in a padded batch).
+
+The pass and the engine's roles report to `utils.profiling`'s hooks: a
+NaN check of what each launch reads and writes, and its work. The pass
+counts as one kernel (`train_flops`: its plain version's FLOPs; its
+inputs and outputs once); the roles it launches count only when called
+alone.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
     EvalLayer, EvalWeights, precompute_eval_weights)
 from latent_diffusion_models_for_shape_sdfs_torch.ops.relu_dropout import (
     dropout_keep_mask, keep_threshold, layer_seed)
+from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 
 LAUNCHES = {"fused_train": 0, "gemm_fwd": 0, "gemm_dgrad": 0,
             "gemm_wgrad": 0}
@@ -82,6 +89,15 @@ def macs_per_point(ew: EvalWeights) -> int:
             fwd += lay.w_h.numel()
             hidden += lay.w_h.numel()
     return 2 * fwd + hidden
+
+
+def train_flops(ew: EvalWeights, n_scenes: int, points: int) -> int:
+    """FLOPs of one pass over n_scenes x points, as its plain version
+    counts them: macs_per_point for every point, and per scene the latent
+    rows of layer 0 and the skip layers, their weight gradient and dz
+    (three [L] x [L, H] products each), two FLOPs a multiply-add."""
+    rows = sum(lay.w_z.numel() for lay in ew.layers if lay.w_z is not None)
+    return 2 * (n_scenes * points * macs_per_point(ew) + 3 * n_scenes * rows)
 
 
 # ------------------------------------------------------------ plain version
@@ -287,6 +303,10 @@ def gemm_fwd(h: torch.Tensor, w: torch.Tensor, rows: torch.Tensor, p: int,
           1.0 / (1.0 - rate) if drop else 1.0, drop, out.data_ptr(),
           torch.cuda.current_stream(h.device).cuda_stream)
     LAUNCHES["gemm_fwd"] += 1
+    ins = (h, w, rows) if xyz is None else (h, w, rows, xyz, wx)
+    profiling.check_kernel("gemm_fwd", *ins, out)
+    profiling.count_kernel("gemm_fwd", 2 * m * n * (h.shape[1] + (
+        0 if xyz is None else 3)), _nbytes(*ins, out))
     return out
 
 
@@ -308,6 +328,9 @@ def gemm_dgrad(g: torch.Tensor, wt: torch.Tensor, hprev: torch.Tensor,
           bn, hprev.data_ptr(), scale, out.data_ptr(),
           torch.cuda.current_stream(g.device).cuda_stream)
     LAUNCHES["gemm_dgrad"] += 1
+    profiling.check_kernel("gemm_dgrad", g, wt, hprev, out)
+    profiling.count_kernel("gemm_dgrad", 2 * m * n * g.shape[1],
+                           _nbytes(g, wt, hprev, out))
     return out
 
 
@@ -350,11 +373,17 @@ def gemm_wgrad(g: torch.Tensor, h: torch.Tensor, k_split: int
     _call("ft_gemm_wgrad", g.data_ptr(), h.data_ptr(), m, n, k, k_split, bn,
           part.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream)
     LAUNCHES["gemm_wgrad"] += 1
+    profiling.check_kernel("gemm_wgrad", g, h, part)
+    profiling.count_kernel("gemm_wgrad", 2 * m * n * k, _nbytes(g, h, part))
     return part
 
 
 def _pad2(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return F.pad(w, (0, cols - w.shape[1], 0, rows - w.shape[0])).contiguous()
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.nbytes for t in tensors)
 
 
 def _reduce(part: torch.Tensor, n_out: int, n_sum: int, stream) -> torch.Tensor:
@@ -505,9 +534,18 @@ def fused_train_loss_grads(ew: EvalWeights, z: torch.Tensor,
             or la[-1].b.shape[0] != 1
             or any(lay.w_h is None for lay in la[1:])):
         raise ValueError("fused_train: unsupported layer plan")
-    out = _fused_train_cuda(ew, z, xyz, sdf, num_sdf_samples, clamp_dist,
-                            dropout_rate, seed)
+    weights = [t for lay in la for t in lay if t is not None]
+    profiling.check_kernel("fused_train", z, xyz, sdf, *weights)
+    # z, xyz, sdf and the weights in; the loss, dz and f32 gradients out
+    nbytes = _nbytes(z, xyz, sdf, *weights) + 4 * (
+        1 + z.numel() + sum(t.numel() for t in weights))
+    with profiling.kernel_pass("fused_train", train_flops(ew, S, P),
+                               nbytes):
+        out = _fused_train_cuda(ew, z, xyz, sdf, num_sdf_samples,
+                                clamp_dist, dropout_rate, seed)
     LAUNCHES["fused_train"] += 1
+    profiling.check_kernel("fused_train", out[0], out[1],
+                           *(t for gr in out[2] for t in gr.values()))
     return out
 
 

@@ -20,7 +20,9 @@ draws the same mask for the same layer seed.
 `relu_dropout` is a `torch.autograd.Function`: the backward regenerates the
 mask from the seed and stores none. On a CPU tensor it runs the plain
 version; on a CUDA tensor it launches the kernel or raises. `LAUNCHES`
-counts kernel launches.
+counts kernel launches. Each launch reports to `utils.profiling`'s hooks:
+no FLOPs (its plain version's elementwise ops count none), its input and
+output bytes, and the NaN check of both.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import ctypes
 import torch
 
 from latent_diffusion_models_for_shape_sdfs_torch.ops import _build
+from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 
 LAUNCHES = {"relu_dropout_fwd": 0, "relu_dropout_bwd": 0}
 
@@ -172,6 +175,8 @@ def relu_dropout_fwd(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"relu_dropout_fwd_launch failed: cudaError {rc}")
     LAUNCHES["relu_dropout_fwd"] += 1
+    profiling.check_kernel("relu_dropout_fwd", x, out)
+    profiling.count_kernel("relu_dropout_fwd", 0, 2 * x.nbytes)
     return out
 
 
@@ -196,6 +201,8 @@ def relu_dropout_bwd(x: torch.Tensor, g: torch.Tensor, seed: int,
     if rc != 0:
         raise RuntimeError(f"relu_dropout_bwd_launch failed: cudaError {rc}")
     LAUNCHES["relu_dropout_bwd"] += 1
+    profiling.check_kernel("relu_dropout_bwd", x, g, dx)
+    profiling.count_kernel("relu_dropout_bwd", 0, 3 * x.nbytes)
     return dx
 
 

@@ -15,7 +15,6 @@ plain version (bf16 fast_apply) on the CPU.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 from typing import Optional
@@ -47,7 +46,8 @@ from latent_diffusion_models_for_shape_sdfs_torch.train.auto_decoder import (
     AdTrainState, init_ad_state, train_auto_decoder)
 from latent_diffusion_models_for_shape_sdfs_torch.train.diffusion import (
     chunk_seed, init_diff_state, train_diffusion, unnormalize_codes)
-from latent_diffusion_models_for_shape_sdfs_torch.utils import meshio
+from latent_diffusion_models_for_shape_sdfs_torch.utils import (
+    meshio, profiling)
 from latent_diffusion_models_for_shape_sdfs_torch.utils.checkpoint import (
     StageCheckpointer, ad_state_tree, diff_state_tree, enc_state_tree,
     restore_ad_state, restore_diff_state, restore_enc_state)
@@ -86,8 +86,10 @@ def run_train_ad(exp_dir: str, resume: bool = False,
     `ad.snapshot_every` epochs and after the last. `resume` continues from
     the latest checkpoint. `fault_inject_epoch`: exit with SystemExit(42)
     right after that epoch's checkpoint (the failure-recovery drill;
-    resume with `resume=True`). `debug_nans`: run under
-    torch.autograd.detect_anomaly. `tensorboard`: not ported (raises).
+    resume with `resume=True`). `debug_nans`: train under
+    utils.profiling.debug_nans (the first op or kernel that writes a NaN
+    raises FloatingPointError). `tensorboard`: mirror the log's scalars
+    into event files under logs/tb/ad.
 
     Under `torchrun` (WORLD_SIZE > 1) each process is one rank: it starts
     the process group from the environment with `dist_backend` (nccl: one
@@ -129,10 +131,8 @@ def run_train_ad(exp_dir: str, resume: bool = False,
             logger.log("fault_injected", epoch=epoch)
             raise SystemExit(42)
 
-    ctx = (torch.autograd.detect_anomaly(check_nan=True) if debug_nans
-           else contextlib.nullcontext())
     try:
-        with ctx:
+        with profiling.debug_nans(debug_nans):
             _, state, _ = train_auto_decoder(
                 cfg.ad, dataset, logger=logger, decoder=decoder, state=state,
                 start_epoch=start_epoch, checkpoint_fn=save, device=dev)

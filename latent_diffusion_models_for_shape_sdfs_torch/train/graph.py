@@ -17,6 +17,8 @@ from typing import Callable, Iterator, Sequence
 
 import torch
 
+from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
+
 # warm-up calls before the capture: the first creates the gradients and
 # the optimizers' state, the second runs with them in place, as replays do
 _WARMUP = 2
@@ -49,7 +51,13 @@ def capture_step(step: Callable[[], None], tensors: Sequence[torch.Tensor],
     its value before the warm-up. The `optimizers`' state is put back too;
     state that the warm-up created is zeroed, which is a fresh state
     (torch's Adam starts its moments and count at zero). Raises if the
-    tensors are not on a CUDA device or the capture fails."""
+    tensors are not on a CUDA device or the capture fails, and under
+    `utils.profiling.debug_nans`, whose op-by-op checks a replay would
+    skip (nothing falls back to the eager step)."""
+    if profiling.nans_checked():
+        raise RuntimeError("capture_step under debug_nans: a CUDA graph "
+                           "replays its kernels without the NaN checks; "
+                           "run the eager step to check it op by op")
     dev = tensors[0].device
     if dev.type != "cuda":
         raise RuntimeError("a CUDA graph needs a CUDA device")

@@ -96,24 +96,55 @@ def _keystr(path: tuple) -> str:
                    for p in path)
 
 
+def _numpy(a) -> np.ndarray:
+    return (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+            else np.asarray(a))
+
+
+def _leaves(node, prefix: tuple = ()):
+    """(keystr path, leaf) of every leaf of nested dicts."""
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from _leaves(v, prefix + (k,))
+    else:
+        yield _keystr(prefix), node
+
+
 def pack_tree_npz(path: str | pathlib.Path, tree: dict) -> None:
     """Nested dicts of arrays -> one compressed npz keyed by keystr paths
     (the JAX package's `pack_tree_npz` format; its `restore_tree_npz`
     reads it back bit for bit)."""
-    flat: dict = {}
-
-    def walk(node, prefix):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(v, prefix + (k,))
-        else:
-            a = node.detach().cpu().numpy() if isinstance(
-                node, torch.Tensor) else np.asarray(node)
-            flat[_keystr(prefix)] = a
-
-    walk(tree, ())
+    flat = {k: _numpy(a) for k, a in _leaves(tree)}
     pathlib.Path(path).parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(str(path), **flat)
+
+
+def _restore_into(template, saved: dict, source: str, prefix: tuple = ()):
+    """`template`'s nested dicts with each leaf taken from `saved` (keystr
+    path -> array) by its path: KeyError if one is missing, ValueError if
+    its shape differs from the template leaf's."""
+    if isinstance(template, dict):
+        return {k: _restore_into(v, saved, source, prefix + (k,))
+                for k, v in template.items()}
+    key = _keystr(prefix)
+    if key not in saved:
+        raise KeyError(f"pack {source} missing leaf {key}")
+    v = saved[key]
+    if tuple(v.shape) != tuple(np.shape(template)):
+        raise ValueError(f"{key}: packed shape {tuple(v.shape)} != "
+                         f"template {tuple(np.shape(template))}")
+    return v
+
+
+def restore_tree_npz(path: str | pathlib.Path, template: dict) -> dict:
+    """Inverse of pack_tree_npz against a template: `template`'s nested
+    dicts with every leaf read from the pack by its keystr path, in the
+    SAVED dtype (the template gives the structure and the shapes). Raises
+    KeyError for a leaf the pack lacks and ValueError for a shape that
+    differs, as the JAX package's `restore_tree_npz` does."""
+    with np.load(str(path)) as z:
+        saved = {k: z[k] for k in z.files}
+    return _restore_into(template, saved, str(path))
 
 
 def save_stage1_pack(path: str | pathlib.Path, state_dict: dict,
@@ -229,6 +260,39 @@ class StageCheckpointer:
             raise FileNotFoundError(f"no checkpoint under {self.root}")
         return torch.load(self.root / f"{int(step)}.pt", map_location="cpu",
                           weights_only=True)
+
+
+def restore_stage1(exp_dir: str | pathlib.Path, template: dict,
+                   pack_name: str = "stage1_pack.npz") -> dict:
+    """A stage-1 tree (e.g. {"params", "codes"}) matched against
+    `template` as restore_tree_npz does: the latest checkpoint of the
+    experiment's "ad" stage first (StageCheckpointer; CPU tensors), else
+    the npz pack `<exp_dir>/<pack_name>` (numpy arrays); raises
+    FileNotFoundError when there is neither."""
+    exp_dir = pathlib.Path(exp_dir)
+    ck = StageCheckpointer(exp_dir, "ad", max_to_keep=1)
+    if ck.latest_step() is not None:
+        return _restore_into(template, dict(_leaves(ck.restore())),
+                             str(ck.root))
+    pack = exp_dir / pack_name
+    if pack.exists():
+        return restore_tree_npz(pack, template)
+    raise FileNotFoundError(
+        f"no stage-1 checkpoint under {ck.root} and no {pack_name} pack "
+        f"in {exp_dir}")
+
+
+def save_array_dict(path: str | pathlib.Path, tree: dict) -> None:
+    """A flat dict of arrays -> an (uncompressed) npz, as the JAX
+    package's `save_array_dict` writes it."""
+    pathlib.Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez(str(path), **{k: _numpy(v) for k, v in tree.items()})
+
+
+def load_array_dict(path: str | pathlib.Path) -> dict:
+    """An npz -> a flat dict of numpy arrays."""
+    with np.load(str(path)) as z:
+        return {k: z[k] for k in z.files}
 
 
 def _to_host(tree):

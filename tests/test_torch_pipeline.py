@@ -311,8 +311,15 @@ def test_cli_fault_injection_and_resume(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(exp, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="tensorboard"):
-        _cli("train-diff", exp, "--tensorboard")
+    """--tensorboard, once refused, now mirrors the stage's log into an
+    event file under logs/tb (tests/test_torch_tensorboard.py decodes
+    them); the default device is still the card."""
+    import shutil
+    d = tmp_path / "exp"
+    shutil.copytree(exp, d)
+    _cli("train-diff", d, "--tensorboard")
+    ev = list((d / "logs" / "tb" / "diff").glob("events.out.tfevents.*"))
+    assert len(ev) == 1 and ev[0].stat().st_size > 100
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["eval", str(exp)])          # the default device is cuda
