@@ -36,10 +36,13 @@ before CUDA is), then:
      one traced pass into its forward, dgrad and wgrad GEMMs and side
      kernels, each beside its bound (the forward and dgrad launches must
      be the wgmma engine's tn_gemm_kernel, the 7 wgrad launches its
-     MN-major mn_wgrad_kernel); times the engine's forward (dropout 0.2
-     and 0), dgrad and wgrad roles alone at 2^20 x 512 x 512 (wgrad held
-     against its plain version) beside torch.matmul of the same bf16
-     product (a yardstick the port never calls);
+     MN-major mn_wgrad_kernel, and no column-sum kernel may run); times
+     the engine's forward with keep bits (dropout 0.2 and 0), dgrad (from
+     keep bits, with column partials) and wgrad roles alone at 2^20 x 512
+     x 512 beside torch.matmul of the same bf16 product (a yardstick the
+     port never calls), the forward's keep bits held bit for bit against
+     those packed from its output, the dgrad and its partials and the
+     wgrad against their plain versions;
  6b. [profile] utils/profiling on the committed 8x512 decoder: under
      debug_nans a fused pass (#4) with one NaN sdf label, #3 on a [2^20,
      512] bf16 input with one NaN row and #1 through KernelApply with a
@@ -442,10 +445,28 @@ def train_role(name: str) -> str:
     return "side"
 
 
+def fwd_bytes(n_pts: int, k: int, n: int, keep: bool) -> tuple:
+    """(read, written) bytes of a forward launch h [n_pts, k] -> h' [n_pts,
+    n]: h in, h' and (keep) its keep bits out, a bit an element."""
+    return 2 * n_pts * k, 2 * n_pts * n + (n_pts * n // 8 if keep else 0)
+
+
+def dgrad_bytes(n_pts: int, k: int, n: int, xyz: bool) -> tuple:
+    """(read, written) bytes of a dgrad launch g [n_pts, n] -> g' [n_pts,
+    k]: g and the keep bits of h_prev [n_pts, k] (and bf16 xyz) in; g' and
+    its column partials (f32, a row per 128 points, 4 rows with xyz)
+    out."""
+    nsum = 4 if xyz else 1
+    return (2 * n_pts * n + n_pts * k // 8 + (6 * n_pts if xyz else 0),
+            2 * n_pts * k + 4 * (n_pts // 128) * nsum * k)
+
+
 def train_roles(ft, ft_args, card) -> dict:
     """[fused_train] one traced pass split by role: device ms and launches
     of each, beside the sum of its launches' bounds (each launch's bytes:
-    its operands read once, its output written once)."""
+    its operands read once, its outputs written once). Fails if the pass
+    launched a column-sum kernel (the dgrad and the final layer emit the
+    column sums)."""
     ew, _, xyz = ft_args[:3]
     n_pts = xyz.shape[0] * xyz.shape[1]
     widths = [-(-lay.b.shape[0] // 128) * 128 for lay in ew.layers[:-1]]
@@ -453,10 +474,11 @@ def train_roles(ft, ft_args, card) -> dict:
     k_split = ft.wgrad_chunk(n_pts)        # the chunk the pass gives wgrad
     for i in range(1, len(widths)):
         k, n = widths[i - 1], widths[i]
-        bounds["forward"] += gemm_bound(n_pts, n, k, 2 * n_pts * k,
-                                        2 * n_pts * n)[0]
-        bounds["dgrad"] += gemm_bound(n_pts, k, n, 2 * n_pts * (n + k),
-                                      2 * n_pts * k)[0]
+        bounds["forward"] += gemm_bound(
+            n_pts, n, k, *fwd_bytes(n_pts, k, n, i < len(widths) - 1))[0]
+        bounds["dgrad"] += gemm_bound(
+            n_pts, k, n, *dgrad_bytes(n_pts, k, n,
+                                      ew.layers[i - 1].w_x is not None))[0]
         bounds["wgrad"] += gemm_bound(n, k, n_pts, 2 * n_pts * (n + k),
                                       4 * (n_pts // k_split) * n * k)[0]
     wall, busy, top = device_profile(
@@ -479,15 +501,28 @@ def train_roles(ft, ft_args, card) -> dict:
         raise RuntimeError(f"kernel #4's forward/dgrad/wgrad launches are "
                            f"not the wgmma engine's {len(widths) - 1} each: "
                            f"{[(n, c) for n, _, c in top]}")
+    colsum = [(n, c) for n, _, c in top if "colsum" in n.lower()]
+    log(f"[fused_train]   column-sum kernel launches in the pass: "
+        f"{sum(c for _, c in colsum)} (expected 0: the dgrad and final "
+        f"kernels emit the column partials)")
+    if colsum:
+        raise RuntimeError(f"kernel #4's pass still launches a column-sum "
+                           f"kernel: {colsum}")
     return dict(roles, busy_ms=busy, wall_s=wall, top=top[:16])
 
 
 def train_gemms(ft, dev, card) -> dict:
-    """[fused_train] the engine's forward role (dropout 0.2 and 0), dgrad
-    and wgrad roles alone at 2^20 x 512 x 512, against the plain version
-    and torch.matmul of the same bf16 product; the wgrad role's partials
-    held against its plain version (1e-3 of their max)."""
+    """[fused_train] the engine's forward role with keep bits (dropout 0.2
+    and 0), dgrad (masked by keep bits, with column partials) and wgrad
+    roles alone at 2^20 x 512 x 512, against the plain version and
+    torch.matmul of the same bf16 product. Gates: the forward's keep bits
+    are those of its own output, bit for bit; the dgrad's output within
+    1e-2 of its plain version's max, its column partials within 1e-3 of
+    the max of those summed from its own output; the wgrad role's
+    partials within 1e-3 of their max; two launches bit-identical."""
     import torch
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        train_gemm as tg)
     m, k, n = 1 << 20, 512, 512
     gen = torch.Generator(device=dev).manual_seed(5)
     bf = torch.bfloat16
@@ -498,10 +533,53 @@ def train_gemms(ft, dev, card) -> dict:
     wt = w.t().contiguous()
     k_split = ft.wgrad_chunk(m)
     out = {}
-    fwd_b = gemm_bound(m, n, k, 2 * m * k, 2 * m * n)
-    dgrad_b = gemm_bound(m, k, n, 2 * m * (n + k), 2 * m * k)
+    fwd_b = gemm_bound(m, n, k, *fwd_bytes(m, k, n, True))
+    dgrad_b = gemm_bound(m, k, n, *dgrad_bytes(m, k, n, False))
     wgrad_b = gemm_bound(n, k, m, 2 * m * (n + k),
                          4 * (m // k_split) * n * k)
+    h2, bits = ft.gemm_fwd(h, w, rows, m, seed=9, rate=RATE, keep_bits=True)
+    h3, bits3 = ft.gemm_fwd(h, w, rows, m, seed=9, rate=RATE, keep_bits=True)
+    bits_ok = (torch.equal(bits, tg.pack_keep_bits(h2 > 0))
+               and torch.equal(h2, h3) and torch.equal(bits, bits3))
+    log(f"[fused_train] engine forward at 2^20 x 512 x 512, dropout {RATE}: "
+        f"keep bits == pack_keep_bits(output > 0) bit for bit, two launches "
+        f"bit-identical: {bits_ok} ({float((h2 > 0).float().mean()):.3f} of "
+        f"the bits set)")
+    if not bits_ok:
+        raise RuntimeError("the forward role's keep bits are not those of "
+                           "its output, or not deterministic")
+    del h3, bits3
+    got, part = ft.gemm_dgrad(g, wt, bits, 1.25)
+    again, part2 = ft.gemm_dgrad(g, wt, bits, 1.25)
+    want = ft.gemm_dgrad_reference(g, wt, bits, 1.25).float()
+    dgrad_err = float((got.float() - want).abs().max())
+    dgrad_max = float(want.abs().max())
+    del want
+    want = ft.column_partials_reference(got)
+    part_err = float((part - want).abs().max())
+    part_max = float(want.abs().max())
+    same = torch.equal(got, again) and torch.equal(part, part2)
+    log(f"[fused_train] engine dgrad at 2^20 x 512 x 512 from keep bits: "
+        f"max |kernel - plain| {dgrad_err:.3e} of max {dgrad_max:.3e} (tol "
+        f"1e-2 of max); column partials {part_err:.3e} of max "
+        f"{part_max:.3e} (tol 1e-3 of max); two launches bit-identical: "
+        f"{same}")
+    if (dgrad_err > 1e-2 * dgrad_max or part_err > 1e-3 * part_max
+            or not same):
+        raise RuntimeError(f"the dgrad role disagrees with its plain "
+                           f"version ({dgrad_err} of {dgrad_max}; partials "
+                           f"{part_err} of {part_max}) or is not "
+                           f"deterministic ({same})")
+    del got, again, part, part2, want, h2
+
+    def fwd_plain(**kw):
+        o = ft.gemm_fwd_reference(h, w, rows, m, **kw)
+        return o, tg.pack_keep_bits(o > 0)
+
+    def dgrad_plain():
+        o = ft.gemm_dgrad_reference(g, wt, bits, 1.25)
+        return o, ft.column_partials_reference(o)
+
     got = ft.gemm_wgrad(g, h, k_split)
     want = ft.gemm_wgrad_reference(g, h, k_split)
     wgrad_err = float((got - want).abs().max())
@@ -518,14 +596,14 @@ def train_gemms(ft, dev, card) -> dict:
     del got, want
     for name, fn, plain, (bnd, by) in [
             ("forward, dropout 0.2",
-             lambda: ft.gemm_fwd(h, w, rows, m, seed=9, rate=RATE),
-             lambda: ft.gemm_fwd_reference(h, w, rows, m, seed=9, rate=RATE),
-             fwd_b),
+             lambda: ft.gemm_fwd(h, w, rows, m, seed=9, rate=RATE,
+                                 keep_bits=True),
+             lambda: fwd_plain(seed=9, rate=RATE), fwd_b),
             ("forward, dropout 0",
-             lambda: ft.gemm_fwd(h, w, rows, m),
-             lambda: ft.gemm_fwd_reference(h, w, rows, m), fwd_b),
-            ("dgrad", lambda: ft.gemm_dgrad(g, wt, h, 1.25),
-             lambda: ft.gemm_dgrad_reference(g, wt, h, 1.25), dgrad_b),
+             lambda: ft.gemm_fwd(h, w, rows, m, keep_bits=True),
+             fwd_plain, fwd_b),
+            ("dgrad", lambda: ft.gemm_dgrad(g, wt, bits, 1.25),
+             dgrad_plain, dgrad_b),
             ("wgrad", lambda: ft.gemm_wgrad(g, h, k_split),
              lambda: ft.gemm_wgrad_reference(g, h, k_split), wgrad_b)]:
         ms = time_ms(fn, 20)
@@ -533,6 +611,9 @@ def train_gemms(ft, dev, card) -> dict:
                          bound_by=by)
     out["wgrad"].update(max_abs_err=wgrad_err, max_abs=wgrad_max,
                         k_split=k_split)
+    out["dgrad"].update(max_abs_err=dgrad_err, max_abs=dgrad_max,
+                        partials_err=part_err, partials_max=part_max)
+    out["forward, dropout 0.2"].update(keep_bits_equal=bits_ok)
     lib = {"forward": time_ms(lambda: torch.matmul(h, w.t()), 20),
            "dgrad": time_ms(lambda: torch.matmul(g, wt.t()), 20),
            "wgrad": time_ms(lambda: torch.matmul(g.t(), h), 20)}

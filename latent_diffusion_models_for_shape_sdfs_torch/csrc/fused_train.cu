@@ -15,9 +15,11 @@
 //             the clamp band, rounded to bf16;
 //   backward: g_{i-1} = bf16(where(h_{i-1} > 0, (g_i W_h) * scale, 0))
 //             (the relu+dropout mask recovered from the stored activation,
-//             as the TPU kernel does), dW_h = g^T h (f32), db = sum g,
-//             and at layer 0 and the skip layer gsum_s = sum of g over the
-//             scene, dW_z = gsum^T z, dW_x = g^T xyz, dz_s += bf16(gsum_s) W_z.
+//             as the TPU kernel does: here from one keep bit per element,
+//             bf16(h) > 0, written beside h by the forward), dW_h = g^T h
+//             (f32), db = sum g, and at layer 0 and the skip layer gsum_s =
+//             sum of g over the scene, dW_z = gsum^T z, dW_x = g^T xyz,
+//             dz_s += bf16(gsum_s) W_z.
 // Dropout bits: Philox4x32-10 of (row = point index, col) keyed by
 // seed + 7919 * layer (philox.cuh), the same mask as csrc/relu_dropout.cu.
 // The TPU kernel rounds each 256-point tile's gsum to bf16 before the dz
@@ -28,8 +30,9 @@
 // 64 x 16,384-point step is 9.89 TFLOP: 10.0 ms at 989 TFLOP/s bf16. Per
 // launch of the launch sequence below, a forward or dgrad GEMM at 2^20 x
 // 512 x 512 is bound by bytes instead: the forward reads h and writes h'
-// (2.15 GB, 0.641 ms at 3.35 TB/s), the dgrad reads g and h_prev and
-// writes g' (3.22 GB, 0.961 ms), against 0.556 ms of products.
+// and its keep bits (2.21 GB, 0.661 ms at 3.35 TB/s), the dgrad reads g
+// and the keep bits of h_prev and writes g' and its column partials (2.23
+// GB, 0.666 ms), against 0.556 ms of products.
 //
 // The TPU keeps a tile's nine layers of activations in VMEM (2.1 MB) and
 // accumulates dW in VMEM over a sequential grid; an SM has 227 KB and
@@ -40,9 +43,9 @@
 //     wgmma on operands read in their stored [points][cols] layout
 //     (MN-major), split-K over fixed chunks of points into f32 partials,
 //     described below;
-//   * small CUDA-core kernels: the per-scene latent rows, layer 0 (K = 3),
-//     the final layer with the loss and its dgrad/wgrad, per-scene column
-//     sums of g, the latent gradients;
+//   * small CUDA-core kernels: the per-scene latent rows, layer 0 (K = 3)
+//     with its keep bits, the final layer with the loss, its dgrad/wgrad
+//     and the column partials of the top g, the latent gradients;
 //   * a fixed-order reduction of every set of partials. No float atomics
 //     anywhere, so two runs give the same bits.
 //
@@ -72,13 +75,43 @@
 //     (lane % 4) (+1), the m16n8 C fragment of mma.sync repeated over
 //     BN/8. Forward: bias row per scene (read a few column blocks ahead,
 //     with the uniform choices hoisted out of the loop so it schedules as
-//     one block), the skip layer's xyz term, relu, Philox dropout; dgrad:
-//     the mask from h_prev (TMA-loaded into the output tile during the
-//     products), scale. Each warpgroup writes its 64 x BN bf16 result into
+//     one block), the skip layer's xyz term, relu, Philox dropout, and the
+//     keep bits of the rounded result; dgrad: the mask from the keep bits
+//     of h_prev, scale. Each warpgroup writes its 64 x BN bf16 result into
 //     an output tile in the 128-byte swizzle layout (conflict-free), and
 //     one thread stores it with TMA (boxes of 64 x 64). Written straight
 //     from registers, 16 bytes per row and instruction, the output took
 //     over twice as long.
+//   * Keep bits (ops/train_gemm.py keep_bit): the mask the dgrad needs is
+//     h_prev > 0, which the TPU kernel reads from activations in VMEM; read
+//     from HBM, h_prev was a third of the dgrad's bytes. So the forward
+//     epilogue that rounds h also writes one bit per element, bf16(h) > 0,
+//     in a tile-native layout: each engine thread's BN/2 accumulators are
+//     BN/64 consecutive words, threads in (tile, warpgroup, warp, lane)
+//     order; word w holds column blocks j = 8 w .. 8 w + 7, block j's
+//     (r0, c), (r1, c), (r0, c + 1), (r1, c + 1) at bits j % 8 + 0, 8,
+//     16, 24 (keep_flags: two halves' flags from three integer ops on the
+//     packed pair, shifted into place; float compares and single-bit
+//     inserts cost the forward ~0.13 ms a 2^20 x 512 launch). The dgrad of
+//     the next layer tiles the same [points, width] matrix with the same
+//     BN, so each thread reads its own 16 bytes (BN 256) before its
+//     products, and writes or reads them with no exchange between lanes.
+//     The forward stages a warpgroup's words in shared memory (the
+//     dgrad's column-partial buffers, unused by the forward) and its
+//     leader stores them with one bulk copy beside the tile's TMA store:
+//     stored by each thread from registers, the words cost ~0.12 ms a
+//     2^20 x 512 launch, as the leader's next mbarrier arrive (release)
+//     waited for its own store to complete.
+//   * Column partials (dgrad): the backward needs per-scene column sums of
+//     every g (db, gsum for dz and dW_z, the bf16(xyz)-weighted sums for
+//     dW_x at layer 0 and the skip layer). After the TMA store is issued,
+//     each thread of a warpgroup sums a column pair of the stored bf16
+//     tile over its rows, read back from shared memory (a warp reads one
+//     128-byte row: conflict-free); the two warpgroups' sums are added in
+//     row order through a double-buffered shared array behind one barrier
+//     of both, and written as one f32 row per 128-row tile (three more
+//     rows, xyz-weighted, where the caller passes xyz). Fixed order, no
+//     atomics. P is a multiple of 128, so a tile lies in one scene.
 //   * Dropout: lanes q and q^1 of a quad share a 4-column Philox block of
 //     a row, so lane q computes the block of row r (q even) or r + 8 (q
 //     odd) and the pair swaps the two words the other needs with
@@ -90,7 +123,7 @@
 //     cannot issue a tile's ~8,000 Philox blocks within its products.
 //   * Deterministic: no atomics, fixed tile order within a tile's K loop.
 // Shape rules (the wrapper checks and raises): M a multiple of 128, K of
-// 64, N of BN, operands 16-byte aligned.
+// 64, N of BN, operands and keep bits 16-byte aligned.
 //
 // The wgrad GEMM: part[c][M][N] = sum over the points p of chunk c of
 // g[p][m] h[p][n], i.e. dW = g^T h split over K = the points, from g
@@ -161,10 +194,15 @@ constexpr int TN_OUT_BYTES = TN_BM * TN_MAX_BN * 2;         // 64 KB
 constexpr int TN_THREADS = 128 * (TN_WGS + 1);   // and the producer's warpgroup
 constexpr int TN_PRODUCER_REGS = 40;     // setmaxnreg: 128 x 40 +
 constexpr int TN_CONSUMER_REGS = 232;    //   256 x 232 <= 65,536
-// the ring, the output tile, the ring's full and empty barriers and one
-// h_prev barrier per warpgroup, and slack to align the ring to 1024
+// the dgrad's column partials in shared memory, per buffer: a float2 for
+// each of the 128 column-pair threads of each warpgroup and each of up
+// to 4 sums (two buffers, alternating tiles)
+constexpr int TN_CSUMS = 4;
+constexpr int TN_CBUF_BYTES = TN_WGS * 128 * TN_CSUMS * 8;  // 8 KB
+// the ring, the output tile, the two column-partial buffers, the ring's
+// full and empty barriers, and slack to align the ring to 1024
 constexpr int TN_SMEM = TN_STAGES * TN_STAGE_BYTES + TN_OUT_BYTES +
-                        (2 * TN_STAGES + TN_WGS) * 8 + 1024;
+                        2 * TN_CBUF_BYTES + 2 * TN_STAGES * 8 + 1024;
 
 struct TnArgs {
   int m, n, k;
@@ -178,11 +216,62 @@ struct TnArgs {
   uint32_t key, threshold;
   int drop;
   float scale;                // 1/(1-rate) (forward, dgrad) or 1
+  uint32_t* keep;             // keep bits: forward writes them (or null),
+                              // dgrad reads them
+  float* part;                // dgrad: column partials [m / TN_BM][nsum][n]
+  int nsum;                   // dgrad: 1, or 4 with the xyz-weighted sums
 };
+
+// Index of the first of the BN/64 keep words of an engine thread: lane
+// `lane` of warp `warp` (0-3) of warpgroup `wg` of tile `tile`.
+template <int BN>
+__device__ __forceinline__ long long keep_offset(long long tile, int wg,
+                                                 int warp, int lane) {
+  return (((tile * TN_WGS + wg) * 4 + warp) * 32 + lane) * (BN / 64);
+}
+
+template <int BN>
+__device__ __forceinline__ void load_keep(const uint32_t* src,
+                                          uint32_t (&kb)[BN / 64]) {
+  if constexpr (BN == 256) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+    kb[0] = v.x, kb[1] = v.y, kb[2] = v.z, kb[3] = v.w;
+  } else {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(src));
+    kb[0] = v.x, kb[1] = v.y;
+  }
+}
+
+template <int BN>
+__device__ __forceinline__ void stage_keep(unsigned char* dst,
+                                           const uint32_t (&kb)[BN / 64]) {
+  if constexpr (BN == 256)
+    *reinterpret_cast<uint4*>(dst) = make_uint4(kb[0], kb[1], kb[2], kb[3]);
+  else
+    *reinterpret_cast<uint2*>(dst) = make_uint2(kb[0], kb[1]);
+}
+
+// shared -> global bulk copy of `bytes` (a multiple of 16; both addresses
+// 16-byte aligned) in the thread's bulk group, as the TMA stores
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(dst), "r"(src), "r"(bytes)
+               : "memory");
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// bf16 > 0 of both halves of a packed pair, as bits 15 (lo) and 31 (hi):
+// a half is > 0 iff its sign is clear and its magnitude bits are not all
+// 0 (adding 0x7fff then carries into its top bit, never into the other
+// half). The predicate the dgrad used to test on h_prev, for every value
+// but NaN, which the forward never stores (fmaxf(NaN, 0) is 0).
+__device__ __forceinline__ uint32_t keep_flags(uint32_t s) {
+  return ((s & 0x7fff7fffu) + 0x7fff7fffu) & ~s & 0x80008000u;
 }
 
 // The keep bits of column block j (4 bits: (r0, col), (r0, col + 1), (r0
@@ -206,14 +295,18 @@ __device__ __forceinline__ uint32_t keep_nibble(int j, long long my_row,
 
 // The forward epilogue's columns for rows r0, r1: the tile's bias row b
 // (read TN_CHUNK column blocks ahead of their use), the skip layer's xyz
-// term, relu, dropout; into the output tile through word(j).
+// term, relu, dropout; into the output tile through word(j), and the keep
+// bits of the stored values into kb.
 constexpr int TN_CHUNK = 4;
 
 template <int BN, bool DROP, bool XYZ, typename Word>
 __device__ __forceinline__ void fwd_columns(const float (&acc)[BN / 2],
                                             const TnArgs& p, Word word,
+                                            uint32_t (&kb)[BN / 64],
                                             const float* b, long long r0,
                                             long long r1, int n0, int q) {
+#pragma unroll
+  for (int i = 0; i < BN / 64; ++i) kb[i] = 0u;
   float x0[3] = {0.f, 0.f, 0.f}, x1[3] = {0.f, 0.f, 0.f};
   if (XYZ) {
 #pragma unroll
@@ -256,29 +349,27 @@ __device__ __forceinline__ void fwd_columns(const float (&acc)[BN / 2],
         v10 = nib & 4u ? v10 * p.scale : 0.f;
         v11 = nib & 8u ? v11 * p.scale : 0.f;
       }
+      const uint32_t s0 = pack_bf16(v00, v01), s1 = pack_bf16(v10, v11);
       uint32_t* w = word(j);
-      w[0] = pack_bf16(v00, v01);
-      w[8 * 128 / 4] = pack_bf16(v10, v11);
+      w[0] = s0;
+      w[8 * 128 / 4] = s1;
+      kb[j / 8] |= keep_flags(s0) >> (15 - j % 8) |
+                   keep_flags(s1) >> (7 - j % 8);
     }
   }
-}
-
-// the dgrad mask of one element: bf16 bits of h_prev (lo or hi half) > 0
-__device__ __forceinline__ float masked(uint32_t h_bits, float v, float scale) {
-  return __uint_as_float(h_bits) > 0.f ? v * scale : 0.f;
 }
 
 // One warp's rows r0 = row0 + lane/4 and r1 = r0 + 8 of the tile, columns
 // n0 + 8j + 2 (lane % 4) (+1), from the accumulator into the warpgroup's
 // output tile in shared memory: BN/64 boxes of 64 x 64 in the 128-byte
 // swizzle layout the TMA store reads (16-byte chunk c of row r at c ^ (r %
-// 8): a warp's 8 rows x 16 bytes hit 32 distinct banks). The dgrad
-// epilogue reads h_prev, which a TMA load put at the same places, and
-// overwrites it.
+// 8): a warp's 8 rows x 16 bytes hit 32 distinct banks). kb: the thread's
+// keep bits, written by the forward, read by the dgrad.
 template <int BN, int EPI>
 __device__ __forceinline__ void tn_epilogue(const float (&acc)[BN / 2],
                                             const TnArgs& p,
-                                            unsigned char* obuf, int row0,
+                                            unsigned char* obuf,
+                                            uint32_t (&kb)[BN / 64], int row0,
                                             int n0, int wrow, int lane) {
   const int q = lane % 4, g = lane / 4;
   const long long r0 = row0 + g, r1 = r0 + 8;
@@ -295,25 +386,91 @@ __device__ __forceinline__ void tn_epilogue(const float (&acc)[BN / 2],
     // one block the compiler can schedule (loads ahead of their use)
     if (p.drop) {
       if (p.xyz != nullptr)
-        fwd_columns<BN, true, true>(acc, p, word, b, r0, r1, n0, q);
+        fwd_columns<BN, true, true>(acc, p, word, kb, b, r0, r1, n0, q);
       else
-        fwd_columns<BN, true, false>(acc, p, word, b, r0, r1, n0, q);
+        fwd_columns<BN, true, false>(acc, p, word, kb, b, r0, r1, n0, q);
     } else {
       if (p.xyz != nullptr)
-        fwd_columns<BN, false, true>(acc, p, word, b, r0, r1, n0, q);
+        fwd_columns<BN, false, true>(acc, p, word, kb, b, r0, r1, n0, q);
       else
-        fwd_columns<BN, false, false>(acc, p, word, b, r0, r1, n0, q);
+        fwd_columns<BN, false, false>(acc, p, word, kb, b, r0, r1, n0, q);
     }
   } else {
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
+      const uint32_t k = kb[j / 8] >> (j % 8);
       uint32_t* w = word(j);
-      const uint32_t h0 = w[0], h1 = w[8 * 128 / 4];
-      w[0] = pack_bf16(masked(h0 << 16, acc[4 * j], p.scale),
-                       masked(h0 & 0xffff0000u, acc[4 * j + 1], p.scale));
-      w[8 * 128 / 4] = pack_bf16(masked(h1 << 16, acc[4 * j + 2], p.scale),
-                                 masked(h1 & 0xffff0000u, acc[4 * j + 3], p.scale));
+      w[0] = pack_bf16(k & 1u ? acc[4 * j] * p.scale : 0.f,
+                       k & 1u << 16 ? acc[4 * j + 1] * p.scale : 0.f);
+      w[8 * 128 / 4] = pack_bf16(k & 1u << 8 ? acc[4 * j + 2] * p.scale : 0.f,
+                                 k & 1u << 24 ? acc[4 * j + 3] * p.scale : 0.f);
     }
+  }
+}
+
+// The dgrad's column sums of a warpgroup's 64 x BN output tile, as stored
+// (bf16), read back from shared memory: thread t (0-127) sums column pair
+// t % (BN/2) over rows seg * RS .. seg * RS + RS - 1 in order (seg = t /
+// (BN/2), RS = 64 / (256 / BN)), with the three bf16(xyz)-weighted sums if
+// XYZ, into slot wg * SEG + seg of the column-partial buffer cbuf
+// ([slot][sum][pair] float2).
+template <int BN, bool XYZ>
+__device__ __forceinline__ void dgrad_column_sums(const unsigned char* obuf,
+                                             float2* cbuf, const TnArgs& p,
+                                             long long wm0, int wg, int t) {
+  constexpr int PAIRS = BN / 2, SEG = 128 / PAIRS, RS = TN_BOX / SEG;
+  const int pr = t % PAIRS, seg = t / PAIRS;
+  // pair pr: 4-byte word pr % 4 of 16-byte chunk (pr % 32) / 4 of box pr / 32
+  const unsigned char* col =
+      obuf + (pr / 32) * TN_BOX_BYTES + 4 * (pr % 4);
+  const int chunk = (pr % 32) / 4;
+  float2 s[TN_CSUMS];
+#pragma unroll
+  for (int c = 0; c < TN_CSUMS; ++c) s[c] = make_float2(0.f, 0.f);
+#pragma unroll 8
+  for (int r = seg * RS; r < seg * RS + RS; ++r) {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(
+        col + r * 128 + ((chunk ^ (r % 8)) << 4));
+    const float lo = __uint_as_float(v << 16);
+    const float hi = __uint_as_float(v & 0xffff0000u);
+    s[0].x += lo;
+    s[0].y += hi;
+    if (XYZ) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float x = __bfloat162float(p.xyz[(wm0 + r) * 3 + c]);
+        s[1 + c].x += x * lo;
+        s[1 + c].y += x * hi;
+      }
+    }
+  }
+  float2* dst = cbuf + (wg * SEG + seg) * TN_CSUMS * PAIRS + pr;
+#pragma unroll
+  for (int c = 0; c < (XYZ ? TN_CSUMS : 1); ++c) dst[c * PAIRS] = s[c];
+}
+
+// Both warpgroups' column partials of a tile (cbuf, after a barrier of
+// both), added in row order and written as the tile's rows of p.part by
+// warps 1-3 of each warpgroup (thread t = 0 .. 96 TN_WGS - 1 takes
+// outputs t, t + 96 TN_WGS, ...): warp 0 holds the leader, whose next
+// mbarrier arrive (release) would wait for its stores to complete.
+template <int BN>
+__device__ __forceinline__ void dgrad_column_sums_out(const float2* cbuf,
+                                                 const TnArgs& p, int m0,
+                                                 int n0, int t) {
+  constexpr int PAIRS = BN / 2, SLOTS = TN_WGS * (128 / PAIRS);
+  float* row = p.part + static_cast<long long>(m0 / TN_BM) * p.nsum * p.n;
+  for (int o = t; o < p.nsum * PAIRS; o += 96 * TN_WGS) {
+    const int c = o / PAIRS, pr = o % PAIRS;
+    float2 a = cbuf[c * PAIRS + pr];
+#pragma unroll
+    for (int k = 1; k < SLOTS; ++k) {
+      const float2 b = cbuf[(k * TN_CSUMS + c) * PAIRS + pr];
+      a.x += b.x;
+      a.y += b.y;
+    }
+    *reinterpret_cast<float2*>(row + static_cast<long long>(c) * p.n + n0 +
+                               2 * pr) = a;
   }
 }
 
@@ -322,14 +479,13 @@ __global__ void __launch_bounds__(TN_THREADS, 1)
     tn_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                    const __grid_constant__ CUtensorMap map_b,
                    const __grid_constant__ CUtensorMap map_o,
-                   const __grid_constant__ CUtensorMap map_h,
                    const TnArgs p) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t out = ring + TN_STAGES * TN_STAGE_BYTES;
-  const uint32_t full = out + TN_OUT_BYTES;
+  const uint32_t cbufs = out + TN_OUT_BYTES;
+  const uint32_t full = cbufs + 2 * TN_CBUF_BYTES;
   const uint32_t empty = full + TN_STAGES * 8;
-  const uint32_t hbar = empty + TN_STAGES * 8;
   const int tid = threadIdx.x, lane = tid % 32;
   // warp-uniform to the compiler (no divergent path around the wgmmas)
   const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
@@ -341,7 +497,6 @@ __global__ void __launch_bounds__(TN_THREADS, 1)
       mbar_init(full + s * 8, 1);
       mbar_init(empty + s * 8, TN_WGS);     // one arrival per consumer warpgroup
     }
-    for (int w = 0; w < TN_WGS; ++w) mbar_init(hbar + w * 8, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -377,24 +532,19 @@ __global__ void __launch_bounds__(TN_THREADS, 1)
     const int wg = warp / 4;
     const uint32_t leader = (tid % 128) == 0;
     const uint32_t obuf = out + wg * TN_BOX * TN_MAX_BN * 2;
-    const uint32_t my_hbar = hbar + wg * 8;
     unsigned char* obuf_p = smem_raw + (obuf - smem_u32(smem_raw));
-    int stage = 0;
-    uint32_t phase = 0, hphase = 0;
+    float2* cbuf_p =
+        reinterpret_cast<float2*>(smem_raw + (cbufs - smem_u32(smem_raw)));
+    int stage = 0, parity = 0;
+    uint32_t phase = 0;
     float acc[BN / 2];
+    uint32_t kbits[BN / 64];
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int m0 = (t / n_tiles) * TN_BM, n0 = (t % n_tiles) * BN;
       const int wm0 = m0 + wg * TN_BOX;
-      if (EPI == EPI_DGRAD && leader) {
-        // h_prev of this tile into the output tile, once the previous
-        // tile's store has read it
-        bulk_wait_read<0>();
-        mbar_expect_tx(my_hbar, TN_BOX * BN * 2);
-#pragma unroll
-        for (int b = 0; b < BN / TN_BOX; ++b)
-          tma_load_2d(obuf + b * TN_BOX_BYTES, &map_h, n0 + b * TN_BOX, wm0,
-                      my_hbar);
-      }
+      // the dgrad's keep bits of h_prev, loaded under the products
+      if (EPI == EPI_DGRAD)
+        load_keep<BN>(p.keep + keep_offset<BN>(t, wg, warp % 4, lane), kbits);
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
       int prev = -1;
@@ -422,22 +572,42 @@ __global__ void __launch_bounds__(TN_THREADS, 1)
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
       mbar_arrive(empty + prev * 8, leader);
-      if (EPI == EPI_DGRAD) {
-        mbar_wait(my_hbar, hphase);
-        hphase ^= 1u;
-      } else {
-        if (leader) bulk_wait_read<0>();   // the previous store has read it
-        named_sync(2 + wg, 128);
-      }
-      tn_epilogue<BN, EPI>(acc, p, obuf_p, wm0 + 16 * (warp % 4), n0,
+      // the previous store has read the output tile, and (dgrad) every
+      // thread of the warpgroup has summed its columns
+      if (leader) bulk_wait_read<0>();
+      named_sync(2 + wg, 128);
+      tn_epilogue<BN, EPI>(acc, p, obuf_p, kbits, wm0 + 16 * (warp % 4), n0,
                            16 * (warp % 4), lane);
+      // the forward's keep words, in thread order for one bulk store
+      const uint32_t kstage = cbufs + wg * 128 * (BN / 16);
+      if (EPI == EPI_FWD && p.keep != nullptr)
+        stage_keep<BN>(smem_raw + (kstage - smem_u32(smem_raw)) +
+                           (tid % 128) * (BN / 16),
+                       kbits);
       fence_async_smem();                  // the tile, visible to the TMA store
       named_sync(2 + wg, 128);
       if (leader) {
 #pragma unroll
         for (int b = 0; b < BN / TN_BOX; ++b)
           tma_store_2d(&map_o, obuf + b * TN_BOX_BYTES, n0 + b * TN_BOX, wm0);
+        if (EPI == EPI_FWD && p.keep != nullptr)
+          bulk_store(p.keep + keep_offset<BN>(t, wg, 0, 0), kstage,
+                     128 * (BN / 16));
         bulk_commit();
+      }
+      if (EPI == EPI_DGRAD) {
+        // column partials: this buffer was last read two tiles ago, before
+        // the barrier of the previous tile
+        float2* cbuf = cbuf_p + parity * (TN_CBUF_BYTES / 8);
+        if (p.nsum == TN_CSUMS)
+          dgrad_column_sums<BN, true>(obuf_p, cbuf, p, wm0, wg, tid % 128);
+        else
+          dgrad_column_sums<BN, false>(obuf_p, cbuf, p, wm0, wg, tid % 128);
+        named_sync(1, 128 * TN_WGS);       // both warpgroups' sums
+        if (warp % 4 != 0)
+          dgrad_column_sums_out<BN>(cbuf, p, m0, n0,
+                                    96 * wg + 32 * (warp % 4 - 1) + lane);
+        parity ^= 1;
       }
     }
     if (leader) bulk_wait_read<0>();       // shared memory outlives the store
@@ -639,8 +809,8 @@ int sm_count() {
 }
 
 template <int BN, int EPI>
-int launch_tn(const void* a, const void* b, const void* h, void* out,
-              const TnArgs& p, cudaStream_t stream) {
+int launch_tn(const void* a, const void* b, void* out, const TnArgs& p,
+              cudaStream_t stream) {
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -649,36 +819,39 @@ int launch_tn(const void* a, const void* b, const void* h, void* out,
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
-  CUtensorMap ma, mb, mo, mh;
+  CUtensorMap ma, mb, mo;
   if (!tile_map(&ma, a, p.m, p.k, TN_BK, TN_BM) ||
       !tile_map(&mb, b, p.n, p.k, TN_BK, BN) ||
-      !tile_map(&mo, out, p.m, p.n, TN_BOX, TN_BOX) ||
-      !tile_map(&mh, h != nullptr ? h : out, p.m, p.n, TN_BOX, TN_BOX))
+      !tile_map(&mo, out, p.m, p.n, TN_BOX, TN_BOX))
     return static_cast<int>(cudaErrorInvalidValue);
   const int sms = sm_count();
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   const int tiles = (p.m / TN_BM) * (p.n / BN);
   tn_gemm_kernel<BN, EPI><<<tiles < sms ? tiles : sms, TN_THREADS, TN_SMEM,
-                            stream>>>(ma, mb, mo, mh, p);
+                            stream>>>(ma, mb, mo, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// A [m][k] and B [n][k] into out [m][n] (h: h_prev [m][n] for dgrad), all
-// row-major, contiguous and 16-byte aligned.
+// A [m][k] and B [n][k] into out [m][n], all row-major, contiguous and
+// 16-byte aligned, as are the keep bits (and, for dgrad, the partials).
 template <int EPI>
-int run_tn(const void* a, const void* b, const void* h, void* out, int bn,
-           const TnArgs& p, void* stream) {
+int run_tn(const void* a, const void* b, void* out, int bn, const TnArgs& p,
+           void* stream) {
   if (p.m <= 0 || p.n <= 0 || p.k <= 0 || p.m % TN_BM || p.k % TN_BK ||
       (bn != 128 && bn != TN_MAX_BN) || p.n % bn ||
       reinterpret_cast<uintptr_t>(a) % 16 ||
       reinterpret_cast<uintptr_t>(b) % 16 ||
-      reinterpret_cast<uintptr_t>(h) % 16 ||
       reinterpret_cast<uintptr_t>(out) % 16 ||
-      (EPI == EPI_DGRAD && h == nullptr))
+      reinterpret_cast<uintptr_t>(p.keep) % 16 ||
+      reinterpret_cast<uintptr_t>(p.part) % 16 ||
+      (EPI == EPI_DGRAD &&
+       (p.keep == nullptr || p.part == nullptr ||
+        (p.nsum != 1 && p.nsum != TN_CSUMS) ||
+        (p.nsum == TN_CSUMS && p.xyz == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bn == TN_MAX_BN ? launch_tn<TN_MAX_BN, EPI>(a, b, h, out, p, s)
-                         : launch_tn<128, EPI>(a, b, h, out, p, s);
+  return bn == TN_MAX_BN ? launch_tn<TN_MAX_BN, EPI>(a, b, out, p, s)
+                         : launch_tn<128, EPI>(a, b, out, p, s);
 }
 
 template <int BN>
@@ -726,56 +899,90 @@ __global__ void scene_rows_kernel(const float* __restrict__ z,
   rows[t] = b[n] + acc;
 }
 
-// Layer 0 (K = 3 on CUDA cores): h[m][4g..4g+3] from the scene's row, xyz,
-// relu and dropout; one Philox call per 4 columns.
-__global__ void layer0_kernel(const bf16* __restrict__ xyz,
-                              const float* __restrict__ rows,
-                              const bf16* __restrict__ wx, bf16* __restrict__ h,
-                              long long n_points, long long p, int width,
-                              uint32_t key, uint32_t threshold, float scale,
-                              int drop) {
+// Layer 0 (K = 3 on CUDA cores) for a band of L0_ROWS rows, one engine
+// warp's rows of a tile: h[m][4g..4g+3] from the scene's row, xyz, relu and
+// dropout, one Philox call per 4 columns; then, if keep is set, the band's
+// keep bits in the engine's layout (keep_offset, tile width bn) through
+// one byte per element in shared memory ([L0_ROWS][width]).
+constexpr int L0_ROWS = 16;
+
+__global__ void __launch_bounds__(SMALL_THREADS)
+    layer0_kernel(const bf16* __restrict__ xyz, const float* __restrict__ rows,
+                  const bf16* __restrict__ wx, bf16* __restrict__ h,
+                  uint32_t* __restrict__ keep, long long p, int width, int bn,
+                  uint32_t key, uint32_t threshold, float scale, int drop) {
+  extern __shared__ unsigned char pos[];
   const int groups = width / 4;
-  const long long t = (long long)blockIdx.x * SMALL_THREADS + threadIdx.x;
-  if (t >= n_points * groups) return;
-  const long long m = t / groups;
-  const int gi = static_cast<int>(t % groups);
-  const float* rw = rows + (m / p) * width;
-  const float x0 = __bfloat162float(xyz[m * 3]);
-  const float x1 = __bfloat162float(xyz[m * 3 + 1]);
-  const float x2 = __bfloat162float(xyz[m * 3 + 2]);
-  uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-  if (drop) bits = philox::dropout_bits(m, static_cast<uint32_t>(gi), key);
-  __align__(8) bf16 o[4];
+  const long long m0 = (long long)blockIdx.x * L0_ROWS;
+  for (int it = threadIdx.x; it < L0_ROWS * groups; it += SMALL_THREADS) {
+    const int r = it / groups, gi = it % groups;
+    const long long m = m0 + r;
+    const float* rw = rows + (m / p) * width;
+    const float x0 = __bfloat162float(xyz[m * 3]);
+    const float x1 = __bfloat162float(xyz[m * 3 + 1]);
+    const float x2 = __bfloat162float(xyz[m * 3 + 2]);
+    uint4 bits = make_uint4(0u, 0u, 0u, 0u);
+    if (drop) bits = philox::dropout_bits(m, static_cast<uint32_t>(gi), key);
+    __align__(8) bf16 o[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = gi * 4 + j;
-    float v = rw[col] + x0 * __bfloat162float(wx[col * 3]) +
-              x1 * __bfloat162float(wx[col * 3 + 1]) +
-              x2 * __bfloat162float(wx[col * 3 + 2]);
-    v = fmaxf(v, 0.f);
-    if (drop) v = philox::word(bits, j) >= threshold ? v * scale : 0.f;
-    o[j] = __float2bfloat16_rn(v);
+    for (int j = 0; j < 4; ++j) {
+      const int col = gi * 4 + j;
+      float v = rw[col] + x0 * __bfloat162float(wx[col * 3]) +
+                x1 * __bfloat162float(wx[col * 3 + 1]) +
+                x2 * __bfloat162float(wx[col * 3 + 2]);
+      v = fmaxf(v, 0.f);
+      if (drop) v = philox::word(bits, j) >= threshold ? v * scale : 0.f;
+      o[j] = __float2bfloat16_rn(v);
+      pos[r * width + col] = __bfloat162float(o[j]) > 0.f;
+    }
+    *reinterpret_cast<uint2*>(h + m * width + gi * 4) =
+        *reinterpret_cast<const uint2*>(o);
   }
-  *reinterpret_cast<uint2*>(h + m * width + gi * 4) =
-      *reinterpret_cast<const uint2*>(o);
+  if (keep == nullptr) return;
+  __syncthreads();
+  // word w of lane (g, q) of engine warp band (m0 % TN_BM) / 16 of tile
+  // (m0 / TN_BM, nb): bit b is row g (+8 if b / 8 is odd), column 8 j + 2
+  // q (+1 if b >= 16) of that tile, j = 8 w + b % 8
+  const int wpt = bn / 64, per_tile = 32 * wpt;
+  const long long band = (m0 / TN_BM) * (width / bn) * (TN_WGS * 4) +
+                         (m0 % TN_BM) / L0_ROWS;
+  for (int wi = threadIdx.x; wi < width / 2; wi += SMALL_THREADS) {
+    const int nb = wi / per_tile, lane = (wi % per_tile) / wpt, w = wi % wpt;
+    const unsigned char* src = pos + (lane / 4) * width + nb * bn +
+                               64 * w + 2 * (lane % 4);
+    uint32_t word = 0u;
+#pragma unroll
+    for (int b = 0; b < 32; ++b)
+      word |= static_cast<uint32_t>(
+                  src[(b / 8) % 2 * 8 * width + 8 * (b % 8) + b / 16])
+              << b;
+    keep[((band + nb * TN_WGS * 4) * 32 + lane) * wpt + w] = word;
+  }
 }
 
 // Final layer, loss, dpred, and the final layer's backward, for a tile of
 // FINAL_TILE points: pred = h . w + b; loss_part = sum |diff|; g_last =
 // bf16(dpred); g_out = bf16(where(h > 0, g_last * w * scale, 0));
-// dw_part = sum_t g_last h; db_part = sum_t g_last.
+// dw_part = sum_t g_last h; db_part = sum_t g_last; col_part = the
+// tile's column sums of g_out as stored (bf16), and with xyz (not null)
+// the three bf16(xyz)-weighted sums: [tile][1 or 4][k_width].
 constexpr int FINAL_TILE = 64;
 
 __global__ void __launch_bounds__(SMALL_THREADS)
     final_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
                  const float* __restrict__ b, const float* __restrict__ sdf,
-                 bf16* __restrict__ g_out, float* __restrict__ loss_part,
-                 float* __restrict__ dw_part, float* __restrict__ db_part,
+                 const bf16* __restrict__ xyz, bf16* __restrict__ g_out,
+                 float* __restrict__ loss_part, float* __restrict__ dw_part,
+                 float* __restrict__ db_part, float* __restrict__ col_part,
                  int k_width, float clamp, float inv_n, float scale) {
   __shared__ float gs[FINAL_TILE];
   __shared__ float red[SMALL_THREADS / 32];
+  __shared__ float xs[FINAL_TILE * 3];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long m0 = (long long)blockIdx.x * FINAL_TILE;
+  if (xyz != nullptr)
+    for (int i = tid; i < FINAL_TILE * 3; i += SMALL_THREADS)
+      xs[i] = __bfloat162float(xyz[m0 * 3 + i]);
   float lsum = 0.f;
   for (int mi = warp; mi < FINAL_TILE; mi += SMALL_THREADS / 32) {
     const bf16* hr = h + (m0 + mi) * k_width;
@@ -805,53 +1012,37 @@ __global__ void __launch_bounds__(SMALL_THREADS)
     loss_part[blockIdx.x] = l;
     db_part[blockIdx.x] = d;
   }
+  const int nsum = xyz != nullptr ? 4 : 1;
   for (int k = tid * 2; k < k_width; k += SMALL_THREADS * 2) {
     const float2 wk = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + k));
     float d0 = 0.f, d1 = 0.f;
+    float c[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
     for (int mi = 0; mi < FINAL_TILE; ++mi) {
       const long long off = (m0 + mi) * k_width + k;
       const float2 hv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(h + off));
       const float gv = gs[mi];
       d0 += gv * hv.x;
       d1 += gv * hv.y;
-      *reinterpret_cast<__nv_bfloat162*>(g_out + off) = __floats2bfloat162_rn(
+      const __nv_bfloat162 o = __floats2bfloat162_rn(
           hv.x > 0.f ? gv * wk.x * scale : 0.f, hv.y > 0.f ? gv * wk.y * scale : 0.f);
+      *reinterpret_cast<__nv_bfloat162*>(g_out + off) = o;
+      const float2 of = __bfloat1622float2(o);
+      c[0][0] += of.x;
+      c[0][1] += of.y;
+      if (xyz != nullptr) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          c[1 + j][0] += xs[mi * 3 + j] * of.x;
+          c[1 + j][1] += xs[mi * 3 + j] * of.y;
+        }
+      }
     }
     dw_part[(long long)blockIdx.x * k_width + k] = d0;
     dw_part[(long long)blockIdx.x * k_width + k + 1] = d1;
-  }
-}
-
-// Column sums of g over a chunk of COLSUM_TILE points (inside one scene):
-// part[c][0][n] = sum g, part[c][1 + j][n] = sum bf16(xyz_j) g.
-constexpr int COLSUM_TILE = 256;
-
-__global__ void __launch_bounds__(SMALL_THREADS)
-    colsum_kernel(const bf16* __restrict__ g, const bf16* __restrict__ xyz,
-                  float* __restrict__ part, int width) {
-  __shared__ float xs[COLSUM_TILE * 3];
-  const long long m0 = (long long)blockIdx.x * COLSUM_TILE;
-  for (int i = threadIdx.x; i < COLSUM_TILE * 3; i += SMALL_THREADS)
-    xs[i] = __bfloat162float(xyz[m0 * 3 + i]);
-  __syncthreads();
-  float* out = part + (long long)blockIdx.x * 4 * width;
-  for (int k = threadIdx.x * 2; k < width; k += SMALL_THREADS * 2) {
-    float s[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-    for (int t = 0; t < COLSUM_TILE; ++t) {
-      const float2 gv = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(g + (m0 + t) * width + k));
-      s[0][0] += gv.x;
-      s[0][1] += gv.y;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        s[1 + j][0] += xs[t * 3 + j] * gv.x;
-        s[1 + j][1] += xs[t * 3 + j] * gv.y;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      out[j * width + k] = s[j][0];
-      out[j * width + k + 1] = s[j][1];
+    float* cp = col_part + (long long)blockIdx.x * nsum * k_width + k;
+    for (int j = 0; j < nsum; ++j) {
+      cp[j * k_width] = c[j][0];
+      cp[j * k_width + 1] = c[j][1];
     }
   }
 }
@@ -906,12 +1097,13 @@ extern "C" {
 // launch (0 = success); pointers are device pointers, bf16 as void*.
 
 // out[M][N] = drop(relu(h[M][K] W[N][K]^T + rows (+ xyz term))), all
-// row-major and contiguous; bn (128 or 256) the tile width, N % bn == 0.
+// row-major and contiguous; bn (128 or 256) the tile width, N % bn == 0;
+// keep (M N / 32 words, or null): the keep bits bf16(out) > 0.
 int ft_gemm_fwd(const void* h, const void* w, int m, int n, int k, int bn,
                 const float* rows, long long rows_stride, long long p,
                 const void* xyz, const void* wx, unsigned key,
                 unsigned threshold, float scale, int drop, void* out,
-                void* stream) {
+                void* keep, void* stream) {
   if (p <= 0 || p % TN_BM) return static_cast<int>(cudaErrorInvalidValue);
   TnArgs a{};
   a.m = m;
@@ -926,19 +1118,28 @@ int ft_gemm_fwd(const void* h, const void* w, int m, int n, int k, int bn,
   a.threshold = threshold;
   a.drop = drop;
   a.scale = scale;
-  return run_tn<EPI_FWD>(h, w, nullptr, out, bn, a, stream);
+  a.keep = static_cast<uint32_t*>(keep);
+  return run_tn<EPI_FWD>(h, w, out, bn, a, stream);
 }
 
-// g_prev[M][N] = bf16(where(hprev[M][N] > 0, (g[M][K] wt[N][K]^T) * scale,
-// 0)), wt = W^T contiguous ([in][out]); as ft_gemm_fwd otherwise.
+// g_prev[M][N] = bf16(where(keep bit of h_prev, (g[M][K] wt[N][K]^T) *
+// scale, 0)), wt = W^T contiguous ([in][out]); keep as ft_gemm_fwd wrote
+// it for h_prev [M][N]; part [M / 128][nsum][N]: each 128-row tile's
+// column sums of g_prev, nsum = 1, or 4 with the bf16(xyz [M][3])-weighted
+// sums when xyz is not null. As ft_gemm_fwd otherwise.
 int ft_gemm_dgrad(const void* g, const void* wt, int m, int n, int k, int bn,
-                  const void* hprev, float scale, void* out, void* stream) {
+                  const void* keep, const void* xyz, float scale, void* out,
+                  float* part, void* stream) {
   TnArgs a{};
   a.m = m;
   a.n = n;
   a.k = k;
   a.scale = scale;
-  return run_tn<EPI_DGRAD>(g, wt, hprev, out, bn, a, stream);
+  a.keep = static_cast<uint32_t*>(const_cast<void*>(keep));
+  a.xyz = static_cast<const bf16*>(xyz);
+  a.part = part;
+  a.nsum = xyz != nullptr ? TN_CSUMS : 1;
+  return run_tn<EPI_DGRAD>(g, wt, out, bn, a, stream);
 }
 
 // part[K / k_split][M][N] = per-chunk sums of g[K][M]^T h[K][N] (bf16 in,
@@ -978,42 +1179,38 @@ int ft_scene_rows(const float* z, const void* wz, const float* b, float* rows,
   return last_error();
 }
 
+// h [n_points][width] of layer 0, and (keep not null) its keep bits in
+// the engine's layout for tile width bn; n_points a multiple of TN_BM.
 int ft_layer0(const void* xyz, const float* rows, const void* wx, void* h,
-              long long n_points, long long p, int width, unsigned key,
-              unsigned threshold, float scale, int drop, void* stream) {
-  if (width % 4 || p <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n = n_points * (width / 4);
-  if (n == 0) return 0;
-  layer0_kernel<<<small_blocks(n), SMALL_THREADS, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
+              void* keep, long long n_points, long long p, int width, int bn,
+              unsigned key, unsigned threshold, float scale, int drop,
+              void* stream) {
+  if (width % 4 || p <= 0 || n_points % TN_BM ||
+      (keep != nullptr && ((bn != 128 && bn != TN_MAX_BN) || width % bn)) ||
+      L0_ROWS * width > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_points == 0) return 0;
+  layer0_kernel<<<static_cast<unsigned>(n_points / L0_ROWS), SMALL_THREADS,
+                  L0_ROWS * width, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(xyz), rows, static_cast<const bf16*>(wx),
-      static_cast<bf16*>(h), n_points, p, width, key, threshold, scale, drop);
+      static_cast<bf16*>(h), static_cast<uint32_t*>(keep), p, width, bn, key,
+      threshold, scale, drop);
   return last_error();
 }
 
+// col_part [n_points / FINAL_TILE][1 or 4][k_width] (4 with xyz).
 int ft_final(const void* h, const void* w, const float* b, const float* sdf,
-             void* g_out, float* loss_part, float* dw_part, float* db_part,
-             long long n_points, int k_width, float clamp, float inv_n,
-             float scale, void* stream) {
+             const void* xyz, void* g_out, float* loss_part, float* dw_part,
+             float* db_part, float* col_part, long long n_points, int k_width,
+             float clamp, float inv_n, float scale, void* stream) {
   if (n_points % FINAL_TILE || k_width % 64)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_points == 0) return 0;
   final_kernel<<<static_cast<unsigned>(n_points / FINAL_TILE), SMALL_THREADS, 0,
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(h), static_cast<const bf16*>(w), b, sdf,
-      static_cast<bf16*>(g_out), loss_part, dw_part, db_part, k_width, clamp,
-      inv_n, scale);
-  return last_error();
-}
-
-int ft_colsum(const void* g, const void* xyz, float* part, long long n_points,
-              int width, void* stream) {
-  if (n_points % COLSUM_TILE || width % 2)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_points == 0) return 0;
-  colsum_kernel<<<static_cast<unsigned>(n_points / COLSUM_TILE), SMALL_THREADS,
-                  0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(g), static_cast<const bf16*>(xyz), part, width);
+      static_cast<const bf16*>(xyz), static_cast<bf16*>(g_out), loss_part,
+      dw_part, db_part, col_part, k_width, clamp, inv_n, scale);
   return last_error();
 }
 
@@ -1047,16 +1244,13 @@ int ft_dwz(const float* gsum, const float* z, float* dwz, int s_count, int l,
   return last_error();
 }
 
-// Tile constants the wrapper must respect: {FINAL_TILE, COLSUM_TILE}.
-void ft_constants(int* out) {
-  out[0] = FINAL_TILE;
-  out[1] = COLSUM_TILE;
-}
+// Tile constants the wrapper must respect: {FINAL_TILE}.
+void ft_constants(int* out) { out[0] = FINAL_TILE; }
 
 // The forward/dgrad engine's layout (ops/train_gemm.py TN_LAYOUT): tile
 // rows, K per stage, widest tile, ring stages, swizzle bytes, the
 // descriptor's 8-row stride, bytes per stage, output box side, threads,
-// dynamic shared memory.
+// dynamic shared memory, one column-partial buffer's bytes.
 void ft_gemm_layout(int* out) {
   out[0] = TN_BM;
   out[1] = TN_BK;
@@ -1068,6 +1262,7 @@ void ft_gemm_layout(int* out) {
   out[7] = TN_BOX;
   out[8] = TN_THREADS;
   out[9] = TN_SMEM;
+  out[10] = TN_CBUF_BYTES;
 }
 
 // The wgrad GEMM's layout (ops/train_gemm.py WGRAD_LAYOUT): tile rows,

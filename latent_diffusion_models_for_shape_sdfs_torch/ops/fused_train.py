@@ -26,7 +26,13 @@ Hopper GEMM engine (TMA ring, wgmma, persistent CTAs; wgrad with both
 operands transposed and split-K over fixed chunks of points; the layouts
 are modelled in `ops.train_gemm`), callable alone as `gemm_fwd` /
 `gemm_dgrad` / `gemm_wgrad` with plain versions `gemm_fwd_reference` /
-`gemm_dgrad_reference` / `gemm_wgrad_reference`.
+`gemm_dgrad_reference` / `gemm_wgrad_reference`. The forward (and
+`layer0`, the K = 3 first layer) also writes one keep bit per element of
+its output, bf16(h) > 0 (`ops.train_gemm.pack_keep_bits`), and the dgrad
+masks with those bits instead of reading the activation; the dgrad also
+emits each 128-point tile's column sums of its output
+(`column_partials_reference`), from which the pass takes db, the
+per-scene gsum and, at layer 0 and the skip layer, the xyz-weighted sums.
 
 `make_fused_ad_loss_grads(decoder, cfg)` is the training step's loss and
 gradient function: it folds the decoder's parameters with torch autograd
@@ -59,7 +65,8 @@ from latent_diffusion_models_for_shape_sdfs_torch.models.latent_table import (
     gather_codes)
 from latent_diffusion_models_for_shape_sdfs_torch.ops import _build
 from latent_diffusion_models_for_shape_sdfs_torch.ops.train_gemm import (
-    TN_LAYOUT, WGRAD_LAYOUT, check_shape, check_wgrad_shape, wgrad_chunk)
+    TN_LAYOUT, WGRAD_LAYOUT, check_shape, check_wgrad_shape, pack_keep_bits,
+    unpack_keep_bits, wgrad_chunk)
 from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
     EvalLayer, EvalWeights, precompute_eval_weights)
 from latent_diffusion_models_for_shape_sdfs_torch.ops.relu_dropout import (
@@ -68,7 +75,7 @@ from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 
 LAUNCHES = {"fused_train": 0, "gemm_fwd": 0, "gemm_dgrad": 0,
             "gemm_wgrad": 0}
-TILE = 256          # points per colsum chunk; P % TILE == 0 (the TPU tile)
+FINAL_ROWS = 64     # points per tile of the final layer's kernel
 _PAD = 128          # hidden widths are padded to the GEMMs' tile rows
 _KEYS = ("w_h", "w_z", "w_x", "b")
 
@@ -178,15 +185,15 @@ def _lib():
         u32, f32 = ctypes.c_uint32, ctypes.c_float
         sig = {
             "ft_gemm_fwd": [vp, vp, i32, i32, i32, i32, vp, ll, ll, vp, vp,
-                            u32, u32, f32, i32, vp, vp],
-            "ft_gemm_dgrad": [vp, vp, i32, i32, i32, i32, vp, f32, vp, vp],
+                            u32, u32, f32, i32, vp, vp, vp],
+            "ft_gemm_dgrad": [vp, vp, i32, i32, i32, i32, vp, vp, f32, vp,
+                              vp, vp],
             "ft_gemm_wgrad": [vp, vp, i32, i32, ll, ll, i32, vp, vp],
             "ft_scene_rows": [vp, vp, vp, vp, i32, i32, i32, vp],
-            "ft_layer0": [vp, vp, vp, vp, ll, ll, i32, u32, u32, f32, i32,
-                          vp],
-            "ft_final": [vp, vp, vp, vp, vp, vp, vp, vp, ll, i32, f32, f32,
-                         f32, vp],
-            "ft_colsum": [vp, vp, vp, ll, i32, vp],
+            "ft_layer0": [vp, vp, vp, vp, vp, ll, ll, i32, i32, u32, u32,
+                          f32, i32, vp],
+            "ft_final": [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ll, i32,
+                         f32, f32, f32, vp],
             "ft_reduce": [vp, vp, i32, i32, ll, ll, vp],
             "ft_dz": [vp, vp, vp, i32, i32, i32, i32, vp],
             "ft_dwz": [vp, vp, vp, i32, i32, i32, vp],
@@ -195,7 +202,7 @@ def _lib():
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             fn.argtypes = args
-        consts = (ctypes.c_int * 2)()
+        consts = (ctypes.c_int * 1)()
         lib.ft_constants.restype = None
         lib.ft_constants(consts)
         layout = (ctypes.c_int * len(TN_LAYOUT))()
@@ -204,7 +211,7 @@ def _lib():
         wlayout = (ctypes.c_int * len(WGRAD_LAYOUT))()
         lib.ft_wgrad_layout.restype = None
         lib.ft_wgrad_layout(wlayout)
-        if (list(consts) != [64, TILE]
+        if (list(consts) != [FINAL_ROWS]
                 or list(layout) != list(TN_LAYOUT.values())
                 or list(wlayout) != list(WGRAD_LAYOUT.values())):
             raise RuntimeError("csrc/fused_train.cu and fused_train.py / "
@@ -248,11 +255,29 @@ def gemm_fwd_reference(h: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
 
 
 def gemm_dgrad_reference(g: torch.Tensor, wt: torch.Tensor,
-                         hprev: torch.Tensor, scale: float) -> torch.Tensor:
-    """Plain version of the dgrad GEMM role: bf16(where(hprev > 0, (g
-    wt^T) * scale, 0)), wt = W^T [in][out]."""
-    return torch.where(hprev > 0, (g.float() @ wt.float().T) * scale,
+                         keep_bits: torch.Tensor, scale: float
+                         ) -> torch.Tensor:
+    """Plain version of the dgrad GEMM role: bf16(where(keep, (g wt^T) *
+    scale, 0)), wt = W^T [in][out], keep the [M, N] mask of `keep_bits`
+    (pack_keep_bits(hprev > 0): the same predicate as hprev > 0)."""
+    keep = unpack_keep_bits(keep_bits, g.shape[0], wt.shape[0])
+    return torch.where(keep, (g.float() @ wt.float().T) * scale,
                        0.0).to(torch.bfloat16)
+
+
+def column_partials_reference(g: torch.Tensor, xyz=None,
+                              rows: int = TN_LAYOUT["bm"]) -> torch.Tensor:
+    """Plain version of the column partials the dgrad role (rows 128) and
+    the final layer's kernel (rows 64) emit: per tile of `rows` points,
+    the column sums of g [M, N] (bf16, summed in f32), and with xyz [M, 3]
+    the three bf16(xyz)-weighted sums: f32 [M // rows, (1 or 4) * N]."""
+    m, n = g.shape
+    gf = g.float().reshape(m // rows, rows, n)
+    sums = [gf.sum(1)]
+    if xyz is not None:
+        xf = xyz.to(torch.bfloat16).float().reshape(m // rows, rows, 3)
+        sums += list(torch.einsum("trc,trn->ctn", xf, gf))
+    return torch.stack(sums, 1).reshape(m // rows, -1)
 
 
 def _gemm_operands(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
@@ -270,14 +295,16 @@ def _gemm_operands(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
 
 
 def gemm_fwd(h: torch.Tensor, w: torch.Tensor, rows: torch.Tensor, p: int,
-             xyz=None, wx=None, seed: int = 0, rate: float = 0.0
-             ) -> torch.Tensor:
+             xyz=None, wx=None, seed: int = 0, rate: float = 0.0,
+             keep_bits: bool = False):
     """The forward GEMM role, h [M, K] x W [N, K] (bf16) -> h' [M, N] bf16
-    (see gemm_fwd_reference): the plain version on CPU tensors, one launch
-    of the engine on CUDA tensors (M and p multiples of 128, K of 64, N of
-    128; raises otherwise)."""
+    (see gemm_fwd_reference), and with keep_bits also (h', its keep bits
+    pack_keep_bits(h' > 0), int32 [M N / 32]): the plain version on CPU
+    tensors, one launch of the engine on CUDA tensors (M and p multiples
+    of 128, K of 64, N of 128; raises otherwise)."""
     if h.device.type == "cpu":
-        return gemm_fwd_reference(h, w, rows, p, xyz, wx, seed, rate)
+        out = gemm_fwd_reference(h, w, rows, p, xyz, wx, seed, rate)
+        return (out, pack_keep_bits(out > 0)) if keep_bits else out
     bn = _gemm_operands(h, w, "gemm_fwd")
     m, n = h.shape[0], w.shape[0]
     if (rows.dtype != torch.float32 or not rows.is_contiguous()
@@ -296,42 +323,118 @@ def gemm_fwd(h: torch.Tensor, w: torch.Tensor, rows: torch.Tensor, p: int,
         raise ValueError("gemm_fwd: xyz must be bf16 [M, 3] with wx bf16 "
                          "[N, 3], both contiguous and on h's device")
     out = torch.empty(m, n, dtype=torch.bfloat16, device=h.device)
+    bits = (torch.empty(m * n // 32, dtype=torch.int32, device=h.device)
+            if keep_bits else None)
     drop = int(rate > 0)
     _call("ft_gemm_fwd", h.data_ptr(), w.data_ptr(), m, n, h.shape[1], bn,
           rows.data_ptr(), 0 if rows.shape[0] == 1 else n, p, _ptr(xyz),
           _ptr(wx), seed & 0xFFFFFFFF, keep_threshold(rate),
           1.0 / (1.0 - rate) if drop else 1.0, drop, out.data_ptr(),
-          torch.cuda.current_stream(h.device).cuda_stream)
+          _ptr(bits), torch.cuda.current_stream(h.device).cuda_stream)
     LAUNCHES["gemm_fwd"] += 1
     ins = (h, w, rows) if xyz is None else (h, w, rows, xyz, wx)
+    outs = (out,) if bits is None else (out, bits)
     profiling.check_kernel("gemm_fwd", *ins, out)
     profiling.count_kernel("gemm_fwd", 2 * m * n * (h.shape[1] + (
-        0 if xyz is None else 3)), _nbytes(*ins, out))
-    return out
+        0 if xyz is None else 3)), _nbytes(*ins, *outs))
+    return outs if keep_bits else out
 
 
-def gemm_dgrad(g: torch.Tensor, wt: torch.Tensor, hprev: torch.Tensor,
-               scale: float) -> torch.Tensor:
+def _check_keep_bits(keep_bits: torch.Tensor, m: int, n: int, device,
+                     what: str) -> None:
+    if (keep_bits.dtype != torch.int32 or keep_bits.ndim != 1
+            or keep_bits.numel() * 32 != m * n
+            or not keep_bits.is_contiguous() or keep_bits.device != device
+            or keep_bits.data_ptr() % 16):
+        raise ValueError(f"{what}: keep_bits {keep_bits.dtype} "
+                         f"{tuple(keep_bits.shape)} on {keep_bits.device}, "
+                         f"expected contiguous, 16-byte aligned int32 "
+                         f"[{m * n // 32}] on {device}")
+
+
+def gemm_dgrad(g: torch.Tensor, wt: torch.Tensor, keep_bits: torch.Tensor,
+               scale: float, xyz=None) -> tuple:
     """The dgrad GEMM role, g [M, K] x W^T [N, K] (bf16, K = the layer's
-    output width, N its input width) -> g_prev [M, N] bf16 (see
-    gemm_dgrad_reference): as gemm_fwd for devices and shapes."""
+    output width, N its input width) masked by the keep bits of h_prev [M,
+    N] (as gemm_fwd(..., keep_bits=True) or layer0 wrote them) -> (g_prev
+    [M, N] bf16, see gemm_dgrad_reference; its column partials f32 [M //
+    128, (1 or 4) N], see column_partials_reference, the xyz-weighted sums
+    when xyz [M, 3] bf16 is given): as gemm_fwd for devices and shapes."""
     if g.device.type == "cpu":
-        return gemm_dgrad_reference(g, wt, hprev, scale)
+        out = gemm_dgrad_reference(g, wt, keep_bits, scale)
+        return out, column_partials_reference(out, xyz)
     bn = _gemm_operands(g, wt, "gemm_dgrad")
     m, n = g.shape[0], wt.shape[0]
-    if (hprev.dtype != torch.bfloat16 or tuple(hprev.shape) != (m, n)
-            or not hprev.is_contiguous() or hprev.device != g.device):
-        raise ValueError(f"gemm_dgrad: hprev {hprev.dtype} "
-                         f"{tuple(hprev.shape)}, expected bf16 [{m}, {n}]")
+    _check_keep_bits(keep_bits, m, n, g.device, "gemm_dgrad")
+    if xyz is not None and (xyz.dtype != torch.bfloat16
+                            or tuple(xyz.shape) != (m, 3)
+                            or not xyz.is_contiguous()
+                            or xyz.device != g.device):
+        raise ValueError("gemm_dgrad: xyz must be contiguous bf16 [M, 3] on "
+                         "g's device")
     out = torch.empty(m, n, dtype=torch.bfloat16, device=g.device)
+    part = torch.empty(m // TN_LAYOUT["bm"], (1 if xyz is None else 4) * n,
+                       dtype=torch.float32, device=g.device)
     _call("ft_gemm_dgrad", g.data_ptr(), wt.data_ptr(), m, n, g.shape[1],
-          bn, hprev.data_ptr(), scale, out.data_ptr(),
-          torch.cuda.current_stream(g.device).cuda_stream)
+          bn, keep_bits.data_ptr(), _ptr(xyz), scale, out.data_ptr(),
+          part.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream)
     LAUNCHES["gemm_dgrad"] += 1
-    profiling.check_kernel("gemm_dgrad", g, wt, hprev, out)
+    ins = (g, wt, keep_bits) if xyz is None else (g, wt, keep_bits, xyz)
+    profiling.check_kernel("gemm_dgrad", *ins, out, part)
     profiling.count_kernel("gemm_dgrad", 2 * m * n * g.shape[1],
-                           _nbytes(g, wt, hprev, out))
-    return out
+                           _nbytes(*ins, out, part))
+    return out, part
+
+
+def layer0_reference(xyz: torch.Tensor, rows: torch.Tensor,
+                     wx: torch.Tensor, p: int, seed: int = 0,
+                     rate: float = 0.0) -> torch.Tensor:
+    """Plain version of the first layer (K = 3): bf16(drop(relu(rows[row
+    // p] + xyz wx^T))) from bf16 xyz [M, 3] and wx [N, 3], f32 rows [M //
+    p, N]; the dropout mask of `ops.relu_dropout` for layer seed `seed`."""
+    acc = rows.float().repeat_interleave(p, 0) + xyz.float() @ wx.float().T
+    a = torch.relu(acc)
+    if rate > 0:
+        keep = dropout_keep_mask(a.shape[0], a.shape[1], seed, rate,
+                                 device=a.device)
+        a = torch.where(keep, a * (1.0 / (1.0 - rate)), 0.0)
+    return a.to(torch.bfloat16)
+
+
+def layer0(xyz: torch.Tensor, rows: torch.Tensor, wx: torch.Tensor, p: int,
+           seed: int = 0, rate: float = 0.0) -> tuple:
+    """The first layer of the pass, (h_0 [M, N] bf16, its keep bits as
+    gemm_fwd writes them) from xyz [M, 3] bf16, the per-scene rows [M //
+    p, N] f32 (bias + latent term) and wx [N, 3] bf16: the plain version on
+    CPU tensors, one launch of the kernel's layer-0 kernel on CUDA
+    tensors (M and p multiples of 128, N of 128)."""
+    m, n = xyz.shape[0], wx.shape[0]
+    if xyz.device.type == "cpu":
+        out = layer0_reference(xyz, rows, wx, p, seed, rate)
+        return out, pack_keep_bits(out > 0)
+    bn = check_shape(m, n, TN_LAYOUT["bk"])
+    if (p <= 0 or p % TN_LAYOUT["bm"] or m % p
+            or tuple(rows.shape) != (m // p, n)
+            or rows.dtype != torch.float32
+            or xyz.dtype != torch.bfloat16 or wx.dtype != torch.bfloat16
+            or tuple(wx.shape) != (n, 3) or xyz.shape[1:] != (3,)
+            or any(not t.is_contiguous() or t.device != xyz.device
+                   for t in (rows, wx))):
+        raise ValueError(f"layer0: xyz {xyz.dtype} {tuple(xyz.shape)}, rows "
+                         f"{rows.dtype} {tuple(rows.shape)}, wx {wx.dtype} "
+                         f"{tuple(wx.shape)}, {p} points a scene")
+    xyz = xyz.contiguous()
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=xyz.device)
+    bits = torch.empty(m * n // 32, dtype=torch.int32, device=xyz.device)
+    drop = int(rate > 0)
+    _call("ft_layer0", xyz.data_ptr(), rows.data_ptr(), wx.data_ptr(),
+          out.data_ptr(), bits.data_ptr(), m, p, n, bn, seed & 0xFFFFFFFF,
+          keep_threshold(rate), 1.0 / (1.0 - rate) if drop else 1.0, drop,
+          torch.cuda.current_stream(xyz.device).cuda_stream)
+    profiling.check_kernel("layer0", xyz, rows, wx, out)
+    profiling.count_kernel("layer0", 2 * m * n * 3,
+                           _nbytes(xyz, rows, wx, out, bits))
+    return out, bits
 
 
 def gemm_wgrad_reference(g: torch.Tensor, h: torch.Tensor,
@@ -419,9 +522,7 @@ def _fused_train_cuda(ew: EvalWeights, z, xyz, sdf, num_sdf_samples,
     bf = torch.bfloat16
     stream = torch.cuda.current_stream(dev).cuda_stream
     inv_n = 1.0 / num_sdf_samples
-    drop = int(rate > 0)
-    scale = 1.0 / (1.0 - rate) if drop else 1.0
-    thr = keep_threshold(rate)
+    scale = 1.0 / (1.0 - rate) if rate > 0 else 1.0
     z = z.float().contiguous()
     xb = xyz.reshape(N, 3).to(bf).contiguous()
     sdf_f = sdf.reshape(N).float().contiguous()
@@ -440,7 +541,8 @@ def _fused_train_cuda(ew: EvalWeights, z, xyz, sdf, num_sdf_samples,
         bias.append(F.pad(lay.b.float(), (0, width[i] - true_out[i]))
                     .contiguous())
 
-    # ---- forward: every hidden activation to device memory (bf16)
+    # ---- forward: every hidden activation to device memory (bf16), and
+    # the keep bits of each one a dgrad masks with (all but the last)
     rows = {}
     for i, lay in enumerate(layers):
         if lay.w_z is not None:
@@ -449,49 +551,53 @@ def _fused_train_cuda(ew: EvalWeights, z, xyz, sdf, num_sdf_samples,
             _call("ft_scene_rows", z.data_ptr(), w_z[i].data_ptr(),
                   bias[i].data_ptr(), rows[i].data_ptr(), S, L, width[i],
                   stream)
-    hs = [torch.empty(N, width[0], dtype=bf, device=dev)]
-    _call("ft_layer0", xb.data_ptr(), rows[0].data_ptr(), w_x[0].data_ptr(),
-          hs[0].data_ptr(), N, P, width[0],
-          layer_seed(seed, 0) & 0xFFFFFFFF, thr, scale, drop, stream)
+    h0, b0 = layer0(xb, rows[0], w_x[0], P, layer_seed(seed, 0), rate)
+    hs, bits = [h0], [b0]
     for i in range(1, n_lin - 1):
         skip = layers[i].w_z is not None
-        hs.append(gemm_fwd(hs[-1], w_h[i],
-                           rows[i] if skip else bias[i][None], P,
-                           xb if skip else None, w_x[i] if skip else None,
-                           layer_seed(seed, i), rate))
+        masked = i < n_lin - 2          # the final kernel reads h_last itself
+        out = gemm_fwd(hs[-1], w_h[i], rows[i] if skip else bias[i][None], P,
+                       xb if skip else None, w_x[i] if skip else None,
+                       layer_seed(seed, i), rate, keep_bits=masked)
+        h, b = out if masked else (out, None)
+        hs.append(h)
+        bits.append(b)
 
     # ---- final layer, loss, and its backward
     K = width[n_lin - 2]
-    nblk = N // 64
+    top_xyz = layers[n_lin - 2].w_x is not None
+    nblk = N // FINAL_ROWS
     g = torch.empty(N, K, dtype=bf, device=dev)
     loss_part = torch.empty(nblk, 1, dtype=torch.float32, device=dev)
     db_part = torch.empty(nblk, 1, dtype=torch.float32, device=dev)
     dw_part = torch.empty(nblk, K, dtype=torch.float32, device=dev)
+    part = torch.empty(nblk, (4 if top_xyz else 1) * K, dtype=torch.float32,
+                       device=dev)
     w_last = w_h[-1].reshape(-1)
     _call("ft_final", hs[-1].data_ptr(), w_last.data_ptr(),
-          bias[-1].data_ptr(), sdf_f.data_ptr(), g.data_ptr(),
-          loss_part.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), N, K,
-          clamp_dist, inv_n, scale, stream)
+          bias[-1].data_ptr(), sdf_f.data_ptr(),
+          xb.data_ptr() if top_xyz else None, g.data_ptr(),
+          loss_part.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
+          part.data_ptr(), N, K, clamp_dist, inv_n, scale, stream)
     loss = _sum_parts(loss_part, stream)[0] * inv_n
     in_last = layers[-1].w_h.shape[1]
     grads = [None] * n_lin
     grads[-1] = {"w_h": _sum_parts(dw_part, stream)[:in_last][None, :],
                  "b": _sum_parts(db_part, stream)}
 
-    # ---- hidden layers, top down
+    # ---- hidden layers, top down: g and its column partials (per tile of
+    # FINAL_ROWS points from the final layer, of 128 from each dgrad; the
+    # xyz-weighted sums only where the layer has w_x)
     dz = torch.zeros(S, L, dtype=torch.float32, device=dev)
     k_split = wgrad_chunk(N)
     for i in range(n_lin - 2, -1, -1):
         lay, wi, wt = layers[i], width[i], true_out[i]
-        part = torch.empty(N // TILE, 4 * wi, dtype=torch.float32,
-                           device=dev)
-        _call("ft_colsum", g.data_ptr(), xb.data_ptr(), part.data_ptr(), N,
-              wi, stream)
-        per_scene = _reduce(part, S, P // TILE, stream)      # [S, 4*wi]
-        tot = _sum_parts(per_scene, stream).reshape(4, wi)
+        nsum = part.shape[1] // wi
+        per_scene = _reduce(part, S, part.shape[0] // S, stream)
+        tot = _sum_parts(per_scene, stream).reshape(nsum, wi)
         gr = {"b": tot[0, :wt]}
         if lay.w_z is not None:
-            gsum = per_scene.reshape(S, 4, wi)[:, 0].contiguous()
+            gsum = per_scene.reshape(S, nsum, wi)[:, 0].contiguous()
             gr["w_x"] = tot[1:4, :wt].T.contiguous()
             dwz = torch.empty(wi, L, dtype=torch.float32, device=dev)
             _call("ft_dwz", gsum.data_ptr(), z.data_ptr(), dwz.data_ptr(), S,
@@ -505,7 +611,9 @@ def _fused_train_cuda(ew: EvalWeights, z, xyz, sdf, num_sdf_samples,
             dw = _sum_parts(part_w.reshape(N // k_split, wi * k_in),
                             stream).reshape(wi, k_in)
             gr["w_h"] = dw[:wt, :lay.w_h.shape[1]]
-            g = gemm_dgrad(g, w_h[i].t().contiguous(), hs[i - 1], scale)
+            g, part = gemm_dgrad(g, w_h[i].t().contiguous(), bits[i - 1],
+                                 scale,
+                                 xb if layers[i - 1].w_x is not None else None)
         grads[i] = gr
     return loss, dz, grads
 
@@ -520,8 +628,9 @@ def fused_train_loss_grads(ew: EvalWeights, z: torch.Tensor,
     of layer i's folded `w_h` / `w_z` / `w_x` / `b` (torch layout). The
     caller chains them through the weight-norm fold."""
     S, P, _ = xyz.shape
-    if P % TILE:
-        raise ValueError(f"samples_per_scene {P} % tile {TILE} != 0")
+    if P % TN_LAYOUT["bm"]:
+        raise ValueError(f"samples_per_scene {P} is not a multiple of the "
+                         f"kernel's {TN_LAYOUT['bm']}-point tiles")
     if z.device.type == "cpu":
         return fused_train_reference(ew, z, xyz, sdf, num_sdf_samples,
                                      clamp_dist, dropout_rate, seed)

@@ -11,14 +11,19 @@ layout. What the card cannot debug is modelled here: the constants
 at load), the tensor maps' boxes, the persistent tile and split-K unit
 schedules, the swizzle the TMA copies write and the K-major and MN-major
 wgmma descriptors read, the accumulator's (row, col) map with the Philox
-block exchange of the forward epilogue, and the output tile the epilogue
-stores into and the TMA store reads. tests/test_torch_train_gemm.py
-checks the models on the CPU; nothing here runs on the card.
+block exchange of the forward epilogue, the output tile the epilogue
+stores into and the TMA store reads, and the keep bits the forward
+writes and the dgrad reads (`keep_bit`, with the tensor pair
+`pack_keep_bits` / `unpack_keep_bits` that the plain versions use).
+tests/test_torch_train_gemm.py and tests/test_torch_train_mask.py check
+the models on the CPU; nothing here runs on the card.
 """
 
 from __future__ import annotations
 
 import math
+
+import torch
 
 # csrc/fused_train.cu ft_gemm_layout(), in this order
 TN_LAYOUT = dict(bm=128,            # tile rows: 64 per consumer warpgroup
@@ -30,9 +35,14 @@ TN_LAYOUT = dict(bm=128,            # tile rows: 64 per consumer warpgroup
                  stage_bytes=49152,  # A 128 x 64 + B 256 x 64, bf16
                  box=64,            # output tile: boxes of 64 x 64
                  threads=384,       # two consumer warpgroups + a producer's
-                 # the ring, the 128 x 256 output tile, 8 barriers, slack
-                 smem=3 * 49152 + 65536 + 8 * 8 + 1024)
+                 # the ring, the 128 x 256 output tile, two column-partial
+                 # buffers, 6 barriers, slack
+                 smem=3 * 49152 + 65536 + 2 * 8192 + 6 * 8 + 1024,
+                 # a column-partial buffer: a float2 per column-pair thread
+                 # of each warpgroup and each of 4 sums
+                 cbuf=2 * 128 * 4 * 8)
 WG_ROWS = 64                        # rows of a tile per consumer warpgroup
+WARP_ROWS = 16                      # rows of a tile per consumer warp
 # csrc/fused_train.cu ft_wgrad_layout(), in this order
 WGRAD_LAYOUT = dict(bm=128,         # tile rows (out): 64 per consumer warpgroup
                     bk=64,          # points per ring stage
@@ -179,6 +189,83 @@ def dropout_words(warp: int, lane: int, j: int, row0: int = 0,
              (own, 2) if odd else (other, sent[0]),
              (own, 3) if odd else (other, sent[1])]
     return [(r, g, w) for (r, g), w in words]
+
+
+# ------------------------------------------------------------- keep bits
+
+
+def keep_word(tile: int, wg: int, warp: int, lane: int, bn: int) -> int:
+    """Index of the first of the BN/64 keep words of an engine thread:
+    lane `lane` of warp `warp` (0-3) of warpgroup `wg` of tile `tile` (m
+    block, n block, n fastest), threads in (tile, warpgroup, warp, lane)
+    order; a thread writes (forward) or reads (dgrad) its own BN/64
+    consecutive words (keep_acc_bit)."""
+    wgs = TN_LAYOUT["bm"] // WG_ROWS
+    return (((tile * wgs + wg) * 4 + warp) * 32 + lane) * (bn // 64)
+
+
+def keep_acc_bit(i: int) -> tuple:
+    """(word after the thread's first, bit) of the thread's accumulator i
+    = 4 j + e (acc_coords): word j // 8; bit j % 8, + 8 for row r0 + 8 (e
+    >= 2), + 16 for column c + 1 (e odd). The kernel builds each column
+    block's four bits from the flags of its two packed bf16 pairs (bits
+    15 and 31), shifted into place (csrc/fused_train.cu keep_flags)."""
+    j, e = divmod(i, 4)
+    return j // 8, j % 8 + 8 * (e // 2) + 16 * (e % 2)
+
+
+def keep_bit(row: int, col: int, n: int) -> tuple:
+    """(word, bit) of element (row, col) of an [M, n] activation in the
+    keep-bit layout: the engine thread whose accumulator holds (row, col)
+    when it tiles an [M, n] output (tile width tile_width(n)), and the
+    accumulator's index (acc_coords inverted)."""
+    bn, bm = tile_width(n), TN_LAYOUT["bm"]
+    tile = (row // bm) * (n // bn) + col // bn
+    rr, cc = row % bm, col % bn
+    lane = 4 * (rr % 8) + (cc % 8) // 2
+    i = 4 * (cc // 8) + 2 * ((rr % WARP_ROWS) // 8) + cc % 2
+    word = keep_word(tile, rr // WG_ROWS, (rr % WG_ROWS) // WARP_ROWS, lane,
+                     bn)
+    w, bit = keep_acc_bit(i)
+    return word + w, bit
+
+
+def _keep_dims(m: int, n: int) -> tuple:
+    """[M, n] as (m block, warpgroup, warp, row half, row % 8, n block,
+    word, column block in the word, column pair, column in the pair), and
+    the permutation to the layout's order (m block, n block, warpgroup,
+    warp, row % 8, column pair | word, column in the pair, row half,
+    column block): lane = 4 (row % 8) + pair; bit = 16 col + 8 half +
+    block."""
+    bn, bm = tile_width(n), TN_LAYOUT["bm"]
+    if m % bm:
+        raise ValueError(f"keep bits: {m} rows is not a multiple of {bm}")
+    dims = (m // bm, bm // WG_ROWS, WG_ROWS // WARP_ROWS, 2, 8, n // bn,
+            bn // 64, 8, 4, 2)
+    return dims, (0, 5, 1, 2, 4, 8, 6, 9, 3, 7)
+
+
+def pack_keep_bits(keep: torch.Tensor) -> torch.Tensor:
+    """The keep bits of a bool [M, n] mask (`h > 0`) in the layout of
+    keep_bit: int32 [M n / 32], bit b of word w = keep_bit's (w, b)."""
+    dims, perm = _keep_dims(*keep.shape)
+    b = keep.reshape(dims).permute(perm).reshape(-1, 32)
+    words = torch.zeros(b.shape[0], dtype=torch.int32, device=keep.device)
+    for i in range(32):
+        words |= b[:, i].to(torch.int32) << i
+    return words
+
+
+def unpack_keep_bits(words: torch.Tensor, m: int, n: int) -> torch.Tensor:
+    """The bool [m, n] mask of pack_keep_bits' words."""
+    dims, perm = _keep_dims(m, n)
+    if words.dtype != torch.int32 or words.numel() * 32 != m * n:
+        raise ValueError(f"keep bits: {words.dtype} x {words.numel()} "
+                         f"words for [{m}, {n}]")
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    b = ((words.reshape(-1, 1) >> shifts) & 1).bool()
+    inv = [perm.index(d) for d in range(len(perm))]
+    return b.reshape([dims[d] for d in perm]).permute(inv).reshape(m, n)
 
 
 # ------------------------------------------------------------ wgrad role

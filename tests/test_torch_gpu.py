@@ -429,19 +429,21 @@ def test_train_gemm_fwd_matches_plain_version(k, n, rate, skip, cuda):
 
 @pytest.mark.parametrize("k,n", GEMM_WIDTHS)
 def test_train_gemm_dgrad_matches_plain_version(k, n, cuda):
-    """The dgrad role, g [M, K] x W^T [N, K] with the mask of the stored
-    activation and the dropout scale, against the float32 product of the
-    same bf16 operands: <= 1e-2 of the output's max, zeros where h_prev is
-    not positive, two launches bit-identical."""
+    """The dgrad role, g [M, K] x W^T [N, K] masked by the keep bits of the
+    stored activation, with the dropout scale, against the float32 product
+    of the same bf16 operands: <= 1e-2 of the output's max, zeros where
+    h_prev is not positive, two launches bit-identical."""
     from latent_diffusion_models_for_shape_sdfs_torch.ops import fused_train as ft
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import train_gemm as tg
     m, scale = 8192 + 128 * 3, 1.25
     rng = np.random.default_rng(k * n)
     g = _bf16(rng, (m, k), 1e-3, cuda)
     wt = _bf16(rng, (n, k), 1 / np.sqrt(k), cuda)
     hprev = torch.relu(_bf16(rng, (m, n), cuda=cuda))
+    bits = tg.pack_keep_bits(hprev > 0)
     n0 = ft.LAUNCHES["gemm_dgrad"]
-    got = ft.gemm_dgrad(g, wt, hprev, scale)
-    again = ft.gemm_dgrad(g, wt, hprev, scale)
+    got, _ = ft.gemm_dgrad(g, wt, bits, scale)
+    again, _ = ft.gemm_dgrad(g, wt, bits, scale)
     torch.cuda.synchronize()
     assert ft.LAUNCHES["gemm_dgrad"] == n0 + 2
     want = torch.where(hprev > 0, (g.float() @ wt.float().T) * scale, 0.0)
@@ -449,6 +451,101 @@ def test_train_gemm_dgrad_matches_plain_version(k, n, cuda):
     assert err <= 1e-2 * float(want.abs().max()), err
     assert bool((got[hprev <= 0] == 0).all())
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("k,n", GEMM_WIDTHS)
+@pytest.mark.parametrize("with_xyz", [False, True])
+def test_train_gemm_dgrad_column_partials_match_plain_version(k, n, with_xyz,
+                                                              cuda):
+    """The dgrad's column partials (per 128-row tile: the column sums of
+    the bf16 output it stores, and the three bf16(xyz)-weighted sums when
+    xyz is given) against column_partials_reference of that output:
+    <= 1e-3 of their max; small-integer sums (exact in any order) bit for
+    bit; two launches bit-identical, output and partials."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import fused_train as ft
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import train_gemm as tg
+    m = 8192 + 128 * 5
+    rng = np.random.default_rng(k + n + with_xyz)
+    g = _bf16(rng, (m, k), 1e-3, cuda)
+    wt = _bf16(rng, (n, k), 1 / np.sqrt(k), cuda)
+    bits = tg.pack_keep_bits(torch.from_numpy(rng.random((m, n)) < 0.6)
+                             .to(cuda))
+    xyz = (torch.from_numpy(rng.uniform(-1, 1, (m, 3)).astype(np.float32))
+           .to(torch.bfloat16).to(cuda) if with_xyz else None)
+    got, part = ft.gemm_dgrad(g, wt, bits, 1.25, xyz)
+    again, part2 = ft.gemm_dgrad(g, wt, bits, 1.25, xyz)
+    torch.cuda.synchronize()
+    want = ft.column_partials_reference(got, xyz)
+    assert part.shape == want.shape == (m // 128, (4 if with_xyz else 1) * n)
+    err = float((part - want).abs().max())
+    assert err <= 1e-3 * float(want.abs().max()), err
+    assert torch.equal(got, again) and torch.equal(part, part2)
+    # small integers: g and W in {-2..2}, scale 1, xyz in {-1, 0, 1}
+    gi = torch.from_numpy(rng.integers(-2, 3, (m, k)).astype(np.float32)).to(
+        torch.bfloat16).to(cuda)
+    wi = torch.from_numpy(rng.integers(-2, 3, (n, k)).astype(np.float32)).to(
+        torch.bfloat16).to(cuda)
+    xi = (torch.from_numpy(rng.integers(-1, 2, (m, 3)).astype(np.float32))
+          .to(torch.bfloat16).to(cuda) if with_xyz else None)
+    got, part = ft.gemm_dgrad(gi, wi, bits, 1.0, xi)
+    assert torch.equal(part, ft.column_partials_reference(got, xi))
+
+
+@pytest.mark.parametrize("k,n", GEMM_WIDTHS)
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_train_gemm_fwd_keep_bits_are_those_of_its_output(k, n, rate, cuda):
+    """The forward role's keep bits equal pack_keep_bits(out > 0) of its
+    own output, bit for bit; the output is the one it writes without bits;
+    two launches bit-identical. The dgrad of the next layer, masked by
+    them, equals the dgrad masked by the bits packed from that output."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import fused_train as ft
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import train_gemm as tg
+    m, p, seed = 8192 + 128 * 4, 128 * 17, 99
+    rng = np.random.default_rng(k * n + 1)
+    h = torch.relu(_bf16(rng, (m, k), cuda=cuda))
+    w = _bf16(rng, (n, k), 1 / np.sqrt(k), cuda)
+    rows = torch.from_numpy(rng.normal(size=(1, n)).astype(np.float32)).to(
+        cuda)
+    out, bits = ft.gemm_fwd(h, w, rows, p, seed=seed, rate=rate,
+                            keep_bits=True)
+    out2, bits2 = ft.gemm_fwd(h, w, rows, p, seed=seed, rate=rate,
+                              keep_bits=True)
+    plain = ft.gemm_fwd(h, w, rows, p, seed=seed, rate=rate)
+    torch.cuda.synchronize()
+    assert bits.dtype == torch.int32 and bits.numel() * 32 == m * n
+    assert torch.equal(bits, tg.pack_keep_bits(out > 0))
+    assert torch.equal(out, plain)
+    assert torch.equal(out, out2) and torch.equal(bits, bits2)
+    g = _bf16(rng, (m, 256), 1e-3, cuda)
+    wt = _bf16(rng, (n, 256), 1 / 16, cuda)
+    a, _ = ft.gemm_dgrad(g, wt, bits, 1.25)
+    b, _ = ft.gemm_dgrad(g, wt, tg.pack_keep_bits(out > 0), 1.25)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [128, 256, 384, 512])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_layer0_keep_bits_are_those_of_its_output(n, rate, cuda):
+    """The layer-0 kernel's keep bits equal pack_keep_bits(h0 > 0) of its
+    own output, bit for bit; h0 within bf16 rounding of its plain version
+    with the mask of ops.relu_dropout; two launches bit-identical."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import fused_train as ft
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import train_gemm as tg
+    S, P = 3, 128 * 11
+    rng = np.random.default_rng(n)
+    xyz = torch.from_numpy(rng.uniform(-1, 1, (S * P, 3)).astype(
+        np.float32)).to(torch.bfloat16).to(cuda)
+    wx = _bf16(rng, (n, 3), cuda=cuda)
+    rows = torch.from_numpy(rng.normal(size=(S, n)).astype(np.float32)).to(
+        cuda)
+    out, bits = ft.layer0(xyz, rows, wx, P, seed=5, rate=rate)
+    out2, bits2 = ft.layer0(xyz, rows, wx, P, seed=5, rate=rate)
+    torch.cuda.synchronize()
+    assert torch.equal(bits, tg.pack_keep_bits(out > 0))
+    assert torch.equal(out, out2) and torch.equal(bits, bits2)
+    want = ft.layer0_reference(xyz, rows, wx, P, 5, rate).float()
+    err = float((out.float() - want).abs().max())
+    assert err <= 1e-2 * float(want.abs().max()), err
 
 
 def test_train_gemm_wrappers_check_inputs(cuda):
@@ -472,10 +569,16 @@ def test_train_gemm_wrappers_check_inputs(cuda):
     with pytest.raises(ValueError, match="xyz"):
         ft.gemm_fwd(h, w, rows, 1024, torch.zeros(1024, 3, dtype=bf),
                     torch.zeros(512, 3, dtype=bf, device=cuda))
-    with pytest.raises(ValueError, match="hprev"):
-        ft.gemm_dgrad(h, w, h[:, :256].contiguous(), 1.0)
+    bits = torch.zeros(1024 * 512 // 32, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="keep_bits"):
+        ft.gemm_dgrad(h, w, bits[:100], 1.0)
+    with pytest.raises(ValueError, match="keep_bits"):
+        ft.gemm_dgrad(h, w, bits.float(), 1.0)
     with pytest.raises(ValueError, match="K"):
-        ft.gemm_dgrad(h[:, :96].contiguous(), w[:, :96].contiguous(), h, 1.0)
+        ft.gemm_dgrad(h[:, :96].contiguous(), w[:, :96].contiguous(), bits,
+                      1.0)
+    with pytest.raises(ValueError, match="xyz"):
+        ft.gemm_dgrad(h, w, bits, 1.0, torch.zeros(1024, 3, device=cuda))
 
 
 # ------------- kernel #4's wgrad role (MN-major TMA + wgmma, split-K)

@@ -24,9 +24,13 @@ WIDTHS = [(512, 512), (512, 256), (256, 512), (128, 128)]   # (K, N)
 def test_layout_fits_the_card():
     assert LAY["stage_bytes"] == (LAY["bm"] + LAY["max_bn"]) * LAY["bk"] * 2
     assert LAY["bk"] * 2 == LAY["swizzle_bytes"]
+    # the ring, the output tile, two column-partial buffers (a float2 for
+    # each of 128 threads of each warpgroup and 4 sums), the ring's
+    # barriers, slack to align the ring
+    assert LAY["cbuf"] == (LAY["bm"] // tg.WG_ROWS) * 128 * 4 * 8
     assert LAY["smem"] == (LAY["stages"] * LAY["stage_bytes"]
-                           + LAY["bm"] * LAY["max_bn"] * 2
-                           + (2 * LAY["stages"] + 2) * 8 + 1024)
+                           + LAY["bm"] * LAY["max_bn"] * 2 + 2 * LAY["cbuf"]
+                           + 2 * LAY["stages"] * 8 + 1024)
     assert LAY["smem"] <= 232448                # an H100 block's limit
     assert LAY["bm"] == 2 * tg.WG_ROWS and LAY["threads"] == 3 * 128
 
@@ -223,14 +227,21 @@ def test_cpu_forward_role_is_its_plain_version(rate, skip):
     assert torch.equal(got, want.to(torch.bfloat16))
 
 
-def test_cpu_dgrad_role_is_its_plain_version():
+@pytest.mark.parametrize("with_xyz", [False, True])
+def test_cpu_dgrad_role_is_its_plain_version(with_xyz):
+    """On CPU tensors gemm_dgrad masks with the keep bits of h_prev as
+    where(h_prev > 0, ...) did, and returns the column partials of its
+    output (xyz-weighted too when xyz is given)."""
     m, k, n = 256, 512, 256
     g, wt = _operands(m, k, n, seed=2)
     hprev, _ = _operands(m, n, 8, seed=3)
-    got = ft.gemm_dgrad(g, wt, hprev, 1.25)
+    xyz = _operands(m, 3, 8, seed=4)[0] if with_xyz else None
+    got, part = ft.gemm_dgrad(g, wt, tg.pack_keep_bits(hprev > 0), 1.25, xyz)
     want = torch.where(hprev > 0, (g.float() @ wt.float().T) * 1.25, 0.0)
     assert torch.equal(got, want.to(torch.bfloat16))
     assert bool((got[hprev <= 0] == 0).all())
+    assert part.shape == (m // 128, (4 if with_xyz else 1) * n)
+    assert torch.equal(part, ft.column_partials_reference(got, xyz))
 
 
 # ------------------------------------------------- the wgrad role (MN-major)

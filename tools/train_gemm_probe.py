@@ -9,18 +9,25 @@ or changed, into csrc/build/probe/:
   - "no output store": the epilogue into shared memory, no TMA store (the
     wgrad role: no partial stores);
   - "no epilogue": the products and the pipeline; nothing is stored (the
-    dgrad's h_prev loads stay);
+    dgrad's keep-bit loads and its column sums over the unwritten output
+    tile stay);
   - "no wgmma": the loads, the pipeline and the epilogue on zeros;
   - "no TMA": no operand copy into the ring (each stage's barrier expects
     0 bytes); the products on whatever the ring holds, and the epilogue
-    (with its output stores and the dgrad's h_prev loads);
-  - "1 consumer warpgroup": 64-row tiles, one consumer warpgroup.
+    (with its output stores, keep bits and column partials);
+  - "1 consumer warpgroup": 64-row tiles, one consumer warpgroup;
+  - "no column sums": the dgrad without its column read-back and partial
+    stores (its barrier stays; the partials are left unwritten);
+  - "no keep-bit store": the forward computes its keep bits but does not
+    store them; "no keep bits": neither computes nor stores them.
 Times each at 2^20 x 512 x 512 in four roles: forward with dropout 0.2,
-forward without dropout (the Philox work taken out at run time), dgrad,
-and wgrad (partials over 16,384-point chunks); checks the complete
-kernels against the plain versions; prints one line per variant and role
-with the card and the bounds. Needs one CUDA card; `--out` writes the
-numbers as JSON.
+forward without dropout (the Philox work taken out at run time), both
+writing keep bits as the pass's forward launches do, dgrad (masked by keep
+bits, with column partials), and wgrad (partials over 16,384-point
+chunks); checks the complete kernels' outputs against the plain versions;
+prints one line per variant and role with the card and the bounds (bytes:
+each input read once, each output written once). Needs one CUDA card;
+`--out` writes the numbers as JSON.
 """
 
 from __future__ import annotations
@@ -85,10 +92,36 @@ def variants(src: str) -> dict:
     def one_wg(t):
         return _rep(t, "constexpr int TN_WGS = 2;", "constexpr int TN_WGS = 1;")
 
+    def no_keep_store(t):
+        t = _rep(t, "      if (EPI == EPI_FWD && p.keep != nullptr)\n"
+                 "        stage_keep<BN>(", "      if (false)\n"
+                 "        stage_keep<BN>(")
+        return _rep(t, "        if (EPI == EPI_FWD && p.keep != nullptr)\n"
+                    "          bulk_store(", "        if (false)\n"
+                    "          bulk_store(")
+
+    def no_keep(t):
+        return _rep(no_keep_store(t), """      kb[j / 8] |= keep_flags(s0) >> (15 - j % 8) |
+                   keep_flags(s1) >> (7 - j % 8);""", "")
+
+    def no_colsum(t):
+        for call in ("dgrad_column_sums<BN, true>(obuf_p, cbuf, p, wm0, wg, "
+                     "tid % 128);",
+                     "dgrad_column_sums<BN, false>(obuf_p, cbuf, p, wm0, wg, "
+                     "tid % 128);",
+                     "dgrad_column_sums_out<BN>(cbuf, p, m0, n0,\n"
+                     "                                    96 * wg + 32 * "
+                     "(warp % 4 - 1) + lane);"):
+            t = _rep(t, call, "(void)cbuf;")
+        return t
+
     return {"kernel": src, "no output store": no_store(src),
             "no epilogue": no_epilogue(src),
             "no wgmma": no_wgmma(src), "no TMA": no_tma(src),
-            "1 consumer warpgroup": one_wg(src)}
+            "1 consumer warpgroup": one_wg(src),
+            "no column sums": no_colsum(src),
+            "no keep-bit store": no_keep_store(src),
+            "no keep bits": no_keep(src)}
 
 
 def time_ms(fn, reps: int) -> float:
@@ -157,21 +190,35 @@ def main() -> int:
     wt = w.t().contiguous()
     k_split = tg.wgrad_chunk(m)
     ops_ms = 2.0 * m * n * k / PEAK_BF16_FLOPS * 1e3
-    bounds = {"forward, dropout 0.2": max(ops_ms, 4.0 * m * 512 /
+    # forward: h in; h' and its keep bits out. dgrad: g and the keep bits
+    # in; g' and its column partials (f32, a row per 128 points) out
+    fwd_bytes = 2.0 * m * k + 2.0 * m * n + m * n / 8
+    dgrad_bytes = 2.0 * m * n + m * k / 8 + 2.0 * m * k + 4.0 * (m // 128) * k
+    bounds = {"forward, dropout 0.2": max(ops_ms, fwd_bytes /
                                           PEAK_HBM_BYTES * 1e3),
-              "forward, dropout 0": max(ops_ms, 4.0 * m * 512 /
+              "forward, dropout 0": max(ops_ms, fwd_bytes /
                                         PEAK_HBM_BYTES * 1e3),
-              "dgrad": max(ops_ms, 6.0 * m * 512 / PEAK_HBM_BYTES * 1e3),
+              "dgrad": max(ops_ms, dgrad_bytes / PEAK_HBM_BYTES * 1e3),
               "wgrad": max(ops_ms, (4.0 * m * 512 + 4.0 * (m // k_split)
                                     * n * k) / PEAK_HBM_BYTES * 1e3)}
+    bits = {}               # the keep bits of h, in each variant's layout
+
+    def keep_bits():
+        key = tg.TN_LAYOUT["bm"]
+        if key not in bits:
+            bits[key] = tg.pack_keep_bits(h > 0)
+        return bits[key]
+
     roles = {"forward, dropout 0.2":
-             (lambda: ft.gemm_fwd(h, w, rows, m, seed=9, rate=0.2),
+             (lambda: ft.gemm_fwd(h, w, rows, m, seed=9, rate=0.2,
+                                  keep_bits=True)[0],
               lambda: ft.gemm_fwd_reference(h, w, rows, m, seed=9, rate=0.2)),
              "forward, dropout 0":
-             (lambda: ft.gemm_fwd(h, w, rows, m),
+             (lambda: ft.gemm_fwd(h, w, rows, m, keep_bits=True)[0],
               lambda: ft.gemm_fwd_reference(h, w, rows, m)),
-             "dgrad": (lambda: ft.gemm_dgrad(g, wt, h, 1.25),
-                       lambda: ft.gemm_dgrad_reference(g, wt, h, 1.25)),
+             "dgrad": (lambda: ft.gemm_dgrad(g, wt, keep_bits(), 1.25)[0],
+                       lambda: ft.gemm_dgrad_reference(g, wt, keep_bits(),
+                                                       1.25)),
              "wgrad": (lambda: ft.gemm_wgrad(g, h, k_split),
                        lambda: ft.gemm_wgrad_reference(g, h, k_split))}
     print(f"[probe] {card}; 2^20 x 512 x 512; bounds {bounds} ms (products "

@@ -3,6 +3,7 @@ one checkout of the repository, so that two commits can be compared on
 one card.
 
     python3 tools/train_pass_compare.py --checkout DIR [--bank] [--out PATH]
+        [--same-as PATH ...]
 
 DIR is a checkout of a commit (for example a `git archive` unpacked into
 a git-ignored directory). The script imports the port and chip_smoke.py
@@ -15,7 +16,11 @@ by role (`train_roles`), and the engine's roles alone at 2^20 x 512 x 512
 (`train_gemms`). It also times the wgrad role alone at 2^20 x 512 x 512
 (16,384-point chunks) through DIR's wrapper, or through the C entry point
 of the mma.sync kernel that the commits before the TMA + wgmma wgrad role
-had. With --bank it runs DIR's [bank] phase (`bank_phase`: one fused
+had. It records the SHA-256 of the loss and of every g one pass stores
+(each g the wgrad role reads, and the last dgrad's output, g_0), whatever
+the checkout's dgrad returns; --same-as compares them with those of
+earlier runs' JSON (for example the parent's): equal digests, bit-equal
+results. With --bank it runs DIR's [bank] phase (`bank_phase`: one fused
 epoch of 96 steps from the chair bank, timed on the card's clock, then
 traced). Prints one JSON line; --out also writes it to PATH.
 
@@ -66,11 +71,37 @@ def wgrad_alone(ft, dev, cs) -> dict:
                 rel_err=err)
 
 
+def g_digests(ft, cs, ft_args) -> dict:
+    """SHA-256 of the loss and of every g one pass stores: the g each
+    wgrad launch reads (the final layer's, then each dgrad's but the
+    last) and the last dgrad's output (g_0), in pass order."""
+    wgrad, dgrad = ft.gemm_wgrad, ft.gemm_dgrad
+    digests, last = [], {}
+
+    def wgrad_hook(g, *args):
+        digests.append(cs._digest(g))
+        return wgrad(g, *args)
+
+    def dgrad_hook(*args, **kw):
+        out = dgrad(*args, **kw)
+        last["g"] = out[0] if isinstance(out, tuple) else out
+        return out
+
+    ft.gemm_wgrad, ft.gemm_dgrad = wgrad_hook, dgrad_hook
+    try:
+        loss = ft.fused_train_loss_grads(*ft_args)[0]
+    finally:
+        ft.gemm_wgrad, ft.gemm_dgrad = wgrad, dgrad
+    digests.append(cs._digest(last["g"]))
+    return dict(loss=cs._digest(loss), g=digests)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--checkout", type=pathlib.Path, required=True)
     ap.add_argument("--bank", action="store_true")
     ap.add_argument("--out", type=pathlib.Path, default=None)
+    ap.add_argument("--same-as", type=pathlib.Path, nargs="*", default=[])
     args = ap.parse_args()
     root = args.checkout.resolve()
     sys.path.insert(0, str(root))
@@ -127,11 +158,12 @@ def main() -> int:
                         / max(float(b[key].abs().max()), 1e-30))
     loss_rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
     del got, want
+    digests = g_digests(ft, cs, ft_args)
     ft_args = (ew, torch.from_numpy(codes[:64]).to(dev)[ids], xyz, sdf,
                S * P, ad0.clamp_dist, cs.RATE, 4242)
     ms = cs.time_ms(lambda: ft.fused_train_loss_grads(*ft_args), 5)
     out = dict(checkout=str(args.checkout), card=card, pass_ms=ms,
-               loss_rel=loss_rel, worst_grad_rel=worst,
+               loss_rel=loss_rel, worst_grad_rel=worst, digests=digests,
                roles=cs.train_roles(ft, ft_args, card),
                gemm=cs.train_gemms(ft, dev, card),
                wgrad_alone=wgrad_alone(ft, dev, cs))
@@ -149,6 +181,15 @@ def main() -> int:
         out["bank"] = dict(ms_per_step=bk["fused"]["ms_per_step"],
                            trace=bk["fused"]["trace"],
                            step0_loss_l1=bk["fused"]["step0_loss_l1"])
+    for other in args.same_as:
+        theirs = json.loads(other.read_text())["digests"]
+        same = dict(loss=theirs["loss"] == digests["loss"],
+                    g=[a == b for a, b in zip(theirs["g"], digests["g"])]
+                    if len(theirs["g"]) == len(digests["g"]) else False)
+        out.setdefault("same_as", {})[str(other)] = same
+        cs.log(f"[compare] {args.checkout} vs {other}: loss bit-equal "
+               f"{same['loss']}; each stored g (top down, g_0 last) "
+               f"bit-equal {same['g']}")
     line = json.dumps(out, default=str)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
