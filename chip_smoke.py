@@ -13,7 +13,10 @@ cmake or g++) from this checkout, while it generates the training data
 the analytic store that [cli]'s stages share, process pools started
 before CUDA is), then:
 
-  1. prints the card (nvidia-smi name and power limit) and turns TF32 off;
+  1. prints the card (nvidia-smi name and power limit) and turns TF32 off,
+     and the form of ops.bf16_linear's products for the bf16 decoder's
+     hidden layers on the tensor cores (torch.mm with out_dtype=float32
+     and a bias add forward, bf16 dgrad and wgrad);
   2. [kernel] holds the decoder-eval kernel (#1) against its plain version
      (bf16 fast_apply) on the committed trained 8x512 decoder at the
      serving path's launch shapes and at 2^20+131 points, and on a small
@@ -60,8 +63,19 @@ before CUDA is), then:
      kernel), and config 5's `ad` block (config 3's but data_parallel and
      num_scenes) on the same cut, data and start through the relu+dropout
      route, whose losses must equal config 3's bit for bit on one card;
-     counts launches, then writes the trained pack, reloads it and serves
-     chair 0 at 256^3; traces one step of each of config 3's routes;
+     counts launches and the hidden layers' tensor-core products (8 per
+     step of each role on the relu+dropout route, none on the fused one);
+     holds one step of the relu+dropout route (hidden layers on the bf16
+     tensor cores) against the same step with them in the plain form
+     (fp32 products of the same bf16 values) and in float64 (the
+     witness), each through the package's forward with its hidden
+     layers swapped (hidden_layers_through), from the same state, batch
+     and masks: loss TRAIN_LOSS_RTOL; with other chairs' codes every
+     gradient TRAIN_GRAD_TOL of its max of the plain form's, with the
+     chairs' own codes (the optimum) every gradient's distance from the
+     witness at most WITNESS_RATIO times the plain form's; then writes
+     the trained pack, reloads it and serves chair 0 at 256^3; traces
+     one step of each of config 3's routes;
   8. [bank] trains stage 1 from the on-device sample bank
      (AdConfig.device_data) at the committed packs' scale: builds the
      chair bank (6,144 chairs x 16,384 samples, 3.0 GiB) on the card with
@@ -69,8 +83,11 @@ before CUDA is), then:
      runs one epoch (96 steps) of the fused route (#4) from the chair
      pack, timed on the card's clock, steps 2-4 under
      torch.cuda.set_sync_debug_mode("error"), and a second epoch traced
-     for the device-busy share; 10 steps of the autograd route (#3/#3b)
-     from the same bank; the CSG bank of the 6,136 multicat shapes
+     for the device-busy share; 10 steps of the autograd route (#3/#3b,
+     the hidden layers on the tensor cores) from the same bank, then 3
+     steps with the hidden layers in the plain form, timed beside them,
+     and one step of each form held against the other; the CSG bank of
+     the 6,136 multicat shapes
      (bank_from_csg) and one fused step from the multicat pack (step-0
      loss_l1 gates: 0.01 chair, 0.015 CSG);
   9. [dp] the data-parallel stage-1 steps (parallel/dp.py) on config 3's
@@ -152,7 +169,8 @@ before CUDA is), then:
      --resume, sample at 256^3, eval, train-encoder (500 steps), reconstruct
      (MAP, --diffusion-prior, --encoder --refine-steps 0, --encoder) and
      serve-daemon --reconstruct encoder on one observation request, timing
-     each stage and counting the launches of kernels #3/#3b in train-ad and
+     each stage and counting the launches of kernels #3/#3b (and the
+     hidden layers' tensor-core products) in train-ad and
      #1 in the stages that decode; the stages share one analytic store,
      built with the data before CUDA (each stage would rebuild it, ~20-30
      s each on a spawn pool);
@@ -178,6 +196,8 @@ checkout of the repository) it exits non-zero before printing a result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import os
 import pathlib
@@ -194,6 +214,8 @@ PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3 bandwidth
 TOL = 5e-3                   # tests/test_pallas_kernels.py:34
 TRAIN_LOSS_RTOL = 1e-4       # fused train kernel vs plain: loss
 TRAIN_GRAD_TOL = 1e-2        # ... every gradient, relative to its max
+WITNESS_RATIO = 10.0         # tensor-core step's distance from float64 over
+WITNESS_FLOOR = 1e-3         # ... the plain form's (floored), per gradient
 RATE = 0.2                   # config 3's dropout
 PACK = ("runs", "scale_chairs6k", "stage1_pack.npz")
 SRC = "latent_diffusion_models_for_shape_sdfs_torch/csrc/"
@@ -2059,7 +2081,7 @@ def cli_phase(dev, card, store) -> dict:
     import torch
     from latent_diffusion_models_for_shape_sdfs_torch import cli, pipeline
     from latent_diffusion_models_for_shape_sdfs_torch.ops import (
-        cuda_kernels as ck, relu_dropout as rd)
+        bf16_linear as bl, cuda_kernels as ck, relu_dropout as rd)
 
     specs = json.loads((ROOT / "configs" / "config4_conditional"
                         / "specs.json").read_text())
@@ -2127,7 +2149,7 @@ def cli_phase(dev, card, store) -> dict:
         tb: dict = {}
         try:
             for name, argv in stages:
-                for d in (rd.LAUNCHES, ck.LAUNCHES):
+                for d in (rd.LAUNCHES, ck.LAUNCHES, bl.CALLS):
                     for k in d:
                         d[k] = 0
                 text = io.StringIO()
@@ -2139,8 +2161,11 @@ def cli_phase(dev, card, store) -> dict:
                 wall = time.perf_counter() - t0
                 launches = {**rd.LAUNCHES,
                             "fused_eval": ck.LAUNCHES["fused_eval"]}
-                out["stages"][name] = dict(s=wall, launches=launches)
-                log(f"[cli] {name}: {wall:.2f} s, launches {launches}")
+                out["stages"][name] = dict(s=wall, launches=launches,
+                                           tc_products=dict(bl.CALLS))
+                log(f"[cli] {name}: {wall:.2f} s, launches {launches}, "
+                    f"hidden layers' tensor-core products {dict(bl.CALLS)} "
+                    f"[{card}]")
                 if "--tensorboard" in argv:     # before a resume appends
                     stage = {"train-ad": "ad", "train-diff": "diff"}[name]
                     tb[stage] = check_event_file(
@@ -2182,6 +2207,7 @@ def cli_phase(dev, card, store) -> dict:
         f"{n_faces}; stage-2 checkpoints {diff_ckpts} [{card}]")
     ok = (st["train-ad"]["launches"]["relu_dropout_fwd"] > 0
           and st["train-ad"]["launches"]["relu_dropout_bwd"] > 0
+          and min(st["train-ad"]["tc_products"].values()) > 0
           and st["sample"]["launches"]["fused_eval"] > 0
           and st["eval"]["launches"]["fused_eval"] > 0
           and len(samples) == cuts["sample.num_samples"]
@@ -2946,9 +2972,11 @@ def profile_phase(dev, card, decoder, apply, z0, p20, ft_args,
 
 
 def reset_train_launches() -> None:
+    """Zero the launch counts of kernels #3/#3b and #4 and the count of
+    bf16 tensor-core products of the decoder's hidden layers."""
     from latent_diffusion_models_for_shape_sdfs_torch.ops import (
-        fused_train as ft, relu_dropout as rd)
-    for d in (ft.LAUNCHES, rd.LAUNCHES):
+        bf16_linear as bl, fused_train as ft, relu_dropout as rd)
+    for d in (ft.LAUNCHES, rd.LAUNCHES, bl.CALLS):
         for k in d:
             d[k] = 0
 
@@ -2957,6 +2985,169 @@ def train_launches() -> dict:
     from latent_diffusion_models_for_shape_sdfs_torch.ops import (
         fused_train as ft, relu_dropout as rd)
     return {**rd.LAUNCHES, **ft.LAUNCHES}
+
+
+def tc_products() -> dict:
+    """The hidden layers' products made on the tensor cores
+    (ops.bf16_linear.CALLS) since the last reset_train_launches."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        bf16_linear as bl)
+    return dict(bl.CALLS)
+
+
+@contextlib.contextmanager
+def hidden_layers_through(fn):
+    """Inside the block the package's SdfDecoder.forward sends its hidden
+    layers through `fn` in place of ops.bf16_linear (the plain version,
+    or the float64 witness); the head keeps its own form."""
+    from latent_diffusion_models_for_shape_sdfs_torch.models import (
+        decoder as decoder_module)
+    saved = decoder_module.bf16_linear
+    decoder_module.bf16_linear = fn
+    try:
+        yield
+    finally:
+        decoder_module.bf16_linear = saved
+
+
+def round_to_odd_f32(t):
+    """float64 -> float32 rounded to odd: toward zero, then the last bit
+    set where that was inexact. A float32 so rounded rounds to bf16 as
+    the float64 would in one step (24 bits >= 8 + 2); torch's float64 ->
+    bf16 cast rounds through float32 twice."""
+    import torch
+    r = t.float()
+    r = torch.where(r.double().abs() > t.abs(),
+                    torch.nextafter(r, torch.zeros_like(r)), r)
+    odd = (r.view(torch.int32) | 1).view(torch.float32)
+    return torch.where(r.double() != t, odd, r)
+
+
+def bf16_linear_float64(x, w, b):
+    """The witness: a hidden layer's products of the same bf16 operands
+    summed in float64, each output rounded once from its float64 sum:
+    the forward to float32 by round_to_odd_f32, so that the decoder's
+    bf16 cast is the one rounding of the exact sum; dx and dW to bf16
+    through the same; db to float32."""
+    return _float64_linear_class().apply(x, w, b)
+
+
+@functools.cache
+def _float64_linear_class():
+    import torch
+
+    class Float64Linear(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w, b):
+            x2, wb = x.reshape(-1, x.shape[-1]), w.to(torch.bfloat16)
+            ctx.save_for_backward(x2, wb)
+            ctx.x_shape = x.shape
+            y = torch.addmm(b.double(), x2.double(), wb.double().t())
+            return round_to_odd_f32(y).reshape(*x.shape[:-1], w.shape[0])
+
+        @staticmethod
+        def backward(ctx, g):
+            x2, wb = ctx.saved_tensors
+            g64 = g.reshape(-1, g.shape[-1]).double()
+            dx = round_to_odd_f32(g64 @ wb.double()).to(torch.bfloat16)
+            dw = round_to_odd_f32(g64.t() @ x2.double()).to(
+                torch.bfloat16).float()
+            return dx.reshape(ctx.x_shape), dw, g64.sum(0).float()
+
+    return Float64Linear
+
+
+def step_grads(decoder, cfg, codes, ids, xyz, sdf, epoch: float, seed: int,
+               hidden) -> tuple:
+    """One autograd step's loss and gradients (decoder parameters and the
+    code table, by name) with the hidden layers through `hidden`; leaves
+    no gradient behind."""
+    from latent_diffusion_models_for_shape_sdfs_torch import losses
+    from latent_diffusion_models_for_shape_sdfs_torch.models.latent_table \
+        import gather_codes
+    decoder.train()
+    decoder.zero_grad(set_to_none=True)
+    table = codes.detach().clone().requires_grad_()
+    with hidden_layers_through(hidden):
+        z = gather_codes(table, ids, cfg.code_bound)
+        L = z.shape[-1]
+        flat_z = z[:, None, :].expand(z.shape[0], xyz.shape[1], L)
+        pred = decoder(flat_z.reshape(-1, L), xyz.reshape(-1, 3), seed=seed)
+        loss = losses.clamped_l1(pred, sdf.reshape(-1), cfg.clamp_dist,
+                                 sdf.numel()) + losses.code_reg(
+            z, epoch, cfg.code_reg_lambda, cfg.code_reg_warmup_epochs,
+            num_sdf_samples=z.shape[0], squared=cfg.code_reg_squared)
+        loss.backward()
+    grads = {"codes": table.grad}
+    grads.update((k, p.grad) for k, p in decoder.named_parameters())
+    decoder.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def grad_distance(g: dict, ref: dict) -> dict:
+    """Per gradient, max |g - ref| over max |ref|."""
+    return {k: float((g[k] - ref[k]).abs().max())
+            / max(float(ref[k].abs().max()), 1e-30) for k in ref}
+
+
+def tc_vs_plain_step(decoder, cfg, codes, ids, xyz, sdf, epoch: float,
+                     seed: int, tag: str, card: str, case: str,
+                     gate: str | None) -> dict:
+    """One autograd step's loss and gradients (decoder parameters and the
+    code table) from the same state, batch and dropout masks with the
+    hidden layers three ways: on the tensor cores (ops.bf16_linear, the
+    package's route), in the plain form (fp32 products of the same bf16
+    values) and in float64 (the witness, bf16_linear_float64). The
+    products are the same and only the sums' order and width move. Each
+    form's distance from the witness is recorded per gradient (max |g -
+    g_64| over max |g_64|). Gates: the loss within TRAIN_LOSS_RTOL of the
+    plain form's; `gate` "plain" (far from the optimum: codes of other
+    chairs) every gradient within TRAIN_GRAD_TOL of its max of the plain
+    form's; `gate` "witness" (at the committed pack's optimum, the chairs'
+    own codes, where the batch gradient nearly cancels and the sums'
+    share of it grows) every gradient's distance from the witness at most
+    WITNESS_RATIO times the plain form's, or WITNESS_FLOOR of its max
+    where the plain form's is smaller; None records only. Leaves no
+    gradient behind."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear \
+        import bf16_linear, bf16_linear_reference
+    (loss_tc, g_tc), (loss_pl, g_pl), (loss_64, g_64) = [
+        step_grads(decoder, cfg, codes, ids, xyz, sdf, epoch, seed, hidden)
+        for hidden in (bf16_linear, bf16_linear_reference,
+                       bf16_linear_float64)]
+    rel = grad_distance(g_tc, g_pl)
+    d_tc, d_pl = grad_distance(g_tc, g_64), grad_distance(g_pl, g_64)
+    worst = max(rel, key=rel.get)
+    ratio = {k: d_tc[k] / max(d_pl[k], WITNESS_FLOOR) for k in d_tc}
+    far = max(ratio, key=ratio.get)
+    out = dict(case=case, gate=gate, loss=loss_tc, loss_plain=loss_pl,
+               loss_float64=loss_64,
+               loss_rel=abs(loss_tc - loss_pl) / abs(loss_pl),
+               worst_grad=worst, worst_grad_rel=rel[worst], grad_rel=rel,
+               tc_from_float64=d_tc, plain_from_float64=d_pl,
+               max_tc_from_float64=max(d_tc.values()),
+               max_plain_from_float64=max(d_pl.values()),
+               worst_ratio_grad=far, worst_ratio=ratio[far])
+    log(f"[{tag}] one config-3 step ({case}) with the hidden layers on the "
+        f"bf16 tensor cores vs the plain form (fp32 products of the same "
+        f"bf16 values), same state, batch and masks: loss {loss_tc:.7f} vs "
+        f"{loss_pl:.7f} ({out['loss_rel']:.2e} rel), worst gradient "
+        f"{worst} {rel[worst]:.2e} of its max; from the float64 witness "
+        f"(loss {loss_64:.7f}): tensor cores {out['max_tc_from_float64']:.2e}"
+        f", plain form {out['max_plain_from_float64']:.2e} (worst of each), "
+        f"{far} {d_tc[far]:.2e} vs {d_pl[far]:.2e} the largest ratio "
+        f"{ratio[far]:.2f}; gates: loss {TRAIN_LOSS_RTOL}, "
+        + {"plain": f"every gradient {TRAIN_GRAD_TOL} of its max",
+           "witness": f"every gradient's distance from the witness <= "
+                      f"{WITNESS_RATIO} x the plain form's (floor "
+                      f"{WITNESS_FLOOR})",
+           None: "gradients recorded"}[gate] + f" [{card}]")
+    ok = out["loss_rel"] <= TRAIN_LOSS_RTOL and {
+        "plain": rel[worst] <= TRAIN_GRAD_TOL,
+        "witness": ratio[far] <= WITNESS_RATIO, None: True}[gate]
+    if not ok:
+        raise RuntimeError(f"[{tag}] tensor-core step vs plain form: {out}")
+    return out
 
 
 def check_bank(bank, sdf_fn_of, n: int, tag: str) -> dict:
@@ -3000,6 +3191,8 @@ def bank_phase(dev, card, host_ms: float, k4_ms: float) -> dict:
         ExperimentConfig)
     from latent_diffusion_models_for_shape_sdfs_torch.data import (
         analytic, analytic_device as adv)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear \
+        import bf16_linear_reference
     from latent_diffusion_models_for_shape_sdfs_torch.train.auto_decoder \
         import init_ad_state, make_bank_step, train_auto_decoder
     from latent_diffusion_models_for_shape_sdfs_torch.utils.checkpoint \
@@ -3115,18 +3308,46 @@ def bank_phase(dev, card, host_ms: float, k4_ms: float) -> dict:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     la = train_launches()
+    products = tc_products()
     ms_a = events[0].elapsed_time(events[-1]) / (len(events) - 1)
     l1a = [float(v) for v in l1a]
+    n_hidden = len(st.decoder.layer_dims()) - 1
     out["autograd"] = dict(steps=10, ms_per_step=ms_a, loss_l1=l1a,
-                           launches=la)
+                           launches=la, tc_products=products)
     out["launches"]["autograd"] = la
-    log(f"[bank] autograd route (#3/#3b) from the bank: 10 steps, "
-        f"{ms_a:.1f} ms/step (steps 1-9), step-0 loss_l1 {l1a[0]:.5f}, "
-        f"launches {la}; steps 2-4 without host sync [{card}]")
+    log(f"[bank] autograd route (#3/#3b, hidden layers on the bf16 tensor "
+        f"cores) from the bank: 10 steps, {ms_a:.1f} ms/step (steps 1-9), "
+        f"step-0 loss_l1 {l1a[0]:.5f}, launches {la}, tensor-core products "
+        f"{products}; steps 2-4 without host sync [{card}]")
     if la["relu_dropout_fwd"] != 80 or la["relu_dropout_bwd"] != 80 \
-            or la["fused_train"] or not l1a[0] < BANK_GATES["chair"]:
+            or la["fused_train"] or not l1a[0] < BANK_GATES["chair"] \
+            or products != {k: 10 * n_hidden
+                            for k in ("fwd", "dgrad", "wgrad")}:
         raise RuntimeError(f"[bank] autograd route: {out['autograd']}")
-    del st, step, bank, ids
+    # the same route's steps with the hidden layers in the plain form
+    # (fp32 SIMT products), timed in this run beside it; then one step of
+    # each held against the other
+    events = []
+    with hidden_layers_through(bf16_linear_reference):
+        plain = make_bank_step(st.decoder, auto, bank, gen)
+        for i in range(3):
+            plain(st, ids[i], 0.0, 2000 + i)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        torch.cuda.synchronize()
+    ms_p = events[0].elapsed_time(events[-1]) / (len(events) - 1)
+    if tc_products() != products:
+        raise RuntimeError("[bank] the plain form made tensor-core products")
+    out["plain_form"] = dict(steps=3, ms_per_step=ms_p)
+    log(f"[bank] the same route with the hidden layers in the plain form "
+        f"(fp32 products, TF32 off): {ms_p:.1f} ms/step (steps 1-2 of 3), "
+        f"against {ms_a:.1f} on the tensor cores [{card}]")
+    xyz_b, sdf_b = bank.sample_batch(gen, ids[3], auto.samples_per_scene)
+    out["tc_vs_plain"] = tc_vs_plain_step(
+        st.decoder, auto, st.codes.roll(64, 0), ids[3], xyz_b, sdf_b, 0.0,
+        3003, "bank", card, "codes of chairs 64 places on", "plain")
+    del st, step, plain, bank, ids, xyz_b, sdf_b
     torch.cuda.empty_cache()
 
     # ---- the CSG bank from the multicat pack
@@ -3721,6 +3942,11 @@ def main() -> int:
     torch.cuda.set_device(dev)
     log(f"[card] {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    log("[card] the bf16 decoder's hidden layers (ops.bf16_linear) on the "
+        "bf16 tensor cores: forward torch.mm(x_bf16, bf16(W)^T, "
+        "out_dtype=float32) + b, dgrad and wgrad bf16 x bf16 -> bf16; fp32 "
+        "accumulation, bf16 reduced-precision reduction off around each "
+        "product")
 
     # ---- phase 2: kernel #1 vs plain version
     sd, codes = load_stage1_pack(ROOT.joinpath(*PACK))
@@ -4095,6 +4321,7 @@ def main() -> int:
               "config5": dataclasses.replace(ad5, num_scenes=64,
                                              num_epochs=4)}
     n_gemm = len(ew_layers) - 2         # hidden GEMM layers: one of each
+    n_hidden = len(SdfDecoder(ad0.decoder).layer_dims()) - 1
     train = {}
     for route, c in routes.items():
         state = init_ad_state(c, params=sd, codes=codes[:64], device=dev)
@@ -4105,20 +4332,25 @@ def main() -> int:
             rec.append((time.perf_counter(), float(m["loss_l1"]),
                         float(m["loss"])))
 
-        for k in rd.LAUNCHES:
-            rd.LAUNCHES[k] = 0
-        for k in ft.LAUNCHES:
-            ft.LAUNCHES[k] = 0
+        reset_train_launches()
         train_auto_decoder(c, dataset, state=state, device=dev,
                            on_step=on_step)
-        route_launches = {**rd.LAUNCHES, **ft.LAUNCHES}
+        route_launches = train_launches()
+        products = tc_products()
         ms_step = (rec[-1][0] - rec[0][0]) / (len(rec) - 1) * 1e3
         l1 = [r[1] for r in rec]
         train[route] = dict(loss_l1=l1, loss=[r[2] for r in rec],
-                            ms_per_step=ms_step, launches=route_launches)
+                            ms_per_step=ms_step, launches=route_launches,
+                            tc_products=products)
         log(f"[train] route {route}: loss_l1 per step "
             f"{[round(v, 6) for v in l1]}, {ms_step:.1f} ms/step after one "
-            f"warm-up step, launches {route_launches} [{card}]")
+            f"warm-up step, launches {route_launches}, hidden layers' "
+            f"tensor-core products {products} [{card}]")
+        want_products = {k: 0 if route == "fused_train" else 4 * n_hidden
+                         for k in ("fwd", "dgrad", "wgrad")}
+        if products != want_products:
+            raise RuntimeError(f"route {route}: tensor-core products "
+                               f"{products}, expected {want_products}")
         want = ({"relu_dropout_fwd": 32, "relu_dropout_bwd": 32,
                  "fused_train": 0, "gemm_fwd": 0, "gemm_dgrad": 0,
                  "gemm_wgrad": 0}
@@ -4153,6 +4385,15 @@ def main() -> int:
     if not same5:
         raise RuntimeError("config 5 on one card does not train as config "
                            "3's relu_dropout route")
+    state = init_ad_state(cfg, params=sd, codes=codes[:64], device=dev)
+    train["tc_vs_plain"] = [tc_vs_plain_step(
+        state.decoder, cfg, table, ids_t, xyz_t.to(torch.bfloat16), sdf_t,
+        4.0, 4242, "train", card, case, gate) for case, table, gate in (
+            ("the chairs' own codes", state.codes, "witness"),
+            ("other chairs' codes", torch.from_numpy(codes[64:128]).to(dev),
+             "plain"))]
+    del state
+    torch.cuda.empty_cache()
     details["train"] = train
 
     with tempfile.TemporaryDirectory() as td:

@@ -13,7 +13,11 @@ scale, W[o, :] = g[o] * v[o, :] / max(||v[o, :]||_2, 1e-12). The JAX tree
 stores `v [in, out]`; `utils.checkpoint.params_from_jax` converts.
 
 Compute is fp32, or bf16 operands with fp32 accumulation when
-`compute_dtype="bfloat16"`. In training mode (`decoder.train()`) the
+`compute_dtype="bfloat16"`: the hidden layers then go through
+`ops.bf16_linear` (bf16 tensor-core products on the card, forward and
+backward), the scalar head through the plain form `WNLinear` keeps (fp32
+products of bf16-valued tensors), whose cotangent need not be
+bf16-valued. In training mode (`decoder.train()`) the
 forward takes a `seed` and applies dropout after every hidden relu:
 `dropout_impl="pallas"` goes through the relu+dropout kernel
 (`ops.relu_dropout`, Philox mask keyed by seed + 7919 * layer, as the JAX
@@ -32,6 +36,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from latent_diffusion_models_for_shape_sdfs_torch.config import DecoderConfig
+from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear import (
+    bf16_linear, bf16_linear_reference)
 from latent_diffusion_models_for_shape_sdfs_torch.ops.relu_dropout import (
     layer_seed, relu_dropout)
 
@@ -78,8 +84,7 @@ class WNLinear(nn.Module):
         and fp32 bias (the JAX `preferred_element_type=float32` form)."""
         w = self.weight()
         if x.dtype == torch.bfloat16:
-            w = w.to(torch.bfloat16).float()
-            return F.linear(x.float(), w) + self.b.float()
+            return bf16_linear_reference(x, w, self.b)
         return F.linear(x, w.to(x.dtype), self.b.to(x.dtype))
 
 
@@ -141,7 +146,11 @@ class SdfDecoder(nn.Module):
                 x = torch.cat([x, inp], dim=-1)
             elif c.xyz_in_all and layer != 0:
                 x = torch.cat([x, xyz], dim=-1)
-            x = getattr(self, f"lin{layer}")(x)
+            lin = getattr(self, f"lin{layer}")
+            if x.dtype == torch.bfloat16 and layer < n_lin - 1:
+                x = bf16_linear(x, lin.weight(), lin.b)
+            else:
+                x = lin(x)
             if layer < n_lin - 1:
                 s = layer_seed(seed, layer) if drop else 0
                 if drop and c.dropout_impl == "pallas":

@@ -1,0 +1,125 @@
+"""bf16 x bf16 products with fp32 accumulation for the decoder's hidden
+layers on the bf16 autograd route (`compute_dtype="bfloat16"`).
+
+Counterpart of the bf16 branch of `WNLinear.__call__` in the JAX package's
+`models/decoder.py` (:60-67), `jnp.matmul(x, w.astype(bf16),
+preferred_element_type=float32) + b`: one pass of the matrix unit with
+fp32 accumulation, which the reference leaves to XLA (no Pallas kernel).
+
+    y  = x . bf16(W)^T, accumulated and returned in fp32, + b (fp32)
+    dx = bf16(g) . bf16(W), rounded once to bf16 (x's type)
+    dW = bf16(bf16(g)^T . x), as the gradient of the fp32 effective weight
+    db = g.sum(0) in fp32
+
+`bf16_linear_reference` is the plain version:
+`F.linear(x.float(), bf16(W).float()) + b` under autograd, fp32 products
+of bf16-valued tensors. A hidden layer's x and bf16(W) are bf16 by
+construction, and so is its cotangent g: the layer's output is cast to
+bf16 before it goes on (`models/decoder.py`), so g reaches the product as
+the image of a bf16 tensor (tests/test_torch_bf16_linear.py checks all
+three). Then both forms make the same products, exactly, and differ only
+in the order of their fp32 sums. The 512 -> 1 head keeps the plain form:
+its cotangent, +-1/n or 0, is bf16-valued only when n is a power of two
+and `use_tanh` is off.
+
+On the card all three products run on the bf16 tensor cores through
+cuBLAS: the forward as `torch.mm(x, bf16(W)^T, out_dtype=float32)` and an
+in-place add of b (`torch.addmm` with `out_dtype` takes longer on the
+H100 than the two: PERF.md), dx and dW as bf16 x bf16 -> bf16 products
+(fp32 accumulation, one rounding). cuBLAS may reduce
+split-K partials in bf16 unless told not to, so each product runs with
+`allow_bf16_reduced_precision_reduction` off; that flag is process-wide,
+so it is set around the forward's product and the backward's, and put
+back in a `finally` (autograd may run the backward on a thread of its
+own). No other flag is touched: every fp32 product sees TF32 as its
+caller set it. On the CPU the same autograd function makes fp32 products
+of the same bf16 values, the plain version's arithmetic bit for bit.
+`CALLS` counts the products made on the card, by role.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator
+
+import torch
+from torch.nn import functional as F
+
+CALLS = {"fwd": 0, "dgrad": 0, "wgrad": 0}
+
+
+def bf16_linear_reference(x: torch.Tensor, w: torch.Tensor,
+                          b: torch.Tensor) -> torch.Tensor:
+    """Plain version: fp32 products of x (bf16) and bf16(w), plus the fp32
+    bias; differentiable by autograd."""
+    return F.linear(x.float(), w.to(torch.bfloat16).float()) + b.float()
+
+
+@contextlib.contextmanager
+def _tensor_core_flags() -> Iterator[None]:
+    """cuBLAS keeps bf16 products' partial sums in fp32 inside the block;
+    the flag (and its split-K half, kept as the caller set it) is put back
+    as it was, also when the block raises."""
+    m = torch.backends.cuda.matmul
+    saved = (m.allow_bf16_reduced_precision_reduction,
+             m.allow_bf16_reduced_precision_reduction_split_k)
+    try:
+        m.allow_bf16_reduced_precision_reduction = (False, saved[1])
+        yield
+    finally:
+        m.allow_bf16_reduced_precision_reduction = saved
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, role: str) -> torch.Tensor:
+    """a @ b of bf16 operands, accumulated in fp32 and rounded once to
+    bf16: on the card on the tensor cores (inside `_tensor_core_flags`),
+    on the CPU as the fp32 product of the same values."""
+    if a.device.type == "cpu":
+        return torch.mm(a.float(), b.float()).to(torch.bfloat16)
+    CALLS[role] += 1
+    return torch.mm(a, b)
+
+
+class _Bf16Linear(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        x2 = x.reshape(-1, x.shape[-1])
+        wb = w.to(torch.bfloat16)
+        ctx.save_for_backward(x2, wb)
+        ctx.x_shape = x.shape
+        if x.is_cuda:
+            CALLS["fwd"] += 1
+            with _tensor_core_flags():
+                y = torch.mm(x2, wb.t(), out_dtype=torch.float32)
+        else:
+            y = torch.mm(x2.float(), wb.t().float())
+        y.add_(b.float())
+        return y.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, wb = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        gb = g2.to(torch.bfloat16)
+        dx = dw = db = None
+        with (_tensor_core_flags() if gb.is_cuda
+              else contextlib.nullcontext()):
+            if ctx.needs_input_grad[0]:
+                dx = _product(gb, wb, "dgrad").reshape(ctx.x_shape)
+            if ctx.needs_input_grad[1]:
+                dw = _product(gb.t(), x2, "wgrad").float()
+        if ctx.needs_input_grad[2]:
+            db = g2.sum(0)
+        return dx, dw, db
+
+
+def bf16_linear(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """x [..., in] bf16, w [out, in] and b [out] fp32 -> [..., out] fp32:
+    x . bf16(w)^T with fp32 accumulation, plus b (the reference's bf16
+    branch). Differentiable in all three; on the card every product runs
+    on the bf16 tensor cores, on the CPU as the plain version's."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"bf16_linear: x is {x.dtype}, not bfloat16")
+    return _Bf16Linear.apply(x, w, b)

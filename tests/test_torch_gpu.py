@@ -1295,6 +1295,137 @@ def test_bank_step_waits_on_nothing(route, cuda):
     assert (after[1] > before[1]) == (route == "autograd")
 
 
+# --------------- the bf16 decoder's hidden layers on the tensor cores
+
+BF16_LAYERS = [(259, 512), (512, 512), (512, 253)]      # (in, out)
+
+
+def _bf16_linear_operands(d_in, d_out, cuda, integer):
+    """x [2^16, in] bf16, w [out, in], b [out], g [2^16, out] bf16-valued
+    fp32; small integers (exact products and fp32 sums) or normals."""
+    rng = np.random.default_rng(d_in + d_out)
+    n = 1 << 16
+    if integer:
+        def draw(*shape):
+            return rng.integers(-4, 5, shape).astype(np.float32)
+    else:
+        def draw(*shape):
+            return rng.normal(size=shape).astype(np.float32)
+    x = torch.from_numpy(draw(n, d_in)).to(cuda).to(torch.bfloat16)
+    w = torch.from_numpy(draw(d_out, d_in) / (1 if integer else
+                                              np.sqrt(d_in))).to(cuda)
+    b = torch.from_numpy(draw(d_out)).to(cuda)
+    g = torch.from_numpy(draw(n, d_out)).to(cuda).to(torch.bfloat16).float()
+    return x, w, b, g
+
+
+def _bf16_linear_run(fn, x, w, b, g):
+    x = x.clone().requires_grad_()
+    w, b = w.clone().requires_grad_(), b.clone().requires_grad_()
+    y = fn(x, w, b)
+    y.backward(g)
+    torch.cuda.synchronize()
+    return y.detach(), x.grad, w.grad, b.grad
+
+
+@pytest.mark.parametrize("d_in,d_out", BF16_LAYERS)
+@pytest.mark.parametrize("integer", [False, True])
+def test_bf16_linear_matches_plain_version(d_in, d_out, integer, cuda):
+    """bf16_linear on the tensor cores against the plain version (fp32
+    products of the same bf16 values, TF32 off) at the 8x512 decoder's
+    hidden widths and 2^16 rows: y
+    within 1e-5 of its max, dx and dW within 1e-2 of each one's max (the
+    sum order moves), db and the dtypes equal; with small-integer operands
+    every output bit for bit. Each call makes one product of each role
+    on the card."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        bf16_linear as bl)
+    ops = _bf16_linear_operands(d_in, d_out, cuda, integer)
+    n0 = dict(bl.CALLS)
+    got = _bf16_linear_run(bl.bf16_linear, *ops)
+    assert {k: bl.CALLS[k] - n0[k] for k in n0} == {"fwd": 1, "dgrad": 1,
+                                                    "wgrad": 1}
+    want = _bf16_linear_run(bl.bf16_linear_reference, *ops)
+    for a, r in zip(got, want):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        assert bool(torch.isfinite(a).all())
+    if integer:
+        for a, r in zip(got, want):
+            assert torch.equal(a, r)
+        return
+    for a, r, tol in zip(got, want, (1e-5, 1e-2, 1e-2, 1e-6)):
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= tol * float(r.float().abs().max()), (tol, err)
+
+
+def test_bf16_linear_puts_the_flags_back(cuda):
+    """TF32 and both halves of bf16 reduced-precision reduction read the
+    same after a forward and backward as before, from each setting under
+    which cuBLAS runs a bf16 product (split-K off needs cuBLASLt), and
+    after a call that raises inside its product."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        bf16_linear as bl)
+    m = torch.backends.cuda.matmul
+
+    def flags():
+        return (m.allow_tf32, m.allow_bf16_reduced_precision_reduction,
+                m.allow_bf16_reduced_precision_reduction_split_k)
+
+    saved = flags()
+    x, w, b, g = _bf16_linear_operands(512, 253, cuda, False)
+    try:
+        for tf32 in (False, True):
+            for red in ((False, True), (True, True)):
+                m.allow_tf32 = tf32
+                m.allow_bf16_reduced_precision_reduction = red
+                before = flags()
+                _bf16_linear_run(bl.bf16_linear, x, w, b, g)
+                assert flags() == before
+                with pytest.raises(RuntimeError):
+                    bl.bf16_linear(x, w[:, :-1], b)    # inner sizes differ
+                assert flags() == before
+    finally:
+        m.allow_tf32 = saved[0]
+        m.allow_bf16_reduced_precision_reduction = saved[1:]
+
+
+def test_bf16_training_step_matches_plain_form(cuda, monkeypatch):
+    """One autograd step's loss and gradients of a small bf16 decoder
+    (skip layer, relu+dropout kernels) with its hidden layers on the
+    tensor cores against the same step with them through the plain
+    version: loss 1e-4 relative, each gradient 1e-2 of its max."""
+    from latent_diffusion_models_for_shape_sdfs_torch import losses
+    from latent_diffusion_models_for_shape_sdfs_torch.models import (
+        decoder as decoder_module)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        bf16_linear as bl)
+    torch.manual_seed(0)
+    dec = SdfDecoder(DecoderConfig(**{
+        **PLANS["small"], "use_dropout": True, "dropout_impl": "pallas",
+        "compute_dtype": "bfloat16"})).to(cuda).train()
+    rng = np.random.default_rng(0)
+    n = 1 << 14
+    z = torch.from_numpy(rng.normal(size=(n, 16)).astype(np.float32) / 4
+                         ).to(cuda).requires_grad_()
+    xyz = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(
+        np.float32)).to(cuda)
+    sdf = torch.from_numpy((0.1 * rng.normal(size=n)).astype(
+        np.float32)).to(cuda)
+    out = []
+    for hidden in (bl.bf16_linear, bl.bf16_linear_reference):
+        monkeypatch.setattr(decoder_module, "bf16_linear", hidden)
+        dec.zero_grad(set_to_none=True)
+        z.grad = None
+        loss = losses.clamped_l1(dec(z, xyz, seed=7), sdf, 0.1)
+        loss.backward()
+        out.append((float(loss.detach()), [z.grad.clone()] + [
+            p.grad.clone() for p in dec.parameters()]))
+    (l1, g1), (l2, g2) = out
+    assert l1 == pytest.approx(l2, rel=1e-4)
+    for a, r in zip(g1, g2):
+        assert float((a - r).abs().max()) <= 1e-2 * float(r.abs().max())
+
+
 def test_recon_capture_failure_raises(cuda):
     """A step that cannot be captured (a prior that reads a value on the
     host) raises; the run does not fall back to the eager loop. Last in
