@@ -16,7 +16,10 @@ before CUDA is), then:
   1. prints the card (nvidia-smi name and power limit) and turns TF32 off,
      and the form of ops.bf16_linear's products for the bf16 decoder's
      hidden layers on the tensor cores (torch.mm with out_dtype=float32
-     and a bias add forward, bf16 dgrad and wgrad);
+     and a bias add forward, bf16 dgrad and wgrad; with dropout through
+     the kernels one function, bf16_linear_relu_dropout: the fp32
+     product without its bias into #3, #3b's bf16 cotangent into dgrad
+     and wgrad);
   2. [kernel] holds the decoder-eval kernel (#1) against its plain version
      (bf16 fast_apply) on the committed trained 8x512 decoder at the
      serving path's launch shapes and at 2^20+131 points, and on a small
@@ -32,7 +35,13 @@ before CUDA is), then:
   4. runs the watch-folder daemon on two latent requests;
   5. [dropout] holds the relu+dropout kernels (forward #3, backward #3b)
      bit for bit against their plain versions (and #3b against autograd
-     of the plain forward) and times them;
+     of the plain forward); their layer entries (#3 from the fp32 product
+     and bias, #3b from the output with db) at [2^20, 512], [2^20, 253]
+     and 2^20+131 rows: out and gb bit for bit, db equal to
+     db_kernel_order and within DB_TOL of the float64 sums, two launches
+     bit-identical; times them at both widths beside their bytes bounds,
+     the composed form's passes they replace, the standalone pair and
+     the plain versions;
   6. [fused_train] holds the fused train kernel (#4) against its plain
      version at 64 scenes x 16,384 points on the trained decoder, dropout
      0 and 0.2, checks two passes are bit-identical, and times it; splits
@@ -48,8 +57,9 @@ before CUDA is), then:
      wgrad against their plain versions;
  6b. [profile] utils/profiling on the committed 8x512 decoder: under
      debug_nans a fused pass (#4) with one NaN sdf label, #3 on a [2^20,
-     512] bf16 input with one NaN row and #1 through KernelApply with a
-     NaN code each raise FloatingPointError naming the kernel; the
+     512] fp32 product with one NaN row, #3b on a cotangent with one and
+     #1 through KernelApply with a NaN code each raise FloatingPointError
+     naming the kernel; the
      healthy pass and one autograd-route step (#3/#3b) bit-equal with the
      checker and without, and the pass's time with it beside without;
      cost_analysis of one #4 pass, one #1 launch and one #2 launch at
@@ -73,8 +83,12 @@ before CUDA is), then:
      and masks: loss TRAIN_LOSS_RTOL; with other chairs' codes every
      gradient TRAIN_GRAD_TOL of its max of the plain form's, with the
      chairs' own codes (the optimum) every gradient's distance from the
-     witness at most WITNESS_RATIO times the plain form's; then writes
-     the trained pack, reloads it and serves chair 0 at 256^3; traces
+     witness at most WITNESS_RATIO times the plain form's; holds one step
+     through the fused layer (bf16_linear_relu_dropout, #3/#3b's layer
+     entries) against the composed form (bf16_linear_composed: the
+     cast and the standalone #3/#3b): the loss and every gradient but
+     the hidden biases bit for bit, each hidden db within DB_TOL of the
+     float64 sums of #3b's gb; then writes the trained pack, reloads it and serves chair 0 at 256^3; traces
      one step of each of config 3's routes;
   8. [bank] trains stage 1 from the on-device sample bank
      (AdConfig.device_data) at the committed packs' scale: builds the
@@ -84,9 +98,12 @@ before CUDA is), then:
      pack, timed on the card's clock, steps 2-4 under
      torch.cuda.set_sync_debug_mode("error"), and a second epoch traced
      for the device-busy share; 10 steps of the autograd route (#3/#3b,
-     the hidden layers on the tensor cores) from the same bank, then 3
-     steps with the hidden layers in the plain form, timed beside them,
-     and one step of each form held against the other; the CSG bank of
+     the hidden layers on the tensor cores, fused with relu+dropout) from
+     the same bank, then 3 steps of the composed form timed beside them
+     (the fused route must be faster) and one step of each for its peak
+     memory, then 3 steps with the hidden layers in the plain form, timed
+     beside them, and one step of each form held against the other, and
+     one step against the composed form as in [train]; the CSG bank of
      the 6,136 multicat shapes
      (bank_from_csg) and one fused step from the multicat pack (step-0
      loss_l1 gates: 0.01 chair, 0.015 CSG);
@@ -216,6 +233,7 @@ TRAIN_LOSS_RTOL = 1e-4       # fused train kernel vs plain: loss
 TRAIN_GRAD_TOL = 1e-2        # ... every gradient, relative to its max
 WITNESS_RATIO = 10.0         # tensor-core step's distance from float64 over
 WITNESS_FLOOR = 1e-3         # ... the plain form's (floored), per gradient
+DB_TOL = 2.0 ** -17          # #3b's db vs float64, of its column's sum |terms|
 RATE = 0.2                   # config 3's dropout
 PACK = ("runs", "scale_chairs6k", "stage1_pack.npz")
 SRC = "latent_diffusion_models_for_shape_sdfs_torch/csrc/"
@@ -2783,9 +2801,9 @@ def profile_phase(dev, card, decoder, apply, z0, p20, ft_args,
     decoder with TF32 off.
 
     debug_nans: one fused pass of #4 at 64 x 16,384 with one sdf label
-    NaN, #3 on a [2^20, 512] bf16 input with one NaN row and #1 through
-    KernelApply with a NaN code each raise FloatingPointError naming the
-    kernel; the healthy fused pass and one autograd-route step (#3/#3b)
+    NaN, #3's layer entry on a [2^20, 512] fp32 product with one NaN row,
+    #3b's on a cotangent with one and #1 through KernelApply with a NaN
+    code each raise FloatingPointError naming the kernel; the healthy fused pass and one autograd-route step (#3/#3b)
     are bit-equal with the checker and without; the healthy pass's time
     with the checker beside its time without (a record, not a gate).
     cost_analysis: one #4 pass, one #1 launch at 2^20 points and one #2
@@ -2822,8 +2840,12 @@ def profile_phase(dev, card, decoder, apply, z0, p20, ft_args,
     sdf_nan = sdf.clone()
     sdf_nan.view(-1)[12345] = nan
     bad_args = (ew, z, xyz, sdf_nan, *ft_args[4:])
-    x = torch.randn(1 << 20, 512, device=dev).to(torch.bfloat16)
-    x[777] = nan
+    yf = torch.randn(1 << 20, 512, device=dev)
+    b512 = torch.randn(512, device=dev)
+    h512 = rd.bias_relu_dropout_fwd(yf, b512, 1, RATE)
+    g_nan = torch.randn(1 << 20, 512, device=dev).to(torch.bfloat16)
+    yf[777] = nan
+    g_nan[778] = nan
     f_nan = apply.bind(torch.full_like(z0, nan))     # rows hoisted here
     msgs = {}
     with prof.debug_nans():
@@ -2831,13 +2853,18 @@ def profile_phase(dev, card, decoder, apply, z0, p20, ft_args,
             "#4, one sdf label NaN", "fused_train",
             lambda: ft.fused_train_loss_grads(*bad_args))
         msgs["relu_dropout_fwd"] = _raises_naming(
-            "#3, one NaN row of [2^20, 512] bf16", "relu_dropout_fwd",
-            lambda: rd.relu_dropout_fwd(x, 1, RATE))
+            "#3, one NaN row of a [2^20, 512] fp32 product",
+            "relu_dropout_fwd",
+            lambda: rd.bias_relu_dropout_fwd(yf, b512, 1, RATE))
+        msgs["relu_dropout_bwd"] = _raises_naming(
+            "#3b, one NaN row of a [2^20, 512] bf16 cotangent",
+            "relu_dropout_bwd",
+            lambda: rd.relu_dropout_bwd_out(h512, g_nan, RATE))
         msgs["fused_eval"] = _raises_naming(
             "#1 through KernelApply, a NaN code", "fused_eval",
             lambda: f_nan(p20))
     out["nan_messages"] = msgs
-    del sdf_nan, bad_args, x, f_nan
+    del sdf_nan, bad_args, yf, h512, g_nan, f_nan
 
     # ---- debug_nans: healthy work is bit-equal with the checker on
     plain_pass = ft.fused_train_loss_grads(*ft_args)
@@ -2919,22 +2946,24 @@ def profile_phase(dev, card, decoder, apply, z0, p20, ft_args,
         raise RuntimeError(f"[profile] #1's op counts {op}, packed_plain "
                            f"{packed}")
     del pairs1, table1, sids1, rows0
-    x512 = torch.randn(1 << 20, 512, device=dev).to(torch.bfloat16)
-    g512 = torch.randn_like(x512)
+    yf = torch.randn(1 << 20, 512, device=dev)
+    h512 = rd.bias_relu_dropout_fwd(yf, b512, 1, RATE)
+    g512 = torch.randn_like(h512)
     for name, fn, k_ms in (
-            ("relu_dropout_fwd", lambda: rd.relu_dropout_fwd(x512, 1, RATE),
+            ("relu_dropout_fwd",
+             lambda: rd.bias_relu_dropout_fwd(yf, b512, 1, RATE),
              ms["relu_dropout_fwd"]),
             ("relu_dropout_bwd",
-             lambda: rd.relu_dropout_bwd(x512, g512, 1, RATE),
+             lambda: rd.relu_dropout_bwd_out(h512, g512, RATE),
              ms["relu_dropout_bwd"])):
         got = prof.cost_analysis(fn)
         counts[name] = dict(flops=got["flops"], bytes=got["bytes accessed"],
                             ms=k_ms, gbps=got["bytes accessed"] / k_ms / 1e6)
-        log(f"[profile] cost_analysis {name} [2^20, 512] bf16: "
+        log(f"[profile] cost_analysis {name}'s layer entry at [2^20, 512]: "
             f"{got['flops']:.0f} FLOPs (its plain version counts none), "
             f"{got['bytes accessed']:.6e} bytes; over its {k_ms:.3f} ms: "
             f"{counts[name]['gbps']:.0f} GB/s [{card}]")
-    del x512, g512
+    del yf, b512, h512, g512
     out["cost"] = counts
 
     # ---- trace: one fused pass and one 256^3 decode
@@ -2997,9 +3026,14 @@ def tc_products() -> dict:
 
 @contextlib.contextmanager
 def hidden_layers_through(fn):
-    """Inside the block the package's SdfDecoder.forward sends its hidden
-    layers through `fn` in place of ops.bf16_linear (the plain version,
-    or the float64 witness); the head keeps its own form."""
+    """Inside the block the package's SdfDecoder.forward makes its hidden
+    layers' products through `fn` in place of ops.bf16_linear (the plain
+    version, the float64 witness, bf16_linear_composed); the head keeps
+    its own form. This is the swap point of the fused layer too: with
+    dropout through the kernels, the decoder takes
+    ops.bf16_linear.bf16_linear_relu_dropout only while its product form
+    is ops.bf16_linear itself, and composes any other `fn` with the cast
+    to bf16 and relu_dropout (the composed form)."""
     from latent_diffusion_models_for_shape_sdfs_torch.models import (
         decoder as decoder_module)
     saved = decoder_module.bf16_linear
@@ -3008,6 +3042,50 @@ def hidden_layers_through(fn):
         yield
     finally:
         decoder_module.bf16_linear = saved
+
+
+def bf16_linear_composed(x, w, b):
+    """The composed form of a bf16 hidden layer with relu+dropout: the same
+    tensor-core products as ops.bf16_linear under another name, so that
+    inside hidden_layers_through the decoder composes them with the cast
+    and relu_dropout (#3/#3b's standalone entries: the bias add, the
+    casts and the db sum as passes of their own) instead of its fused
+    layer."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear \
+        import bf16_linear
+    return bf16_linear(x, w, b)
+
+
+def col_sums64(t) -> tuple:
+    """(sum, sum of |.|) of each column of a [rows, cols] tensor in float64,
+    a chunk of rows at a time."""
+    import torch
+    s = torch.zeros(t.shape[1], dtype=torch.float64, device=t.device)
+    a = torch.zeros_like(s)
+    for r in range(0, t.shape[0], 1 << 16):
+        c = t[r:r + (1 << 16)].double()
+        s += c.sum(0)
+        a += c.abs().sum(0)
+    return s, a
+
+
+def db_distance(db, gb) -> float:
+    """Largest |db - exact| / sum |terms| over the columns of gb."""
+    exact, abs_sum = col_sums64(gb)
+    return float(((db.double() - exact).abs()
+                  / abs_sum.clamp(min=1e-300)).max())
+
+
+def peak_step_gib(fn) -> tuple:
+    """(peak GiB, rise over what was allocated before) of one call."""
+    import torch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak / 2 ** 30, (peak - before) / 2 ** 30
 
 
 def round_to_odd_f32(t):
@@ -3147,6 +3225,70 @@ def tc_vs_plain_step(decoder, cfg, codes, ids, xyz, sdf, epoch: float,
         "witness": ratio[far] <= WITNESS_RATIO, None: True}[gate]
     if not ok:
         raise RuntimeError(f"[{tag}] tensor-core step vs plain form: {out}")
+    return out
+
+
+def layer_vs_parent_step(decoder, cfg, codes, ids, xyz, sdf, epoch: float,
+                         seed: int, tag: str, card: str) -> dict:
+    """One autograd step's loss and gradients from the same state, batch
+    and masks through the package's route (the hidden layers as
+    ops.bf16_linear.bf16_linear_relu_dropout: kernels #3/#3b's layer
+    entries) and through the composed form (bf16_linear_composed:
+    bf16_linear, the cast, relu_dropout). Gates: the loss and every
+    gradient but the hidden biases bit for bit; each hidden layer's db
+    (the bias gradient, #3b's column sums of its gb, recorded as it runs)
+    within DB_TOL of its columns' sums of |gb| from their float64 sums,
+    and the two forms' bias gradients within 2 DB_TOL of it apart."""
+    import torch
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        bf16_linear as bl, relu_dropout as rd)
+    seen = []
+    real = rd.relu_dropout_bwd_out
+
+    def recorded(out, g, rate):
+        gb, db = real(out, g, rate)
+        seen.append((db_distance(db, gb), col_sums64(gb)[1], db))
+        return gb, db
+
+    rd.relu_dropout_bwd_out = recorded
+    try:
+        loss_n, g_n = step_grads(decoder, cfg, codes, ids, xyz, sdf, epoch,
+                                 seed, bl.bf16_linear)
+    finally:
+        rd.relu_dropout_bwd_out = real
+    loss_p, g_p = step_grads(decoder, cfg, codes, ids, xyz, sdf, epoch, seed,
+                             bf16_linear_composed)
+    n_hidden = len(decoder.layer_dims()) - 1
+    hidden_b = {f"lin{i}.b" for i in range(n_hidden)}
+    same = {k: torch.equal(g_n[k], g_p[k]) for k in g_n if k not in hidden_b}
+    db_rel, apart, own = {}, {}, True
+    for j, (dist, abs_sum, db) in enumerate(seen):
+        k = f"lin{n_hidden - 1 - j}.b"
+        own = own and torch.equal(g_n[k], db)
+        db_rel[k] = dist
+        apart[k] = float(((g_n[k].double() - g_p[k].double()).abs()
+                          / abs_sum.clamp(min=1e-300)).max())
+    out = dict(loss=loss_n, loss_parent=loss_p, loss_equal=loss_n == loss_p,
+               grads_equal=all(same.values()),
+               unequal=[k for k, v in same.items() if not v],
+               db_from_float64=db_rel, db_apart=apart,
+               max_db_from_float64=max(db_rel.values(), default=0.0),
+               max_db_apart=max(apart.values(), default=0.0))
+    log(f"[{tag}] one config-3 step through the fused layer (#3/#3b layer "
+        f"entries) vs the composed form (bf16_linear, cast, "
+        f"relu_dropout), same state, batch and masks: loss {loss_n:.7f} vs "
+        f"{loss_p:.7f}, equal {out['loss_equal']}; every gradient but the "
+        f"{n_hidden} hidden biases bit-equal: {out['grads_equal']} "
+        f"{out['unequal']}; hidden db from float64 at most "
+        f"{out['max_db_from_float64']:.2e} of the column's sum |gb| (gate "
+        f"{DB_TOL:.2e}), the two forms' at most {out['max_db_apart']:.2e} "
+        f"apart [{card}]")
+    if not (out["loss_equal"] and out["grads_equal"] and own
+            and len(seen) == n_hidden
+            and out["max_db_from_float64"] <= DB_TOL
+            and out["max_db_apart"] <= 2 * DB_TOL):
+        raise RuntimeError(f"[{tag}] fused layer vs the composed form: "
+                           f"{out}")
     return out
 
 
@@ -3324,10 +3466,39 @@ def bank_phase(dev, card, host_ms: float, k4_ms: float) -> dict:
             or products != {k: 10 * n_hidden
                             for k in ("fwd", "dgrad", "wgrad")}:
         raise RuntimeError(f"[bank] autograd route: {out['autograd']}")
+    # the composed form of the same route (bf16_linear, the cast,
+    # relu_dropout: the bias add, casts and db sum as passes of their own),
+    # 3 steps timed beside it; one step of each for its peak memory
+    events = []
+    with hidden_layers_through(bf16_linear_composed):
+        parent = make_bank_step(st.decoder, auto, bank, gen)
+        for i in range(3):
+            parent(st, ids[i], 0.0, 1100 + i)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        torch.cuda.synchronize()
+        peak_p = peak_step_gib(lambda: parent(st, ids[5], 0.0, 1105))
+    ms_c = events[0].elapsed_time(events[-1]) / (len(events) - 1)
+    peak_a = peak_step_gib(lambda: step(st, ids[6], 0.0, 1106))
+    out["parent_composition"] = dict(steps=3, ms_per_step=ms_c,
+                                     peak_gib=peak_p[0],
+                                     step_rise_gib=peak_p[1])
+    out["autograd"].update(peak_gib=peak_a[0], step_rise_gib=peak_a[1])
+    log(f"[bank] the same route in the composed form (bf16_linear, the "
+        f"cast, relu_dropout): {ms_c:.1f} ms/step (steps 1-2 of 3), against "
+        f"{ms_a:.1f} through the fused layer; one step's peak memory "
+        f"{peak_p[0]:.2f} GiB ({peak_p[1]:.2f} over what the step found "
+        f"allocated) against {peak_a[0]:.2f} ({peak_a[1]:.2f}) [{card}]")
+    if not ms_a < ms_c:
+        raise RuntimeError(f"[bank] the fused layer's route ({ms_a:.1f} "
+                           f"ms/step) is not faster than the composed "
+                           f"form ({ms_c:.1f})")
     # the same route's steps with the hidden layers in the plain form
     # (fp32 SIMT products), timed in this run beside it; then one step of
     # each held against the other
     events = []
+    products = tc_products()
     with hidden_layers_through(bf16_linear_reference):
         plain = make_bank_step(st.decoder, auto, bank, gen)
         for i in range(3):
@@ -3347,7 +3518,10 @@ def bank_phase(dev, card, host_ms: float, k4_ms: float) -> dict:
     out["tc_vs_plain"] = tc_vs_plain_step(
         st.decoder, auto, st.codes.roll(64, 0), ids[3], xyz_b, sdf_b, 0.0,
         3003, "bank", card, "codes of chairs 64 places on", "plain")
-    del st, step, plain, bank, ids, xyz_b, sdf_b
+    out["layer_vs_parent"] = layer_vs_parent_step(
+        st.decoder, auto, st.codes, ids[3], xyz_b, sdf_b, 0.0, 3004, "bank",
+        card)
+    del st, step, plain, parent, bank, ids, xyz_b, sdf_b
     torch.cuda.empty_cache()
 
     # ---- the CSG bank from the multicat pack
@@ -3946,7 +4120,10 @@ def main() -> int:
         "bf16 tensor cores: forward torch.mm(x_bf16, bf16(W)^T, "
         "out_dtype=float32) + b, dgrad and wgrad bf16 x bf16 -> bf16; fp32 "
         "accumulation, bf16 reduced-precision reduction off around each "
-        "product")
+        "product; with relu+dropout through the kernels one function "
+        "(bf16_linear_relu_dropout): the fp32 product without b into #3 "
+        "(bias, one rounding, relu, dropout), #3b's bf16 cotangent and db "
+        "from the layer's output into dgrad and wgrad")
 
     # ---- phase 2: kernel #1 vs plain version
     sd, codes = load_stage1_pack(ROOT.joinpath(*PACK))
@@ -4195,30 +4372,94 @@ def main() -> int:
         if abs(kept - (1 - RATE)) > 5 * sigma:
             raise RuntimeError(f"keep fraction {kept} off by > 5 sigma")
         del x, g, y, dx, xr, y_p, dx_auto, dx_p, pos
-    drop_t = {}
-    for cols in (512, 253):
-        x = torch.randn(1 << 20, cols, generator=gen, device=dev).to(
+    # the layer entries (each bf16 hidden layer's): #3 from the fp32
+    # product and bias, #3b from the output, with db
+    drop_t, k3b_err = {}, 0.0
+    for n_rows, cols in [(1 << 20, 512), (1 << 20, 253),
+                         ((1 << 20) + 131, 512), ((1 << 20) + 131, 253)]:
+        yf = torch.randn(n_rows, cols, generator=gen, device=dev)
+        b = torch.randn(cols, generator=gen, device=dev)
+        g = torch.randn(n_rows, cols, generator=gen, device=dev).to(
             torch.bfloat16)
-        g = torch.randn_like(x)
-        n_el = x.numel()
-        drop_t[cols] = dict(
-            fwd=time_ms(lambda: rd.relu_dropout_fwd(x, 1, RATE), 20),
-            bwd=time_ms(lambda: rd.relu_dropout_bwd(x, g, 1, RATE), 20),
-            plain_fwd=time_ms(lambda: rd.relu_dropout_reference(x, 1, RATE),
-                              2),
-            plain_bwd=time_ms(lambda: rd.relu_dropout_bwd_reference(
-                x, g, 1, RATE), 2),
-            library=time_ms(lambda: F.dropout(F.relu(x), RATE, True), 20),
-            bound_fwd=4.0 * n_el / PEAK_HBM_BYTES * 1e3,
-            bound_bwd=6.0 * n_el / PEAK_HBM_BYTES * 1e3)
-        t = drop_t[cols]
-        log(f"[dropout] [2^20, {cols}] bf16 per launch: #3 {t['fwd']:.3f} ms "
-            f"(bound {t['bound_fwd']:.3f}, bytes), #3b {t['bwd']:.3f} ms "
-            f"(bound {t['bound_bwd']:.3f}), plain {t['plain_fwd']:.3f} / "
-            f"{t['plain_bwd']:.3f} ms, library F.dropout(F.relu(x)) (two "
-            f"calls) {t['library']:.3f} ms [{card}]")
-        del x, g
-    details["dropout"] = drop_t
+        out = rd.bias_relu_dropout_fwd(yf, b, 1234, RATE)
+        gb, db = rd.relu_dropout_bwd_out(out, g, RATE)
+        again = (rd.bias_relu_dropout_fwd(yf, b, 1234, RATE),
+                 *rd.relu_dropout_bwd_out(out, g, RATE))
+        h = (yf + b).to(torch.bfloat16)
+        gb_p, db_p = rd.relu_dropout_bwd_out_reference(out, g, RATE)
+        plan = rd.bwd_plan(n_rows, cols)
+        same = (torch.equal(out, rd.bias_relu_dropout_reference(
+                    yf, b, 1234, RATE))
+                and torch.equal(gb, gb_p)
+                and torch.equal(gb, rd.relu_dropout_bwd_reference(
+                    h, g, 1234, RATE))
+                and torch.equal(db, rd.db_kernel_order(gb, plan)))
+        ident = all(torch.equal(a, c) for a, c in zip((out, gb, db), again))
+        dist = db_distance(db, gb)
+        plain_err = float((db - db_p).abs().max())
+        k3b_err = max(k3b_err, plain_err)
+        log(f"[dropout] layer entries [{n_rows}, {cols}]: #3 from the fp32 "
+            f"product and bias bit-equal to relu_dropout_reference(bf16(yf "
+            f"+ b)), #3b's gb to its plain version and to the x-reading "
+            f"backward, db to db_kernel_order({plan}): {same}; two launches "
+            f"bit-identical: {ident}; db from float64 {dist:.2e} of the "
+            f"column's sum |gb| (gate {DB_TOL:.2e}), from the plain "
+            f"version's torch sum max {plain_err:.3e}")
+        if not (same and ident and dist <= DB_TOL):
+            raise RuntimeError(f"#3/#3b layer entries at [{n_rows}, {cols}]"
+                               f": same {same}, identical {ident}, db "
+                               f"{dist}")
+        if n_rows == 1 << 20:
+            y = yf.clone()
+
+            def parent_fwd():       # the composed form: bias add, cast, #3
+                y.add_(b)
+                return rd.relu_dropout_fwd(y.to(torch.bfloat16), 1, RATE)
+
+            def parent_bwd():       # the composed form: #3b, casts, db
+                g2 = rd.relu_dropout_bwd(h, g, 1, RATE).float()
+                return g2.to(torch.bfloat16), g2.sum(0)
+
+            n_el = yf.numel()
+            drop_t[cols] = dict(
+                fwd=time_ms(lambda: rd.bias_relu_dropout_fwd(yf, b, 1, RATE),
+                            20),
+                bwd=time_ms(lambda: rd.relu_dropout_bwd_out(out, g, RATE),
+                            20),
+                parent_fwd=time_ms(parent_fwd, 20),
+                parent_bwd=time_ms(parent_bwd, 20),
+                standalone_fwd=time_ms(
+                    lambda: rd.relu_dropout_fwd(h, 1, RATE), 20),
+                standalone_bwd=time_ms(
+                    lambda: rd.relu_dropout_bwd(h, g, 1, RATE), 20),
+                plain_fwd=time_ms(lambda: rd.bias_relu_dropout_reference(
+                    yf, b, 1, RATE), 2),
+                plain_bwd=time_ms(lambda: rd.relu_dropout_bwd_out_reference(
+                    out, g, RATE), 2),
+                library=time_ms(lambda: F.dropout(F.relu(h), RATE, True),
+                                20),
+                bound_fwd=6.0 * n_el / PEAK_HBM_BYTES * 1e3,
+                bound_bwd=(6.0 * n_el + 8.0 * plan.ctas * cols + 4.0 * cols)
+                / PEAK_HBM_BYTES * 1e3,
+                plan=plan._asdict())
+            t = drop_t[cols]
+            del y
+            share_f = 100 * t["bound_fwd"] / t["fwd"]
+            share_b = 100 * t["bound_bwd"] / t["bwd"]
+            log(f"[dropout] [2^20, {cols}] per launch: #3 from the fp32 "
+                f"product {t['fwd']:.4f} ms ({share_f:.1f}% of its "
+                f"{t['bound_fwd']:.4f} ms bytes bound), the composed form's "
+                f"passes it replaces (bias add, cast, #3) "
+                f"{t['parent_fwd']:.4f}; #3b from the output with db "
+                f"{t['bwd']:.4f} ms ({share_b:.1f}% of {t['bound_bwd']:.4f}),"
+                f" the composed form's passes (#3b, two casts, db's sum) "
+                f"{t['parent_bwd']:.4f}; the standalone bf16 pair "
+                f"{t['standalone_fwd']:.4f} / {t['standalone_bwd']:.4f}; "
+                f"plain {t['plain_fwd']:.3f} / {t['plain_bwd']:.3f} ms; "
+                f"library F.dropout(F.relu(h)) (two calls) "
+                f"{t['library']:.4f} ms [{card}]")
+        del yf, b, g, out, gb, db, again, h, gb_p, db_p
+    details["dropout"] = dict(times=drop_t, db_max_abs_err=k3b_err)
 
     # ---- phase 6: [fused_train] kernel #4 vs its plain version
     exp = ExperimentConfig.load(ROOT / "configs" / "config3_chairs_joint")
@@ -4392,6 +4633,9 @@ def main() -> int:
             ("the chairs' own codes", state.codes, "witness"),
             ("other chairs' codes", torch.from_numpy(codes[64:128]).to(dev),
              "plain"))]
+    train["layer_vs_parent"] = layer_vs_parent_step(
+        state.decoder, cfg, state.codes, ids_t, xyz_t.to(torch.bfloat16),
+        sdf_t, 4.0, 4243, "train", card)
     del state
     torch.cuda.empty_cache()
     details["train"] = train
@@ -4535,7 +4779,7 @@ def main() -> int:
         "launches": train["relu_dropout"]["launches"]["relu_dropout_bwd"]
         + bk["autograd"]["launches"]["relu_dropout_bwd"]
         + rl["launches_k3b"],
-        "max_abs_err": 0.0,
+        "max_abs_err": k3b_err,
         "ms": t512["bwd"],
         "plain_ms": t512["plain_bwd"],
         "bound_ms": t512["bound_bwd"],

@@ -24,6 +24,14 @@ forward takes a `seed` and applies dropout after every hidden relu:
 decoder derives its per-layer seed), `dropout_impl="xla"` stays plain
 torch (an inverted-dropout mask drawn from a `torch.Generator` seeded the
 same way). In eval mode nothing is dropped.
+
+A bf16 hidden layer with `dropout_impl="pallas"` is one function,
+`ops.bf16_linear.bf16_linear_relu_dropout` (the product, then kernels
+#3/#3b on its fp32 output and bias: no fp32 activation or cotangent of
+its own), equal to `relu_dropout(bf16_linear(x, w, b).to(bfloat16))`.
+`bf16_linear` below is the hidden layers' product form: a caller that
+swaps it for another form (the plain version, a float64 witness) gets
+that form composed with the cast and `relu_dropout`.
 """
 
 from __future__ import annotations
@@ -36,8 +44,10 @@ from torch import nn
 from torch.nn import functional as F
 
 from latent_diffusion_models_for_shape_sdfs_torch.config import DecoderConfig
+from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+    bf16_linear as bf16_ops)
 from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear import (
-    bf16_linear, bf16_linear_reference)
+    bf16_linear, bf16_linear_reference, bf16_linear_relu_dropout)
 from latent_diffusion_models_for_shape_sdfs_torch.ops.relu_dropout import (
     layer_seed, relu_dropout)
 
@@ -147,12 +157,17 @@ class SdfDecoder(nn.Module):
             elif c.xyz_in_all and layer != 0:
                 x = torch.cat([x, xyz], dim=-1)
             lin = getattr(self, f"lin{layer}")
+            s = layer_seed(seed, layer) if drop else 0
             if x.dtype == torch.bfloat16 and layer < n_lin - 1:
+                if (drop and c.dropout_impl == "pallas"
+                        and bf16_linear is bf16_ops.bf16_linear):
+                    x = bf16_linear_relu_dropout(x, lin.weight(), lin.b, s,
+                                                 c.dropout_prob)
+                    continue
                 x = bf16_linear(x, lin.weight(), lin.b)
             else:
                 x = lin(x)
             if layer < n_lin - 1:
-                s = layer_seed(seed, layer) if drop else 0
                 if drop and c.dropout_impl == "pallas":
                     x = relu_dropout(x.to(dtype), s, c.dropout_prob)
                 else:

@@ -35,6 +35,19 @@ own). No other flag is touched: every fp32 product sees TF32 as its
 caller set it. On the CPU the same autograd function makes fp32 products
 of the same bf16 values, the plain version's arithmetic bit for bit.
 `CALLS` counts the products made on the card, by role.
+
+`bf16_linear_relu_dropout` is a hidden layer with relu + dropout through
+kernels #3/#3b (`ops.relu_dropout`), as one autograd function: the
+forward's fp32 product without its bias goes to #3, which adds the bias
+in fp32, rounds once to bf16 and applies relu + dropout; it saves x,
+bf16(W) and its own bf16 output, which the next layer saves too, and no
+pre-activation. The backward's #3b masks the bf16 cotangent by that
+output (out > 0) and emits it in bf16 with db, its column sums; dgrad and
+wgrad take it as `bf16_linear`'s backward does. So no fp32 activation or
+cotangent makes a pass of its own, and the layer equals `bf16_linear`, a
+cast to bf16 and `relu_dropout` bit for bit: the output, the loss and
+every gradient but db, which #3b sums in its own fixed order (on the CPU
+in torch's, as `bf16_linear` does).
 """
 
 from __future__ import annotations
@@ -44,6 +57,8 @@ from typing import Iterator
 
 import torch
 from torch.nn import functional as F
+
+from latent_diffusion_models_for_shape_sdfs_torch.ops import relu_dropout as rd
 
 CALLS = {"fwd": 0, "dgrad": 0, "wgrad": 0}
 
@@ -80,6 +95,28 @@ def _product(a: torch.Tensor, b: torch.Tensor, role: str) -> torch.Tensor:
     return torch.mm(a, b)
 
 
+def _forward_product(x2: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
+    """x2 . wb^T accumulated and returned in fp32, without the bias."""
+    if x2.is_cuda:
+        CALLS["fwd"] += 1
+        with _tensor_core_flags():
+            return torch.mm(x2, wb.t(), out_dtype=torch.float32)
+    return torch.mm(x2.float(), wb.t().float())
+
+
+def _backward_products(ctx, gb: torch.Tensor, x2: torch.Tensor,
+                       wb: torch.Tensor) -> tuple:
+    """(dx, dW) from the bf16 cotangent gb, each where autograd asks."""
+    dx = dw = None
+    with (_tensor_core_flags() if gb.is_cuda
+          else contextlib.nullcontext()):
+        if ctx.needs_input_grad[0]:
+            dx = _product(gb, wb, "dgrad").reshape(ctx.x_shape)
+        if ctx.needs_input_grad[1]:
+            dw = _product(gb.t(), x2, "wgrad").float()
+    return dx, dw
+
+
 class _Bf16Linear(torch.autograd.Function):
 
     @staticmethod
@@ -88,12 +125,7 @@ class _Bf16Linear(torch.autograd.Function):
         wb = w.to(torch.bfloat16)
         ctx.save_for_backward(x2, wb)
         ctx.x_shape = x.shape
-        if x.is_cuda:
-            CALLS["fwd"] += 1
-            with _tensor_core_flags():
-                y = torch.mm(x2, wb.t(), out_dtype=torch.float32)
-        else:
-            y = torch.mm(x2.float(), wb.t().float())
+        y = _forward_product(x2, wb)
         y.add_(b.float())
         return y.reshape(*x.shape[:-1], w.shape[0])
 
@@ -101,17 +133,34 @@ class _Bf16Linear(torch.autograd.Function):
     def backward(ctx, g):
         x2, wb = ctx.saved_tensors
         g2 = g.reshape(-1, g.shape[-1])
-        gb = g2.to(torch.bfloat16)
-        dx = dw = db = None
-        with (_tensor_core_flags() if gb.is_cuda
-              else contextlib.nullcontext()):
-            if ctx.needs_input_grad[0]:
-                dx = _product(gb, wb, "dgrad").reshape(ctx.x_shape)
-            if ctx.needs_input_grad[1]:
-                dw = _product(gb.t(), x2, "wgrad").float()
-        if ctx.needs_input_grad[2]:
-            db = g2.sum(0)
+        dx, dw = _backward_products(ctx, g2.to(torch.bfloat16), x2, wb)
+        db = g2.sum(0) if ctx.needs_input_grad[2] else None
         return dx, dw, db
+
+
+class _Bf16ReluDropoutLinear(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, w, b, seed, rate):
+        x2 = x.reshape(-1, x.shape[-1])
+        wb = w.to(torch.bfloat16)
+        out = rd.bias_relu_dropout_fwd(_forward_product(x2, wb), b.float(),
+                                       seed, rate)
+        out = out.reshape(*x.shape[:-1], w.shape[0])
+        ctx.save_for_backward(x2, wb, out)
+        ctx.x_shape, ctx.rate = x.shape, rate
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, wb, out = ctx.saved_tensors
+        # a skip layer's cat hands on a column slice: #3b takes a copy
+        gb, db = rd.relu_dropout_bwd_out(
+            out.reshape(-1, out.shape[-1]),
+            g.reshape(-1, g.shape[-1]).to(torch.bfloat16).contiguous(),
+            ctx.rate)
+        dx, dw = _backward_products(ctx, gb, x2, wb)
+        return dx, dw, db if ctx.needs_input_grad[2] else None, None, None
 
 
 def bf16_linear(x: torch.Tensor, w: torch.Tensor,
@@ -123,3 +172,18 @@ def bf16_linear(x: torch.Tensor, w: torch.Tensor,
     if x.dtype != torch.bfloat16:
         raise ValueError(f"bf16_linear: x is {x.dtype}, not bfloat16")
     return _Bf16Linear.apply(x, w, b)
+
+
+def bf16_linear_relu_dropout(x: torch.Tensor, w: torch.Tensor,
+                             b: torch.Tensor, seed: int,
+                             rate: float) -> torch.Tensor:
+    """A bf16 hidden layer with relu + dropout: x [..., in] bf16, w [out,
+    in] and b [out] fp32 -> [..., out] bf16, equal to
+    relu_dropout(bf16_linear(x, w, b).to(bfloat16), seed, rate). On the
+    card the product runs on the tensor cores and kernel #3 adds b,
+    rounds and drops; the backward runs #3b from the output, then dgrad
+    and wgrad. On the CPU the plain versions, as the composition runs."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"bf16_linear_relu_dropout: x is {x.dtype}, not "
+                         "bfloat16")
+    return _Bf16ReluDropoutLinear.apply(x, w, b, int(seed), float(rate))

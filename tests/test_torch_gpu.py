@@ -279,6 +279,164 @@ def test_relu_dropout_autograd_on_card(cuda):
     assert abs(keep - 0.7) < 0.01
 
 
+# ------------- #3/#3b's layer entries (the bf16 decoder's hidden layers)
+
+DB_TOL = 2.0 ** -17         # db vs float64, relative to the column's sum|.|
+
+
+def _layer_operands(rows, cols, cuda, offset=0):
+    """yf [rows, cols] fp32 (one row in 64 zero, one NaN), b fp32, g
+    bf16; `offset` > 0 starts each on an unaligned element of a larger
+    buffer (the tile path's ragged spans)."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + cols)
+
+    def draw(n, dtype):
+        buf = torch.randn(n + offset, generator=gen, device=cuda).to(dtype)
+        return buf[offset:]
+
+    yf = draw(rows * cols, torch.float32).view(rows, cols)
+    yf[::64] = 0.0
+    yf[min(5, rows - 1), :7] = float("nan")
+    b = draw(cols, torch.float32)
+    g = draw(rows * cols, torch.bfloat16).view(rows, cols)
+    return yf, b, g
+
+
+def _db_within_tol(db, gb):
+    exact = gb.double().sum(0)
+    return bool(((db.double() - exact).abs()
+                 <= DB_TOL * gb.double().abs().sum(0)).all())
+
+
+@pytest.mark.parametrize("rows,cols,offset", [
+    (1 << 20, 512, 0), (1 << 20, 253, 0), ((1 << 20) + 131, 512, 0),
+    ((1 << 20) + 131, 253, 0), (1000, 37, 0), (3, 5, 0), (777, 64, 0),
+    (1000, 512, 3), (1000, 253, 5)])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_relu_dropout_layer_kernels_match_plain_version(rows, cols, offset,
+                                                        rate, cuda):
+    """#3's layer entry bit for bit equal to relu_dropout_reference of
+    bf16(yf + b); #3b's gb bit for bit equal to its plain version and to
+    the x-reading backward at h = bf16(yf + b); db bit for bit equal to
+    db_kernel_order and within DB_TOL of the float64 column sums; one
+    launch of each."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import relu_dropout as rd
+    yf, b, g = _layer_operands(rows, cols, cuda, offset)
+    n0 = dict(rd.LAUNCHES)
+    out = rd.bias_relu_dropout_fwd(yf, b, 777, rate)
+    gb, db = rd.relu_dropout_bwd_out(out, g, rate)
+    torch.cuda.synchronize()
+    assert {k: rd.LAUNCHES[k] - n0[k] for k in n0} == {
+        "relu_dropout_fwd": 1, "relu_dropout_bwd": 1}
+    h = (yf + b).to(torch.bfloat16)
+    assert torch.equal(out, rd.relu_dropout_reference(h, 777, rate))
+    gb_p, db_p = rd.relu_dropout_bwd_out_reference(out, g, rate)
+    assert torch.equal(gb, gb_p)
+    assert torch.equal(gb, rd.relu_dropout_bwd_reference(h, g, 777, rate))
+    plan = rd.bwd_plan(rows, cols, offset == 0)
+    assert torch.equal(db, rd.db_kernel_order(gb, plan))
+    assert _db_within_tol(db, gb) and _db_within_tol(db_p, gb)
+
+
+@pytest.mark.parametrize("cols", [512, 253])
+def test_relu_dropout_layer_launches_are_bit_identical(cols, cuda):
+    """Two launches of each layer entry at 2^20 + 131 rows give the same
+    bits, db included (fixed grid, fixed order, no atomics)."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import relu_dropout as rd
+    yf, b, g = _layer_operands((1 << 20) + 131, cols, cuda)
+    runs = []
+    for _ in range(2):
+        out = rd.bias_relu_dropout_fwd(yf, b, 9, 0.2)
+        runs.append((out, *rd.relu_dropout_bwd_out(out, g, 0.2)))
+    torch.cuda.synchronize()
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+
+
+def test_relu_dropout_layer_wrappers_check_inputs(cuda):
+    """On the card the layer entries raise on a CPU tensor among CUDA
+    ones, a wrong dtype or shape, or a non-contiguous input."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import relu_dropout as rd
+    yf, b, g = _layer_operands(256, 64, cuda)
+    out = rd.bias_relu_dropout_fwd(yf, b, 1, 0.2)
+    bad_fwd = [(yf, b.cpu()), (yf.to(torch.bfloat16), b), (yf, b[:-1]),
+               (yf.t(), b[:1].expand(256).contiguous()), (yf[:, ::2],
+                                                          b[:32])]
+    for a, c in bad_fwd:
+        with pytest.raises(ValueError):
+            rd.bias_relu_dropout_fwd(a, c, 1, 0.2)
+    bad_bwd = [(out, g.cpu()), (out.float(), g), (out, g.float()),
+               (out, g[:-1]), (out[:, ::2], g[:, ::2])]
+    for a, c in bad_bwd:
+        with pytest.raises(ValueError):
+            rd.relu_dropout_bwd_out(a, c, 0.2)
+
+
+def test_relu_dropout_layer_step_matches_parent_composition(cuda,
+                                                            monkeypatch):
+    """One config-3 autograd step (the committed 8x512 pack, bf16, dropout
+    0.2, 16 scenes x 16,384 points) through bf16_linear_relu_dropout
+    against the same step through bf16_linear, the cast and relu_dropout:
+    the loss and every gradient but the 8 hidden biases bit for bit, each
+    hidden db within DB_TOL of its sum of |terms| apart; #3/#3b launched
+    8 times each."""
+    from latent_diffusion_models_for_shape_sdfs_torch import losses
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        ExperimentConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.models import (
+        decoder as decoder_module)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        bf16_linear as bl, relu_dropout as rd)
+    root = pathlib.Path(__file__).resolve().parents[1]
+    ad = ExperimentConfig.load(root / "configs" / "config3_chairs_joint").ad
+    sd, codes = load_stage1_pack(PACK)
+    dec = SdfDecoder(ad.decoder).to(cuda)
+    dec.load_state_dict({k: v.to(cuda) for k, v in sd.items()})
+    dec.train()
+    rng = np.random.default_rng(3)
+    n = 16 * 16384
+    z = torch.from_numpy(codes[rng.integers(0, 64, 16)].repeat(
+        16384, 0)).to(cuda)
+    xyz = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(
+        np.float32)).to(cuda)
+    sdf = torch.from_numpy((0.05 * rng.normal(size=n)).astype(
+        np.float32)).to(cuda)
+    seen = []
+    real = rd.relu_dropout_bwd_out
+
+    def recorded(out, g, rate):
+        gb, db = real(out, g, rate)
+        seen.append((gb, db))
+        return gb, db
+
+    monkeypatch.setattr(rd, "relu_dropout_bwd_out", recorded)
+    runs = []
+    for hidden in (bl.bf16_linear, lambda x, w, b: bl.bf16_linear(x, w, b)):
+        monkeypatch.setattr(decoder_module, "bf16_linear", hidden)
+        dec.zero_grad(set_to_none=True)
+        zz = z.clone().requires_grad_()
+        n0 = dict(rd.LAUNCHES)
+        loss = losses.clamped_l1(dec(zz, xyz, seed=5), sdf, ad.clamp_dist)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs.append((loss.detach(), {"z": zz.grad, **{
+            k: p.grad for k, p in dec.named_parameters()}},
+            {k: rd.LAUNCHES[k] - n0[k] for k in n0}))
+    (l1, g1, n1), (l2, g2, n2) = runs
+    assert n1 == n2 == {"relu_dropout_fwd": 8, "relu_dropout_bwd": 8}
+    assert len(seen) == 8                 # the new layer's, lin7 .. lin0
+    assert torch.equal(l1, l2)
+    for i, (gb, db) in enumerate(seen):
+        k = f"lin{7 - i}.b"
+        assert torch.equal(g1[k], db)
+        assert _db_within_tol(db, gb), k
+        apart = (g1[k].double() - g2[k].double()).abs()
+        assert bool((apart <= 2 * DB_TOL * gb.double().abs().sum(0)).all())
+    for k in g2:
+        if not (k.endswith(".b") and k != "lin8.b"):
+            assert torch.equal(g1[k], g2[k]), k
+
+
 # ------------------------------------------------- fused train kernel (#4)
 
 def _train_inputs(name, S, P, cuda, seed=0):
