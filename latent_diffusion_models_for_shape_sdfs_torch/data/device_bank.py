@@ -21,6 +21,7 @@ import torch
 
 from latent_diffusion_models_for_shape_sdfs_torch.data.sdf_dataset import (
     SdfDataset)
+from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 from latent_diffusion_models_for_shape_sdfs_torch.utils.device import (
     resolve_device)
 
@@ -89,7 +90,9 @@ class DeviceSampleBank(NamedTuple):
     def sample_batch(self, generator: torch.Generator,
                      scene_ids: torch.Tensor,
                      samples_per_scene: int) -> tuple:
-        """Balanced draw on the device: (xyz [B, P, 3], sdf [B, P])."""
-        u1, u2 = self.uniforms(generator, scene_ids.shape[0],
-                               samples_per_scene)
-        return self.gather(scene_ids, u1, u2)
+        """Balanced draw on the device: (xyz [B, P, 3], sdf [B, P]), in
+        the span `ad.draw`."""
+        with profiling.span("ad.draw"):
+            u1, u2 = self.uniforms(generator, scene_ids.shape[0],
+                                   samples_per_scene)
+            return self.gather(scene_ids, u1, u2)

@@ -51,6 +51,7 @@ from latent_diffusion_models_for_shape_sdfs_torch.parallel.mesh import (
     DataMesh, batch_sharded)
 from latent_diffusion_models_for_shape_sdfs_torch.train.auto_decoder import (
     AdTrainState, make_ad_train_step)
+from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 
 
 def rank_seed(seed: int, rank: int) -> int:
@@ -64,15 +65,17 @@ def rank_seed(seed: int, rank: int) -> int:
 
 def _all_reduce_fn(mesh: DataMesh) -> Callable:
     """all_reduce(tensors): sum a list of f32 tensors over the mesh in
-    place, through one all_reduce(SUM) of their concatenation."""
+    place, through one all_reduce(SUM) of their concatenation, in the
+    span `ad.all_reduce`."""
 
     def all_reduce(tensors: list) -> None:
-        flat = torch.cat([t.reshape(-1) for t in tensors])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
-        at = 0
-        for t in tensors:
-            t.copy_(flat[at:at + t.numel()].view_as(t))
-            at += t.numel()
+        with profiling.span("ad.all_reduce"):
+            flat = torch.cat([t.reshape(-1) for t in tensors])
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
+            at = 0
+            for t in tensors:
+                t.copy_(flat[at:at + t.numel()].view_as(t))
+                at += t.numel()
 
     return all_reduce
 

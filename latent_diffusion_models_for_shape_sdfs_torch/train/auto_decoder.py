@@ -27,6 +27,13 @@ initialised `torch.distributed` group of more than one rank takes the
 data-parallel step of parallel/dp.py on either feed and route; without
 a group, or with a group of one rank, it takes the single-device step,
 as the JAX package does on one device.
+
+A step's phases are spans (`utils.profiling.span`, live only while a
+profiler runs): `ad.draw` (the bank's draw), `ad.forward` and
+`ad.backward` (the autograd route; the fused route is one pass between
+the draw and the update), `ad.update` (the lr, the logged gradient
+norms, Adam); on the host feed `ad.produce` (the producer thread making
+one batch) and `ad.feed_wait` (the loop waiting for it).
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from latent_diffusion_models_for_shape_sdfs_torch.models.decoder import (
     SdfDecoder)
 from latent_diffusion_models_for_shape_sdfs_torch.models.latent_table import (
     gather_codes, init_latent_table)
+from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 from latent_diffusion_models_for_shape_sdfs_torch.utils.device import (
     resolve_device)
 from latent_diffusion_models_for_shape_sdfs_torch.utils.logging import (
@@ -123,19 +131,23 @@ def make_ad_train_step(decoder: SdfDecoder, cfg: AdConfig,
     num_sdf_samples = S * P
 
     def autograd_value_and_grads(codes, scene_ids, xyz, sdf, epoch, seed):
-        z = gather_codes(codes, scene_ids, cfg.code_bound)
-        L = z.shape[-1]
-        flat_z = z[:, None, :].expand(z.shape[0], xyz.shape[1], L)
-        pred = decoder(flat_z.reshape(-1, L), xyz.reshape(-1, 3), seed=seed)
-        l1 = losses.clamped_l1(pred, sdf.reshape(-1), cfg.clamp_dist,
-                               num_sdf_samples)
-        # lineage sums ||z|| over per-sample rows / num_sdf_samples; with
-        # equal samples per scene that is the sum over scenes / S
-        reg = losses.code_reg(z, epoch, cfg.code_reg_lambda,
-                              cfg.code_reg_warmup_epochs,
-                              num_sdf_samples=reg_scene_count or z.shape[0],
-                              squared=cfg.code_reg_squared)
-        (l1 + reg).backward()
+        with profiling.span("ad.forward"):
+            z = gather_codes(codes, scene_ids, cfg.code_bound)
+            L = z.shape[-1]
+            flat_z = z[:, None, :].expand(z.shape[0], xyz.shape[1], L)
+            pred = decoder(flat_z.reshape(-1, L), xyz.reshape(-1, 3),
+                           seed=seed)
+            l1 = losses.clamped_l1(pred, sdf.reshape(-1), cfg.clamp_dist,
+                                   num_sdf_samples)
+            # lineage sums ||z|| over per-sample rows / num_sdf_samples;
+            # with equal samples per scene that is the sum over scenes / S
+            reg = losses.code_reg(z, epoch, cfg.code_reg_lambda,
+                                  cfg.code_reg_warmup_epochs,
+                                  num_sdf_samples=reg_scene_count
+                                  or z.shape[0],
+                                  squared=cfg.code_reg_squared)
+        with profiling.span("ad.backward"):
+            (l1 + reg).backward()
         l1, reg = l1.detach(), reg.detach()
         if all_reduce is not None:
             all_reduce([l1, reg, codes.grad,
@@ -156,20 +168,22 @@ def make_ad_train_step(decoder: SdfDecoder, cfg: AdConfig,
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = value_and_grads(state.codes, scene_ids, xyz, sdf, epoch,
                                     seed)
-        lr_dec = step_lr(cfg.lr_decoder, epoch, cfg.lr_decay_factor,
-                         cfg.lr_decay_interval)
-        lr_lat = step_lr(cfg.lr_latent, epoch, cfg.lr_decay_factor,
-                         cfg.lr_decay_interval)
-        g_dec = [p.grad for p in state.decoder.parameters()]
-        metrics = {"loss": loss, **aux, "lr_dec": lr_dec, "lr_lat": lr_lat,
-                   "grad_norm_dec": torch.linalg.vector_norm(torch.stack(
-                       [torch.linalg.vector_norm(g) for g in g_dec])),
-                   "grad_norm_lat": torch.linalg.vector_norm(
-                       state.codes.grad)}
-        groups = state.optimizer.param_groups
-        groups[0]["lr"] = lr_dec
-        groups[1]["lr"] = lr_lat
-        state.optimizer.step()
+        with profiling.span("ad.update"):
+            lr_dec = step_lr(cfg.lr_decoder, epoch, cfg.lr_decay_factor,
+                             cfg.lr_decay_interval)
+            lr_lat = step_lr(cfg.lr_latent, epoch, cfg.lr_decay_factor,
+                             cfg.lr_decay_interval)
+            g_dec = [p.grad for p in state.decoder.parameters()]
+            metrics = {"loss": loss, **aux, "lr_dec": lr_dec,
+                       "lr_lat": lr_lat,
+                       "grad_norm_dec": torch.linalg.vector_norm(torch.stack(
+                           [torch.linalg.vector_norm(g) for g in g_dec])),
+                       "grad_norm_lat": torch.linalg.vector_norm(
+                           state.codes.grad)}
+            groups = state.optimizer.param_groups
+            groups[0]["lr"] = lr_dec
+            groups[1]["lr"] = lr_lat
+            state.optimizer.step()
         return metrics
 
     return step
@@ -299,7 +313,12 @@ def train_auto_decoder(cfg: AdConfig, dataset: Optional[SdfDataset] = None,
     def producer(q, epochs):
         try:
             for epoch in epochs:
-                for host in batches(epoch):
+                made = batches(epoch)
+                while True:
+                    with profiling.span("ad.produce"):
+                        host = next(made, None)
+                    if host is None:
+                        break
                     q.put((epoch, host))
         except BaseException as e:     # re-raised by the consumer
             q.put(e)
@@ -331,7 +350,8 @@ def train_auto_decoder(cfg: AdConfig, dataset: Optional[SdfDataset] = None,
             checkpoint_fn(epoch, state)
 
     while True:
-        item = q.get()
+        with profiling.span("ad.feed_wait"):
+            item = q.get()
         if item is None:
             break
         if isinstance(item, BaseException):

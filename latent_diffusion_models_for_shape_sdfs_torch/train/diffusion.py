@@ -42,6 +42,7 @@ from latent_diffusion_models_for_shape_sdfs_torch.models.denoiser import (
     CondDenoiser)
 from latent_diffusion_models_for_shape_sdfs_torch.train.graph import (
     capture_step, deterministic_cudnn)
+from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 from latent_diffusion_models_for_shape_sdfs_torch.utils.device import (
     resolve_device)
 from latent_diffusion_models_for_shape_sdfs_torch.utils.logging import (
@@ -261,22 +262,25 @@ class DiffStep:
         return n
 
     def eager(self, draws: dict) -> torch.Tensor:
-        """Run the chunk's steps one by one; returns the mean loss (a
-        device scalar)."""
+        """Run the chunk's steps one by one, in the span `diff.steps`;
+        returns the mean loss (a device scalar)."""
         n = self._load(draws)
-        for _ in range(n):
-            self._step()
+        with profiling.span("diff.steps"):
+            for _ in range(n):
+                self._step()
         self.state.step += n
         return self.loss_sum / n
 
     def graphed(self, draws: dict) -> torch.Tensor:
         """The same steps by replaying the captured graph (captured on the
-        first call); returns the mean loss (a device scalar)."""
+        first call, outside the span `diff.steps` that holds the
+        replays); returns the mean loss (a device scalar)."""
         n = self._load(draws)
         if self.graph is None:
             self._capture()
-        for _ in range(n):
-            self.graph.replay()
+        with profiling.span("diff.steps"):
+            for _ in range(n):
+                self.graph.replay()
         self.state.step += n
         return self.loss_sum / n
 

@@ -1,10 +1,8 @@
-"""JSONL metric logging, its TensorBoard mirror, and throughput timing.
+"""JSONL metric logging and its TensorBoard mirror.
 
 Counterpart of the JAX package's `utils/logging.py`: every run writes a
 JSONL event stream (step, losses, LRs, grad norms, throughput), and on
-request mirrors its scalars into a TensorBoard event file. `Timer` fences
-on the card (`torch.cuda.synchronize`) before it reads the clock, so a
-rate it reports is a device rate, not an enqueue rate.
+request mirrors its scalars into a TensorBoard event file.
 
 The event file is written here in plain Python (`EventFileWriter`), since
 neither TensorFlow nor `tensorboard` is needed to run the port: TFRecord
@@ -26,7 +24,6 @@ import time
 from typing import Any, Optional
 
 import numpy as np
-import torch
 
 
 def _crc32c_table() -> tuple:
@@ -181,26 +178,3 @@ class MetricLogger:
         if self._tb is not None:
             self._tb.close()
 
-
-class Timer:
-    """Wall-clock timer; `stop(*tensors)` first waits for the card when
-    any of the tensors lies on one."""
-
-    def __init__(self):
-        self._t0 = None
-        self.elapsed = 0.0
-
-    def start(self) -> "Timer":
-        self._t0 = time.perf_counter()
-        return self
-
-    def stop(self, *fence_on: Any) -> float:
-        for x in fence_on:
-            if isinstance(x, torch.Tensor) and x.is_cuda:
-                torch.cuda.synchronize(x.device)
-        self.elapsed = time.perf_counter() - self._t0
-        return self.elapsed
-
-
-def rate(count: float, seconds: float) -> float:
-    return count / seconds if seconds > 0 else float("inf")

@@ -1,9 +1,13 @@
-"""Tracing, cost analysis and the NaN checker.
+"""Tracing, spans, cost analysis and the NaN checker.
 
 Counterpart of the JAX package's `utils/profiling.py`:
 
 - ``trace(logdir, device="cuda")``: `torch.profiler` over a window of
   work, written as a Chrome/TensorBoard trace (`*.pt.trace.json`).
+- ``span(name)``: a named phase of a training step. Off (no profiler
+  running) it is one shared no-op; on, a host range in the profiler's
+  trace, a pair of CUDA events on the current stream, and a record that
+  ``span_records(name)`` reads back as host and device seconds.
 - ``cost_analysis(fn, *args)``: the FLOPs and bytes of one call of `fn`,
   under the key names of XLA's cost analysis ("flops", "bytes accessed").
 - ``debug_nans()``: the first op that writes a NaN raises
@@ -23,10 +27,14 @@ bytes its bound counts: each input read once, each output written once.
 
 from __future__ import annotations
 
+import collections
 import contextlib
-from typing import Any, Callable, Iterator
+import threading
+import time
+from typing import Any, Callable, Iterator, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.utils._python_dispatch import (
     TorchDispatchMode, _disable_current_modes,
     _get_current_dispatch_mode_stack)
@@ -203,8 +211,10 @@ def cost_analysis(fn: Callable, *args: Any, **kwargs: Any) -> dict:
 def trace(logdir: str, device="cuda") -> Iterator[None]:
     """torch.profiler over the block (CPU and CUDA activity; CPU only with
     device="cpu"), written under `logdir` as a Chrome/TensorBoard trace
-    `<host>_<pid>.<time>.pt.trace.json` when the block ends. Raises
-    RuntimeError for device="cuda" without a card."""
+    `<host>_<pid>.<time>.pt.trace.json` when the block ends; the spans
+    (`span`) run inside are host ranges in it, and `span_records` reads
+    their times after it. Raises RuntimeError for device="cuda" without a
+    card."""
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
     activities = [ProfilerActivity.CPU]
@@ -217,3 +227,86 @@ def trace(logdir: str, device="cuda") -> Iterator[None]:
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(str(logdir))):
         yield
+
+
+# ------------------------------------------------------------------ spans
+
+# records kept, every thread's together: the newest SPAN_RECORDS spans
+SPAN_RECORDS = 4096
+_SPANS: collections.deque = collections.deque(maxlen=SPAN_RECORDS)
+_SPANS_LOCK = threading.Lock()
+# the span while no profiler runs: one shared object that does nothing
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _stream_event() -> Optional[torch.cuda.Event]:
+    """A timing event recorded on the current CUDA stream, or None
+    without an initialised card or while the stream captures a graph."""
+    if not torch.cuda.is_initialized() \
+            or torch.cuda.is_current_stream_capturing():
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+class _Span:
+
+    __slots__ = ("name", "_range", "_t0", "_ev0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> None:
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        self._ev0 = _stream_event()
+        self._t0 = time.perf_counter_ns()
+
+    def __exit__(self, *exc) -> bool:
+        t1 = time.perf_counter_ns()
+        ev1 = _stream_event() if self._ev0 is not None else None
+        self._range.__exit__(*exc)
+        with _SPANS_LOCK:
+            _SPANS.append((self.name, self._t0, t1,
+                           self._ev0 if ev1 is not None else None, ev1))
+        return False
+
+
+def span(name: str):
+    """A named phase of the work, as a context manager.
+
+    Off, while no torch profiler runs (`trace`, or any
+    `torch.profiler.profile`), it returns one shared no-op: no
+    allocation, no CUDA call, no record. On, it is
+    `torch.profiler.record_function(name)`, a host range in the trace
+    under which the ops and kernels launched inside nest (only on threads
+    the profiler follows: the one that started it and autograd's), and,
+    on an initialised card whose current stream is not capturing a CUDA
+    graph, a pair of timing events recorded on that stream at entry and
+    exit: the span's extent on the device's clock. Each span, on any
+    thread, is kept as a record (the newest SPAN_RECORDS) that
+    `span_records` reads. Names starting with "bench." are the
+    benchmark's own."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name)
+
+
+def span_records(name: str, last: Optional[int] = None) -> list:
+    """[(host_s, device_s)] of the kept spans named `name`, oldest first,
+    the newest `last` of them (all with None). `device_s` waits for the
+    span's end event and is None where no events were recorded (no card,
+    or a stream capturing a graph)."""
+    with _SPANS_LOCK:
+        recs = [r for r in _SPANS if r[0] == name]
+    if last is not None:
+        recs = recs[max(0, len(recs) - last):]
+    out = []
+    for _, t0, t1, ev0, ev1 in recs:
+        device_s = None
+        if ev1 is not None:
+            ev1.synchronize()
+            device_s = ev0.elapsed_time(ev1) / 1e3
+        out.append(((t1 - t0) / 1e9, device_s))
+    return out

@@ -4,11 +4,12 @@
 `no_grad`; healthy steps bit-equal with and without the checker; CUDA
 graph capture refused), `cost_analysis` (a matrix product and a decoder
 forward against XLA's count; each kernel's declared count against its
-plain version's aten count), the kernel hooks, and `trace`. Same numpy
-inputs through both packages; JAX on the CPU."""
+plain version's aten count), the kernel hooks, `trace`, and `span` off
+and on. Same numpy inputs through both packages; JAX on the CPU."""
 
 import json
 import pathlib
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +38,7 @@ from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_eval_op import (
 from latent_diffusion_models_for_shape_sdfs_torch.train import auto_decoder as tad
 from latent_diffusion_models_for_shape_sdfs_torch.train.graph import (
     capture_step)
+from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 from latent_diffusion_models_for_shape_sdfs_torch.utils.checkpoint import (
     params_from_jax)
 from latent_diffusion_models_for_shape_sdfs_torch.utils.profiling import (
@@ -365,3 +367,55 @@ def test_trace_writes_a_chrome_trace(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         with trace(tmp_path / "cuda"):
             pass
+
+
+# ------------------------------------------------------------------ spans
+
+def test_span_off_is_one_shared_no_op(monkeypatch):
+    """No profiler: the same object every call, no record kept, no CUDA
+    event made and no record_function entered."""
+    def refuse(*a, **k):
+        raise AssertionError("called while off")
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    before = list(profiling._SPANS)
+    a, b = profiling.span("ad.draw"), profiling.span("ad.update")
+    assert a is b
+    for _ in range(3):
+        with profiling.span("test.off"):
+            pass
+    assert list(profiling._SPANS) == before
+    assert profiling.span_records("test.off") == []
+
+
+def test_span_on_records_host_time_and_nests_ops(tmp_path):
+    with trace(tmp_path, device="cpu"):
+        with profiling.span("test.on"):
+            torch.randn(64, 64).sum()
+    (host, dev), = profiling.span_records("test.on", last=1)
+    assert host > 0 and dev is None          # no card: no device time
+    path, = pathlib.Path(tmp_path).glob("*.pt.trace.json")
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    on, = [e for e in events if e["name"] == "test.on"]
+    inner = [e for e in events if e["name"] == "aten::randn"]
+    assert inner and all(on["ts"] <= e["ts"] and e["ts"] + e["dur"]
+                         <= on["ts"] + on["dur"] for e in inner)
+    assert profiling.span_records("test.on", last=0) == []
+
+
+def test_span_on_a_second_thread_is_recorded(tmp_path):
+    done = []
+
+    def work():
+        with profiling.span("test.thread"):
+            done.append(float(torch.ones(8).sum()))
+
+    n = len(profiling.span_records("test.thread"))
+    with trace(tmp_path, device="cpu"):
+        th = threading.Thread(target=work)
+        th.start()
+        th.join(timeout=30)
+    assert not th.is_alive() and done == [8.0]
+    recs = profiling.span_records("test.thread")
+    assert len(recs) == n + 1 and recs[-1][0] > 0
