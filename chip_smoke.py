@@ -3005,7 +3005,7 @@ def reset_train_launches() -> None:
     bf16 tensor-core products of the decoder's hidden layers."""
     from latent_diffusion_models_for_shape_sdfs_torch.ops import (
         bf16_linear as bl, fused_train as ft, relu_dropout as rd)
-    for d in (ft.LAUNCHES, rd.LAUNCHES, bl.CALLS):
+    for d in (ft.LAUNCHES, rd.LAUNCHES, bl.CALLS, bl.PADDED):
         for k in d:
             d[k] = 0
 
@@ -3028,32 +3028,37 @@ def tc_products() -> dict:
 def hidden_layers_through(fn):
     """Inside the block the package's SdfDecoder.forward makes its hidden
     layers' products through `fn` in place of ops.bf16_linear (the plain
-    version, the float64 witness, bf16_linear_composed); the head keeps
-    its own form. This is the swap point of the fused layer too: with
-    dropout through the kernels, the decoder takes
+    version, the float64 witness), on the unpadded layout; the head keeps
+    its own form. With dropout through the kernels the decoder takes
     ops.bf16_linear.bf16_linear_relu_dropout only while its product form
     is ops.bf16_linear itself, and composes any other `fn` with the cast
-    to bf16 and relu_dropout (the composed form)."""
+    to bf16 and relu_dropout. `bf16_linear_composed` takes the place of
+    the fused layer itself, on the layout the package's route runs."""
     from latent_diffusion_models_for_shape_sdfs_torch.models import (
         decoder as decoder_module)
-    saved = decoder_module.bf16_linear
-    decoder_module.bf16_linear = fn
+    name = ("bf16_linear_relu_dropout" if fn is bf16_linear_composed
+            else "bf16_linear")
+    saved = getattr(decoder_module, name)
+    setattr(decoder_module, name, fn)
     try:
         yield
     finally:
-        decoder_module.bf16_linear = saved
+        setattr(decoder_module, name, saved)
 
 
-def bf16_linear_composed(x, w, b):
-    """The composed form of a bf16 hidden layer with relu+dropout: the same
-    tensor-core products as ops.bf16_linear under another name, so that
-    inside hidden_layers_through the decoder composes them with the cast
-    and relu_dropout (#3/#3b's standalone entries: the bias add, the
-    casts and the db sum as passes of their own) instead of its fused
-    layer."""
+def bf16_linear_composed(x, w, b, seed, rate, runs=None):
+    """The composed form of a bf16 hidden layer with relu+dropout: the
+    same tensor-core products as ops.bf16_linear, on the same layout,
+    then the cast and relu_dropout (#3/#3b's standalone entries: the bias
+    add, the casts and the db sum as passes of their own) in place of the
+    fused layer."""
+    import torch
     from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear \
         import bf16_linear
-    return bf16_linear(x, w, b)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.relu_dropout \
+        import relu_dropout
+    return relu_dropout(bf16_linear(x, w, b, runs).to(torch.bfloat16), seed,
+                        rate)
 
 
 def col_sums64(t) -> tuple:
@@ -3264,10 +3269,11 @@ def layer_vs_parent_step(decoder, cfg, codes, ids, xyz, sdf, epoch: float,
     db_rel, apart, own = {}, {}, True
     for j, (dist, abs_sum, db) in enumerate(seen):
         k = f"lin{n_hidden - 1 - j}.b"
-        own = own and torch.equal(g_n[k], db)
+        w = g_n[k].shape[0]         # the padded layout's columns hold 0
+        own = own and torch.equal(g_n[k], db[:w]) and not db[w:].any()
         db_rel[k] = dist
         apart[k] = float(((g_n[k].double() - g_p[k].double()).abs()
-                          / abs_sum.clamp(min=1e-300)).max())
+                          / abs_sum[:w].clamp(min=1e-300)).max())
     out = dict(loss=loss_n, loss_parent=loss_p, loss_equal=loss_n == loss_p,
                grads_equal=all(same.values()),
                unequal=[k for k, v in same.items() if not v],
@@ -3333,6 +3339,8 @@ def bank_phase(dev, card, host_ms: float, k4_ms: float) -> dict:
         ExperimentConfig)
     from latent_diffusion_models_for_shape_sdfs_torch.data import (
         analytic, analytic_device as adv)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        bf16_linear as bl)
     from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear \
         import bf16_linear_reference
     from latent_diffusion_models_for_shape_sdfs_torch.train.auto_decoder \
@@ -3451,20 +3459,24 @@ def bank_phase(dev, card, host_ms: float, k4_ms: float) -> dict:
     torch.cuda.synchronize()
     la = train_launches()
     products = tc_products()
+    padded = dict(bl.PADDED)
     ms_a = events[0].elapsed_time(events[-1]) / (len(events) - 1)
     l1a = [float(v) for v in l1a]
     n_hidden = len(st.decoder.layer_dims()) - 1
     out["autograd"] = dict(steps=10, ms_per_step=ms_a, loss_l1=l1a,
-                           launches=la, tc_products=products)
+                           launches=la, tc_products=products,
+                           padded_products=padded)
     out["launches"]["autograd"] = la
     log(f"[bank] autograd route (#3/#3b, hidden layers on the bf16 tensor "
         f"cores) from the bank: 10 steps, {ms_a:.1f} ms/step (steps 1-9), "
         f"step-0 loss_l1 {l1a[0]:.5f}, launches {la}, tensor-core products "
-        f"{products}; steps 2-4 without host sync [{card}]")
+        f"{products}, of them on padded operands {padded} (lin0, lin3 and "
+        f"the skip layer); steps 2-4 without host sync [{card}]")
     if la["relu_dropout_fwd"] != 80 or la["relu_dropout_bwd"] != 80 \
             or la["fused_train"] or not l1a[0] < BANK_GATES["chair"] \
             or products != {k: 10 * n_hidden
-                            for k in ("fwd", "dgrad", "wgrad")}:
+                            for k in ("fwd", "dgrad", "wgrad")} \
+            or padded != {k: 30 for k in ("fwd", "dgrad", "wgrad")}:
         raise RuntimeError(f"[bank] autograd route: {out['autograd']}")
     # the composed form of the same route (bf16_linear, the cast,
     # relu_dropout: the bias add, casts and db sum as passes of their own),

@@ -32,6 +32,15 @@ its own), equal to `relu_dropout(bf16_linear(x, w, b).to(bfloat16))`.
 `bf16_linear` below is the hidden layers' product form: a caller that
 swaps it for another form (the plain version, a float64 witness) gets
 that form composed with the cast and `relu_dropout`.
+
+On the card the bf16 hidden layers run on `ops.bf16_linear`'s padded
+layout: the input cat writes [z, xyz, 0...] to a multiple of 8 columns,
+each hidden output is as wide as its width rounded up to 8 (zeros in the
+pad), and the skip cat joins the two padded pieces; the head reads the
+logical columns. Widths already multiples of 8 are left as they are. The
+CPU keeps the plain version's products bit for bit, and so does a
+swapped product form; the plain dropout (`dropout_impl="xla"`) draws its
+mask over the row as stored, so it keeps the unpadded layout too.
 """
 
 from __future__ import annotations
@@ -98,6 +107,13 @@ class WNLinear(nn.Module):
         return F.linear(x, w.to(x.dtype), self.b.to(x.dtype))
 
 
+def _pads(t: torch.Tensor) -> bool:
+    """Whether the bf16 hidden layers on t's device take the padded
+    layout: on the card, where cuBLAS runs rows that are not 16 bytes long
+    on its sm75 kernels."""
+    return t.is_cuda
+
+
 class SdfDecoder(nn.Module):
     """f(z, xyz) -> sdf. See the module docstring for the layer plan."""
 
@@ -149,24 +165,42 @@ class SdfDecoder(nn.Module):
             # lineage option: dropout(0.2) on the latent half of the input,
             # drawn from the stream one past the last hidden layer's
             z = _plain_dropout(z, 0.2, layer_seed(seed, n_lin))
-        inp = torch.cat([z, xyz], dim=-1)
+        real = bf16_linear is bf16_ops.bf16_linear
+        pad = (dtype == torch.bfloat16 and _pads(z) and real
+               and not (drop and c.dropout_impl != "pallas"))
+        if pad:
+            inp = bf16_ops.pad_columns([z, xyz])
+            if c.xyz_in_all:
+                xyz = bf16_ops.pad_columns([xyz])
+        else:
+            inp = torch.cat([z, xyz], dim=-1)
         x = inp
-        for layer, (_, _, takes_skip) in enumerate(plan):
+        runs = (plan[0][0],)    # x's columns: logical widths of its pieces
+        for layer, (_, out, takes_skip) in enumerate(plan):
             if takes_skip:
                 x = torch.cat([x, inp], dim=-1)
+                runs += (plan[0][0],)
             elif c.xyz_in_all and layer != 0:
                 x = torch.cat([x, xyz], dim=-1)
+                runs += (3,)
             lin = getattr(self, f"lin{layer}")
             s = layer_seed(seed, layer) if drop else 0
             if x.dtype == torch.bfloat16 and layer < n_lin - 1:
-                if (drop and c.dropout_impl == "pallas"
-                        and bf16_linear is bf16_ops.bf16_linear):
+                if drop and c.dropout_impl == "pallas" and real:
                     x = bf16_linear_relu_dropout(x, lin.weight(), lin.b, s,
-                                                 c.dropout_prob)
+                                                 c.dropout_prob,
+                                                 runs if pad else None)
+                    runs = (out,)
                     continue
-                x = bf16_linear(x, lin.weight(), lin.b)
+                if pad:
+                    x = bf16_linear(x, lin.weight(), lin.b, runs)
+                else:
+                    x = bf16_linear(x, lin.weight(), lin.b)
             else:
+                if pad:     # the head reads the logical columns
+                    x = bf16_ops.logical_columns(x, runs)
                 x = lin(x)
+            runs = (out,)
             if layer < n_lin - 1:
                 if drop and c.dropout_impl == "pallas":
                     x = relu_dropout(x.to(dtype), s, c.dropout_prob)

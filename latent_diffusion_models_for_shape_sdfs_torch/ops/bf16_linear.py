@@ -48,6 +48,21 @@ cotangent makes a pass of its own, and the layer equals `bf16_linear`, a
 cast to bf16 and `relu_dropout` bit for bit: the output, the loss and
 every gradient but db, which #3b sums in its own fixed order (on the CPU
 in torch's, as `bf16_linear` does).
+
+Both take a layout, `runs`: the logical widths of x's column runs, each
+stored padded with zero columns to a multiple of 8 (`pad_columns`,
+`padded_width`). cuBLAS runs a product whose rows are not 16 bytes long
+on its sm75 `align1` kernels, at a fifth of what the 512-wide layers
+reach on Hopper's (PERF.md). With a layout the layer pads bf16(W) to
+match (zero columns at each run's pad, zero rows up to a multiple of 8
+outputs) and b with zeros, so the output is padded too and its pad
+columns are exactly 0: a zero product plus a zero bias, which relu and
+#3/#3b keep at 0 (their Philox mask is keyed by column group, not by the
+row's width, so the logical columns keep theirs). Each added term is
+0 * 0: only the order of the fp32 sums may move. dW and db come back in
+the parameters' logical shapes. A layout whose widths are all multiples
+of 8 changes nothing. `PADDED` counts the products made on padded
+operands, by role, on either device.
 """
 
 from __future__ import annotations
@@ -61,6 +76,55 @@ from torch.nn import functional as F
 from latent_diffusion_models_for_shape_sdfs_torch.ops import relu_dropout as rd
 
 CALLS = {"fwd": 0, "dgrad": 0, "wgrad": 0}
+PADDED = {"fwd": 0, "dgrad": 0, "wgrad": 0}
+
+
+def padded_width(n: int) -> int:
+    """n rounded up to a multiple of 8: a bf16 row of whole 16 bytes."""
+    return -(-n // 8) * 8
+
+
+def pad_columns(parts: list) -> torch.Tensor:
+    """torch.cat(parts, -1) followed by zero columns up to a multiple of
+    8: one run of the padded layout."""
+    n = sum(t.shape[-1] for t in parts)
+    if n % 8:
+        p = parts[0]
+        parts = [*parts, p.new_zeros(*p.shape[:-1], padded_width(n) - n)]
+    return torch.cat(parts, dim=-1)
+
+
+def logical_columns(t: torch.Tensor, runs: tuple) -> torch.Tensor:
+    """The columns of t [..., stored] that hold the runs' values, without
+    the zero pad after each run: t itself where no run is padded."""
+    if all(r % 8 == 0 for r in runs):
+        return t
+    pieces, s = [], 0
+    for r in runs:
+        pieces.append(t[..., s:s + r])
+        s += padded_width(r)
+    return torch.cat(pieces, dim=-1)
+
+
+def _layer_operands(w: torch.Tensor, b: torch.Tensor,
+                   runs: tuple | None) -> tuple:
+    """(bf16(W), fp32 b, runs) on the layout `runs` for w [out, in]: W's
+    columns moved to their runs' places among zero columns, zero rows and
+    zero biases up to a multiple of 8 outputs. `runs` comes back as None
+    where nothing is padded: then bf16(W) and b as they are."""
+    out = w.shape[0]
+    if runs is not None and sum(runs) != w.shape[1]:
+        raise ValueError(f"layout {runs} for a weight of {w.shape[1]} "
+                         "inputs")
+    if runs is None or (out % 8 == 0 and all(r % 8 == 0 for r in runs)):
+        return w.to(torch.bfloat16), b.float(), None
+    wb = w.new_zeros(padded_width(out), sum(map(padded_width, runs)),
+                     dtype=torch.bfloat16)
+    c = s = 0
+    for r in runs:
+        wb[:out, s:s + r] = w[:, c:c + r]
+        c, s = c + r, s + padded_width(r)
+    return wb, F.pad(b.float(), (0, wb.shape[0] - out)), runs
 
 
 def bf16_linear_reference(x: torch.Tensor, w: torch.Tensor,
@@ -85,20 +149,29 @@ def _tensor_core_flags() -> Iterator[None]:
         m.allow_bf16_reduced_precision_reduction = saved
 
 
-def _product(a: torch.Tensor, b: torch.Tensor, role: str) -> torch.Tensor:
+def _count(role: str, a: torch.Tensor, padded: bool) -> None:
+    if a.is_cuda:
+        CALLS[role] += 1
+    if padded:
+        PADDED[role] += 1
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, role: str,
+             padded: bool) -> torch.Tensor:
     """a @ b of bf16 operands, accumulated in fp32 and rounded once to
     bf16: on the card on the tensor cores (inside `_tensor_core_flags`),
     on the CPU as the fp32 product of the same values."""
+    _count(role, a, padded)
     if a.device.type == "cpu":
         return torch.mm(a.float(), b.float()).to(torch.bfloat16)
-    CALLS[role] += 1
     return torch.mm(a, b)
 
 
-def _forward_product(x2: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
+def _forward_product(x2: torch.Tensor, wb: torch.Tensor,
+                     runs: tuple | None) -> torch.Tensor:
     """x2 . wb^T accumulated and returned in fp32, without the bias."""
+    _count("fwd", x2, runs is not None)
     if x2.is_cuda:
-        CALLS["fwd"] += 1
         with _tensor_core_flags():
             return torch.mm(x2, wb.t(), out_dtype=torch.float32)
     return torch.mm(x2.float(), wb.t().float())
@@ -106,49 +179,54 @@ def _forward_product(x2: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
 
 def _backward_products(ctx, gb: torch.Tensor, x2: torch.Tensor,
                        wb: torch.Tensor) -> tuple:
-    """(dx, dW) from the bf16 cotangent gb, each where autograd asks."""
+    """(dx, dW) from the bf16 cotangent gb, each where autograd asks; dW
+    in the weight's logical shape."""
     dx = dw = None
+    padded = ctx.runs is not None
     with (_tensor_core_flags() if gb.is_cuda
           else contextlib.nullcontext()):
         if ctx.needs_input_grad[0]:
-            dx = _product(gb, wb, "dgrad").reshape(ctx.x_shape)
+            dx = _product(gb, wb, "dgrad", padded).reshape(ctx.x_shape)
         if ctx.needs_input_grad[1]:
-            dw = _product(gb.t(), x2, "wgrad").float()
+            dw = _product(gb.t(), x2, "wgrad", padded)
+            if padded:
+                dw = logical_columns(dw[:ctx.out], ctx.runs)
+            dw = dw.float()
     return dx, dw
 
 
 class _Bf16Linear(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, w, b):
+    def forward(ctx, x, w, b, runs):
         x2 = x.reshape(-1, x.shape[-1])
-        wb = w.to(torch.bfloat16)
+        wb, bf, ctx.runs = _layer_operands(w, b, runs)
         ctx.save_for_backward(x2, wb)
-        ctx.x_shape = x.shape
-        y = _forward_product(x2, wb)
-        y.add_(b.float())
-        return y.reshape(*x.shape[:-1], w.shape[0])
+        ctx.x_shape, ctx.out = x.shape, w.shape[0]
+        y = _forward_product(x2, wb, ctx.runs)
+        y.add_(bf)
+        return y.reshape(*x.shape[:-1], wb.shape[0])
 
     @staticmethod
     def backward(ctx, g):
         x2, wb = ctx.saved_tensors
         g2 = g.reshape(-1, g.shape[-1])
         dx, dw = _backward_products(ctx, g2.to(torch.bfloat16), x2, wb)
-        db = g2.sum(0) if ctx.needs_input_grad[2] else None
-        return dx, dw, db
+        db = g2.sum(0)[:ctx.out] if ctx.needs_input_grad[2] else None
+        return dx, dw, db, None
 
 
 class _Bf16ReluDropoutLinear(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, w, b, seed, rate):
+    def forward(ctx, x, w, b, seed, rate, runs):
         x2 = x.reshape(-1, x.shape[-1])
-        wb = w.to(torch.bfloat16)
-        out = rd.bias_relu_dropout_fwd(_forward_product(x2, wb), b.float(),
-                                       seed, rate)
-        out = out.reshape(*x.shape[:-1], w.shape[0])
+        wb, bf, ctx.runs = _layer_operands(w, b, runs)
+        out = rd.bias_relu_dropout_fwd(_forward_product(x2, wb, ctx.runs),
+                                       bf, seed, rate)
+        out = out.reshape(*x.shape[:-1], wb.shape[0])
         ctx.save_for_backward(x2, wb, out)
-        ctx.x_shape, ctx.rate = x.shape, rate
+        ctx.x_shape, ctx.out, ctx.rate = x.shape, w.shape[0], rate
         return out
 
     @staticmethod
@@ -160,30 +238,35 @@ class _Bf16ReluDropoutLinear(torch.autograd.Function):
             g.reshape(-1, g.shape[-1]).to(torch.bfloat16).contiguous(),
             ctx.rate)
         dx, dw = _backward_products(ctx, gb, x2, wb)
-        return dx, dw, db if ctx.needs_input_grad[2] else None, None, None
+        db = db[:ctx.out] if ctx.needs_input_grad[2] else None
+        return dx, dw, db, None, None, None
 
 
-def bf16_linear(x: torch.Tensor, w: torch.Tensor,
-                b: torch.Tensor) -> torch.Tensor:
+def bf16_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                runs: tuple | None = None) -> torch.Tensor:
     """x [..., in] bf16, w [out, in] and b [out] fp32 -> [..., out] fp32:
     x . bf16(w)^T with fp32 accumulation, plus b (the reference's bf16
     branch). Differentiable in all three; on the card every product runs
-    on the bf16 tensor cores, on the CPU as the plain version's."""
+    on the bf16 tensor cores, on the CPU as the plain version's. With a
+    layout `runs` (the module docstring), x and the output are padded:
+    [..., stored] -> [..., padded_width(out)]."""
     if x.dtype != torch.bfloat16:
         raise ValueError(f"bf16_linear: x is {x.dtype}, not bfloat16")
-    return _Bf16Linear.apply(x, w, b)
+    return _Bf16Linear.apply(x, w, b, runs)
 
 
 def bf16_linear_relu_dropout(x: torch.Tensor, w: torch.Tensor,
-                             b: torch.Tensor, seed: int,
-                             rate: float) -> torch.Tensor:
+                             b: torch.Tensor, seed: int, rate: float,
+                             runs: tuple | None = None) -> torch.Tensor:
     """A bf16 hidden layer with relu + dropout: x [..., in] bf16, w [out,
     in] and b [out] fp32 -> [..., out] bf16, equal to
     relu_dropout(bf16_linear(x, w, b).to(bfloat16), seed, rate). On the
     card the product runs on the tensor cores and kernel #3 adds b,
     rounds and drops; the backward runs #3b from the output, then dgrad
-    and wgrad. On the CPU the plain versions, as the composition runs."""
+    and wgrad. On the CPU the plain versions, as the composition runs.
+    `runs` as for bf16_linear."""
     if x.dtype != torch.bfloat16:
         raise ValueError(f"bf16_linear_relu_dropout: x is {x.dtype}, not "
                          "bfloat16")
-    return _Bf16ReluDropoutLinear.apply(x, w, b, int(seed), float(rate))
+    return _Bf16ReluDropoutLinear.apply(x, w, b, int(seed), float(rate),
+                                        runs)

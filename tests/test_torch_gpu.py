@@ -376,7 +376,8 @@ def test_relu_dropout_layer_step_matches_parent_composition(cuda,
                                                             monkeypatch):
     """One config-3 autograd step (the committed 8x512 pack, bf16, dropout
     0.2, 16 scenes x 16,384 points) through bf16_linear_relu_dropout
-    against the same step through bf16_linear, the cast and relu_dropout:
+    against the same step through bf16_linear, the cast and relu_dropout,
+    on the same (padded) layout:
     the loss and every gradient but the 8 hidden biases bit for bit, each
     hidden db within DB_TOL of its sum of |terms| apart; #3/#3b launched
     8 times each."""
@@ -409,10 +410,14 @@ def test_relu_dropout_layer_step_matches_parent_composition(cuda,
         seen.append((gb, db))
         return gb, db
 
+    def composed(x, w, b, seed, rate, runs=None):
+        return rd.relu_dropout(bl.bf16_linear(x, w, b, runs).to(
+            torch.bfloat16), seed, rate)
+
     monkeypatch.setattr(rd, "relu_dropout_bwd_out", recorded)
     runs = []
-    for hidden in (bl.bf16_linear, lambda x, w, b: bl.bf16_linear(x, w, b)):
-        monkeypatch.setattr(decoder_module, "bf16_linear", hidden)
+    for layer in (bl.bf16_linear_relu_dropout, composed):
+        monkeypatch.setattr(decoder_module, "bf16_linear_relu_dropout", layer)
         dec.zero_grad(set_to_none=True)
         zz = z.clone().requires_grad_()
         n0 = dict(rd.LAUNCHES)
@@ -428,6 +433,9 @@ def test_relu_dropout_layer_step_matches_parent_composition(cuda,
     assert torch.equal(l1, l2)
     for i, (gb, db) in enumerate(seen):
         k = f"lin{7 - i}.b"
+        w = g1[k].shape[0]              # the layout's pad columns hold 0
+        assert not gb[:, w:].any() and not db[w:].any()
+        gb, db = gb[:, :w], db[:w]
         assert torch.equal(g1[k], db)
         assert _db_within_tol(db, gb), k
         apart = (g1[k].double() - g2[k].double()).abs()
@@ -1582,6 +1590,66 @@ def test_bf16_training_step_matches_plain_form(cuda, monkeypatch):
     assert l1 == pytest.approx(l2, rel=1e-4)
     for a, r in zip(g1, g2):
         assert float((a - r).abs().max()) <= 1e-2 * float(r.abs().max())
+
+
+def test_padded_bank_step_matches_plain_form(cuda, monkeypatch):
+    """One config-3 bank step on the card (8 x 512, latent 256, 64 x
+    16,384 points, bf16, #3/#3b dropout) from the committed chair pack's
+    decoder with other chairs' codes (far from the optimum, where the
+    batch gradient does not cancel). The hidden layers run on the padded
+    layout: 3 padded products of each role (lin0's 259 inputs, lin3's 253
+    outputs, the skip layer's cat), none on the 512-wide layers. Against
+    the same step with the hidden layers in the plain form (fp32 products
+    of the same bf16 values, unpadded): the loss within 6e-6, each
+    gradient's distance within 0.02 of its norm, the codes' change within
+    0.05 of its norm and the same rows moved, the limits of
+    benchmark/limits/c3.train.bank.json."""
+    import dataclasses
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        ExperimentConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.data import (
+        analytic, analytic_device as adv)
+    from latent_diffusion_models_for_shape_sdfs_torch.models import (
+        decoder as decoder_module)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        bf16_linear as bl)
+    from latent_diffusion_models_for_shape_sdfs_torch.train import (
+        auto_decoder as tad)
+    ad = ExperimentConfig.load(pathlib.Path(__file__).resolve().parents[1]
+                               / "configs" / "config3_chairs_joint").ad
+    S, P = ad.scenes_per_batch, ad.samples_per_scene
+    cfg = dataclasses.replace(ad, num_scenes=S, use_pallas=False)
+    sd, codes = load_stage1_pack(PACK)
+    codes = codes[S:2 * S]
+    bank = adv.bank_from_chairs(analytic.make_synthetic_split(
+        "chair", S, seed=11), 11, P, device=cuda)
+    ids = torch.arange(S, device=cuda)
+    out = []
+    for hidden in (bl.bf16_linear, bl.bf16_linear_reference):
+        monkeypatch.setattr(decoder_module, "bf16_linear", hidden)
+        st = tad.init_ad_state(cfg, params=sd, codes=codes, device=cuda)
+        step = tad.make_bank_step(st.decoder, cfg, bank, torch.Generator(
+            device=cuda).manual_seed(5))
+        n0 = dict(bl.PADDED)
+        loss = float(step(st, ids, 0.0, 17)["loss"])
+        grads = {k: p.grad.double() for k, p in
+                 st.decoder.named_parameters()}
+        grads["codes"] = st.codes.grad.double()
+        change = st.codes.detach().double().cpu() - torch.from_numpy(codes)
+        out.append((loss, grads, change,
+                    {k: bl.PADDED[k] - n0[k] for k in n0}))
+        del st, step
+    (l1, g1, c1, n1), (l2, g2, c2, n2) = out
+    assert n1 == {"fwd": 3, "dgrad": 3, "wgrad": 3}
+    assert not any(n2.values())
+    assert abs(l1 - l2) <= 6e-6 * abs(l2)
+    for k, r in g2.items():
+        gap = float(torch.linalg.vector_norm(g1[k] - r)
+                    / torch.linalg.vector_norm(r))
+        assert gap <= 0.02, (k, gap)
+    n_c1, n_c2 = (float(torch.linalg.vector_norm(c)) for c in (c1, c2))
+    assert abs(n_c1 - n_c2) <= 0.05 * n_c2
+    assert torch.equal((c1 != 0).any(1), (c2 != 0).any(1))
 
 
 def test_recon_capture_failure_raises(cuda):
