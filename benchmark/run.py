@@ -14,6 +14,23 @@ once under the profiler, in memory, and prints the per-layer metrics, the
 device's busy time and a breakdown. Either way it
 then checks the first steps or answers against the plain reference
 (limits in benchmark/limits/<cell>.json) and prints one JSON line last.
+
+A driver, `Driver(cfg, traffic, seed, device, seconds)`, does the cell's
+set-up when it is built and has `run(seconds)` -> {end-to-end metric:
+value}, `traced()` -> (warm, work), `free()`, `check()` -> {compared
+number: reading}, `counts()` -> (attempted, failed) and, optionally,
+`phases` ({set-up phase: seconds}); readers see it through `Context`.
+
+A cell with `"chips": n` > 1 runs as n processes, one per card, in one
+process group that is up before any driver is built (benchmark/ranks.py):
+this process is rank 0 and starts the others. A driver there reads its
+rank and the world's size from `torch.distributed`; every rank makes the
+same calls in the same order. Rank 0 prints the one result line: its own
+end-to-end metrics and `setup_s` (the ranks' start included), the
+per-layer metrics of its own trace, the fullest card's peak, each
+compared number at its worst over the ranks, `attempted` and `failed`
+summed. A rank that fails, hangs or loads JAX ends the run with no result.
+A cell on one card runs here alone, with no process group and no child.
 """
 
 from __future__ import annotations
@@ -85,6 +102,32 @@ class Context:
         self.driver, self.trace, self.untraced_s = driver, trace, untraced_s
 
 
+def e2e_metrics(manifest, cell, e2e: dict, setup_s: float) -> dict:
+    """The cell's end-to-end metrics from a driver's run and set-up."""
+    units = {m["name"]: m["unit"] for m in manifest["end_to_end"]}
+    metrics = {}
+    for m in manifest["end_to_end"]:
+        if m["name"] == "setup_s":
+            metrics["setup_s"] = {"value": setup_s, "unit": "s"}
+        elif m["name"] in e2e and cell["name"] in m.get(
+                "workloads", [cell["name"]]):
+            metrics[m["name"]] = {"value": e2e[m["name"]],
+                                  "unit": units[m["name"]]}
+    return metrics
+
+
+def layer_metrics(manifest, ctx: Context) -> dict:
+    """The cell's per-layer metrics that their readers find."""
+    metrics = {}
+    for m in manifest["per_layer"]:
+        if ctx.cell["name"] not in m.get("workloads", [ctx.cell["name"]]):
+            continue
+        v = metric_reader(m["name"])(ctx)
+        if v is not None:
+            metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+    return metrics
+
+
 def run(args, device=None) -> dict:
     """One run of a cell; returns the result line's object. `device`
     None asks for the card and fails without one."""
@@ -92,6 +135,10 @@ def run(args, device=None) -> dict:
     if str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
     manifest, cell, cfg, traffic = load_cell(args.workload)
+    if cell["chips"] > 1:
+        from benchmark import ranks
+        return ranks.run(args, (manifest, cell, cfg, traffic), device,
+                         T_START)
     import torch
     if device is None:
         if not torch.cuda.is_available() \
@@ -111,13 +158,10 @@ def run(args, device=None) -> dict:
                       getattr(driver, "phases", {}).items()),
           file=sys.stderr, flush=True)
     out: dict = {}
-    metrics: dict = {}
     device_info = {"platform": "gpu" if device.type == "cuda" else "cpu",
                    "kind": (torch.cuda.get_device_name(device)
                             if device.type == "cuda" else "cpu"),
                    "count": cell["chips"]}
-    units = {m["name"]: m["unit"] for m in
-             manifest["end_to_end"] + manifest["per_layer"]}
     if int(args.trace):
         from benchmark import devtrace
         warm, work = driver.traced()
@@ -129,12 +173,7 @@ def run(args, device=None) -> dict:
         untraced_s = time.perf_counter() - t0
         trace = devtrace.profile_window(work, warm)
         ctx = Context(cell, cfg, traffic, driver, trace, untraced_s)
-        for m in manifest["per_layer"]:
-            if cell["name"] not in m.get("workloads", [cell["name"]]):
-                continue
-            v = metric_reader(m["name"])(ctx)
-            if v is not None:
-                metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+        metrics = layer_metrics(manifest, ctx)
         device_info["busy_s"] = trace.busy_us() / 1e6
         device_info["window_s"] = trace.window_s
         out["breakdown"] = {"device_ops": trace.top_ops(10),
@@ -142,13 +181,7 @@ def run(args, device=None) -> dict:
     else:
         setup_s = time.perf_counter() - T_START
         e2e = driver.run(float(args.seconds))
-        for m in manifest["end_to_end"]:
-            if m["name"] == "setup_s":
-                metrics["setup_s"] = {"value": setup_s, "unit": "s"}
-            elif m["name"] in e2e and cell["name"] in m.get(
-                    "workloads", [cell["name"]]):
-                metrics[m["name"]] = {"value": e2e[m["name"]],
-                                      "unit": units[m["name"]]}
+        metrics = e2e_metrics(manifest, cell, e2e, setup_s)
     device_info["memory_peak_bytes"] = (
         torch.cuda.max_memory_allocated(device) if device.type == "cuda"
         else 0)

@@ -14,6 +14,14 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 M = manifest()
 
 
+def chips_allowed(workloads: list) -> bool:
+    """Each cell on 1 or 4 chips, and at most a quarter of the cells,
+    rounded down, on 4; one always may."""
+    chips = [w["chips"] for w in workloads]
+    return set(chips) <= {1, 4} and \
+        chips.count(4) <= max(1, len(chips) // 4)
+
+
 def test_top_level_keys():
     assert set(M) == {"command", "paths", "run_seconds", "configs",
                       "workloads", "end_to_end", "per_layer"}
@@ -48,7 +56,7 @@ def test_names_units_and_entries():
 def test_every_cell_reports_what_the_contract_asks():
     cells = {w["name"] for w in M["workloads"]}
     for w in M["workloads"]:
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert len(w["why"]) <= 200
         e2e = [e for e in M["end_to_end"] if e["name"] != "setup_s"
                and w["name"] in e.get("workloads", cells)]
         assert e2e, w["name"]
@@ -60,6 +68,19 @@ def test_every_cell_reports_what_the_contract_asks():
             assert m["moves"] in moved, (w["name"], m["name"])
     assert len({(w["config"], w["traffic"]) for w in M["workloads"]}) == \
         len(M["workloads"])
+    assert chips_allowed(M["workloads"])
+
+
+@pytest.mark.parametrize("chips,ok", [
+    ([1, 1, 1], True),
+    ([4, 1, 1], True),                  # one four-chip cell always may
+    ([2, 1, 1], False),
+    ([1, 1, 8], False),
+    ([4, 4] + [1] * 6, True),           # 8 cells: 8 // 4 = 2
+    ([4, 4, 4] + [1] * 5, False),
+] + [([4, 4] + [1] * (n - 2), False) for n in range(3, 8)])
+def test_chips_rule(chips, ok):
+    assert chips_allowed([{"chips": c} for c in chips]) is ok
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in M["workloads"]])
