@@ -6,9 +6,10 @@ in, renders and metrics out.
     python3 chip_smoke.py [--details PATH]
 
 Builds the port's CUDA kernels (csrc/fused_eval.cu, csrc/relu_dropout.cu,
-csrc/fused_train.cu, csrc/fused_eval_pairs.cu: one nvcc each for sm_90a,
-all started together) and the native mesher and preprocess tool (native/,
-cmake or g++) from this checkout, while it generates the training data
+csrc/fused_train.cu, csrc/fused_eval_pairs.cu, csrc/head.cu: one nvcc
+each for sm_90a, all started together) and the native mesher and
+preprocess tool (native/, cmake or g++) from this checkout, while it
+generates the training data
 (64 analytic chairs, the 6,136 multicat scenes' observation banks, and
 the analytic store that [cli]'s stages share, process pools started
 before CUDA is), then:
@@ -78,8 +79,9 @@ before CUDA is), then:
      holds one step of the relu+dropout route (hidden layers on the bf16
      tensor cores) against the same step with them in the plain form
      (fp32 products of the same bf16 values) and in float64 (the
-     witness), each through the package's forward with its hidden
-     layers swapped (hidden_layers_through), from the same state, batch
+     witness), the head each time in the same form as the hidden layers,
+     each through the package's forward with its hidden layers and head
+     swapped (hidden_layers_through), from the same state, batch
      and masks: loss TRAIN_LOSS_RTOL; with other chairs' codes every
      gradient TRAIN_GRAD_TOL of its max of the plain form's, with the
      chairs' own codes (the optimum) every gradient's distance from the
@@ -98,12 +100,18 @@ before CUDA is), then:
      pack, timed on the card's clock, steps 2-4 under
      torch.cuda.set_sync_debug_mode("error"), and a second epoch traced
      for the device-busy share; 10 steps of the autograd route (#3/#3b,
-     the hidden layers on the tensor cores, fused with relu+dropout) from
-     the same bank, then 3 steps of the composed form timed beside them
-     (the fused route must be faster) and one step of each for its peak
-     memory, then 3 steps with the hidden layers in the plain form, timed
-     beside them, and one step of each form held against the other, and
-     one step against the composed form as in [train]; the CSG bank of
+     the hidden layers on the tensor cores, fused with relu+dropout, the
+     fp32 head through csrc/head.cu: one launch of each of its passes a
+     step) from the same bank, then 3 steps of the composed form timed
+     beside them (the fused route must be faster) and one step of each
+     for its peak memory, then 3 steps with the hidden layers in the plain
+     form, timed beside them, and one step of each form held against the
+     other (the plain form's and the witness's heads in their own forms),
+     one step against the composed form as in [train], and one step whose
+     head's pred, dx, dW and db (csrc/head.cu) are held against the head's
+     plain form on the same operands and cotangent at [2^20, 512] (dx bit
+     for bit; head_vs_plain_step); the head's passes timed alone at that
+     shape beside the plain form and their bytes bounds; the CSG bank of
      the 6,136 multicat shapes
      (bank_from_csg) and one fused step from the multicat pack (step-0
      loss_l1 gates: 0.01 chair, 0.015 CSG);
@@ -3001,11 +3009,13 @@ def profile_phase(dev, card, decoder, apply, z0, p20, ft_args,
 
 
 def reset_train_launches() -> None:
-    """Zero the launch counts of kernels #3/#3b and #4 and the count of
-    bf16 tensor-core products of the decoder's hidden layers."""
+    """Zero the launch counts of kernels #3/#3b, #4 and the fp32 head's
+    and the count of bf16 tensor-core products of the decoder's hidden
+    layers."""
     from latent_diffusion_models_for_shape_sdfs_torch.ops import (
-        bf16_linear as bl, fused_train as ft, relu_dropout as rd)
-    for d in (ft.LAUNCHES, rd.LAUNCHES, bl.CALLS, bl.PADDED):
+        bf16_linear as bl, fused_train as ft, head as hd,
+        relu_dropout as rd)
+    for d in (ft.LAUNCHES, rd.LAUNCHES, bl.CALLS, bl.PADDED, hd.HEAD):
         for k in d:
             d[k] = 0
 
@@ -3025,25 +3035,31 @@ def tc_products() -> dict:
 
 
 @contextlib.contextmanager
-def hidden_layers_through(fn):
+def hidden_layers_through(fn, head=None):
     """Inside the block the package's SdfDecoder.forward makes its hidden
     layers' products through `fn` in place of ops.bf16_linear (the plain
-    version, the float64 witness), on the unpadded layout; the head keeps
-    its own form. With dropout through the kernels the decoder takes
+    version, the float64 witness), on the unpadded layout, and its bf16
+    head through `head` in place of ops.head.bf16_head where `head` is
+    given (else the head keeps csrc/head.cu). With dropout through the
+    kernels the decoder takes
     ops.bf16_linear.bf16_linear_relu_dropout only while its product form
     is ops.bf16_linear itself, and composes any other `fn` with the cast
     to bf16 and relu_dropout. `bf16_linear_composed` takes the place of
     the fused layer itself, on the layout the package's route runs."""
     from latent_diffusion_models_for_shape_sdfs_torch.models import (
         decoder as decoder_module)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import head as hd
     name = ("bf16_linear_relu_dropout" if fn is bf16_linear_composed
             else "bf16_linear")
-    saved = getattr(decoder_module, name)
+    saved, saved_head = getattr(decoder_module, name), hd.bf16_head
     setattr(decoder_module, name, fn)
+    if head is not None:
+        hd.bf16_head = head
     try:
         yield
     finally:
         setattr(decoder_module, name, saved)
+        hd.bf16_head = saved_head
 
 
 def bf16_linear_composed(x, w, b, seed, rate, runs=None):
@@ -3141,17 +3157,18 @@ def _float64_linear_class():
 
 
 def step_grads(decoder, cfg, codes, ids, xyz, sdf, epoch: float, seed: int,
-               hidden) -> tuple:
+               hidden, head=None) -> tuple:
     """One autograd step's loss and gradients (decoder parameters and the
-    code table, by name) with the hidden layers through `hidden`; leaves
-    no gradient behind."""
+    code table, by name) with the hidden layers through `hidden` and the
+    head through `head` (hidden_layers_through); leaves no gradient
+    behind."""
     from latent_diffusion_models_for_shape_sdfs_torch import losses
     from latent_diffusion_models_for_shape_sdfs_torch.models.latent_table \
         import gather_codes
     decoder.train()
     decoder.zero_grad(set_to_none=True)
     table = codes.detach().clone().requires_grad_()
-    with hidden_layers_through(hidden):
+    with hidden_layers_through(hidden, head):
         z = gather_codes(table, ids, cfg.code_bound)
         L = z.shape[-1]
         flat_z = z[:, None, :].expand(z.shape[0], xyz.shape[1], L)
@@ -3179,9 +3196,10 @@ def tc_vs_plain_step(decoder, cfg, codes, ids, xyz, sdf, epoch: float,
     """One autograd step's loss and gradients (decoder parameters and the
     code table) from the same state, batch and dropout masks with the
     hidden layers three ways: on the tensor cores (ops.bf16_linear, the
-    package's route), in the plain form (fp32 products of the same bf16
-    values) and in float64 (the witness, bf16_linear_float64). The
-    products are the same and only the sums' order and width move. Each
+    package's route, the head through csrc/head.cu), in the plain form
+    (fp32 products of the same bf16 values, the head's too) and in float64
+    (the witness, bf16_linear_float64, the head's too). The products are
+    the same and only the sums' order and width move. Each
     form's distance from the witness is recorded per gradient (max |g -
     g_64| over max |g_64|). Gates: the loss within TRAIN_LOSS_RTOL of the
     plain form's; `gate` "plain" (far from the optimum: codes of other
@@ -3195,9 +3213,11 @@ def tc_vs_plain_step(decoder, cfg, codes, ids, xyz, sdf, epoch: float,
     from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear \
         import bf16_linear, bf16_linear_reference
     (loss_tc, g_tc), (loss_pl, g_pl), (loss_64, g_64) = [
-        step_grads(decoder, cfg, codes, ids, xyz, sdf, epoch, seed, hidden)
-        for hidden in (bf16_linear, bf16_linear_reference,
-                       bf16_linear_float64)]
+        step_grads(decoder, cfg, codes, ids, xyz, sdf, epoch, seed, hidden,
+                   head)
+        for hidden, head in ((bf16_linear, None),
+                             (bf16_linear_reference, bf16_linear_reference),
+                             (bf16_linear_float64, bf16_linear_float64))]
     rel = grad_distance(g_tc, g_pl)
     d_tc, d_pl = grad_distance(g_tc, g_64), grad_distance(g_pl, g_64)
     worst = max(rel, key=rel.get)
@@ -3298,6 +3318,133 @@ def layer_vs_parent_step(decoder, cfg, codes, ids, xyz, sdf, epoch: float,
     return out
 
 
+def bf16_spacing(t):
+    """The bf16 spacing at |t| (the smallest normal's where t is 0)."""
+    import torch
+    e = torch.floor(torch.log2(t.abs().clamp(min=2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def head_vs_plain_step(decoder, cfg, codes, ids, xyz, sdf, epoch: float,
+                       seed: int, tag: str, card: str) -> dict:
+    """One autograd step of the package's route with the fp32 head's
+    operands, cotangent and gradients recorded as csrc/head.cu gives them
+    (ops.head.bf16_head), then the head's plain form (autograd of
+    bf16_linear_reference) on the same x, w, b and cotangent g. Gates: one
+    launch of each pass; dx bit for bit; pred within 2 (C + 1) 2^-24 of
+    each row's sum |x w| + |b|; dW within one bf16 spacing plus 2 sqrt(rows)
+    2^-24 of each column's sum |g x| of the plain form's; db within
+    2 sqrt(rows) 2^-24 sum |g| of g's float64 sum. A kernel that drops or
+    repeats rows fails each of these. Leaves no gradient behind."""
+    import torch
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        bf16_linear as bl, head as hd)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear \
+        import bf16_linear_reference
+    rec: dict = {}
+    real = hd.bf16_head
+
+    def recorded(x, w, b):
+        w, b = w.view_as(w), b.view_as(b)    # hooks on this call's views
+        y = real(x, w, b)
+        rec.update(x=x.detach(), w=w.detach(), b=b.detach(), y=y.detach())
+        for k, t in (("dx", x), ("dw", w), ("db", b), ("g", y)):
+            t.register_hook(lambda gr, k=k: rec.__setitem__(k, gr.detach()))
+        return y
+
+    n0 = dict(hd.HEAD)
+    loss, _ = step_grads(decoder, cfg, codes, ids, xyz, sdf, epoch, seed,
+                         bl.bf16_linear, recorded)
+    launches = {k: hd.HEAD[k] - n0[k] for k in n0}
+    x, w, b, g = rec["x"], rec["w"], rec["b"], rec["g"]
+    rows, cols = x.shape
+    xs, ws, bs = (t.clone().requires_grad_() for t in (x, w, b))
+    y_p = bf16_linear_reference(xs, ws, bs)
+    y_p.backward(g)
+    torch.cuda.synchronize()
+    u = 2.0 ** -24
+    wb = w.to(torch.bfloat16).float()
+    terms = (x.float().abs() @ wb.abs().t() + b.abs()).clamp(min=1e-30)
+    pred_rel = float(((rec["y"] - y_p.detach()).abs() / terms).max())
+    gx = g.abs().t() @ x.float().abs()
+    dw_gap = (rec["dw"] - ws.grad).abs()
+    dw_bound = (bf16_spacing(torch.maximum(rec["dw"].abs(), ws.grad.abs()))
+                + 2 * rows ** 0.5 * u * gx)
+    g64 = g.double()
+    db_gap = float((rec["db"].double() - g64.sum()).abs())
+    db_bound = 2 * rows ** 0.5 * u * float(g64.abs().sum())
+    out = dict(rows=rows, cols=cols, loss=loss, launches=launches,
+               dx_equal=bool(torch.equal(rec["dx"], xs.grad)),
+               pred_max_abs=float((rec["y"] - y_p.detach()).abs().max()),
+               pred_rel=pred_rel, pred_gate=2 * (cols + 1) * u,
+               dw_max_abs=float(dw_gap.max()),
+               dw_over_bound=float((dw_gap / dw_bound).max()),
+               dw_bf16=bool(torch.equal(
+                   rec["dw"], rec["dw"].to(torch.bfloat16).float())),
+               db=float(rec["db"]), db_gap=db_gap, db_bound=db_bound,
+               db_plain=float(bs.grad))
+    log(f"[{tag}] one config-3 step ({rows} x {cols} head rows) with the "
+        f"fp32 head through csrc/head.cu, launches {launches}, against the "
+        f"head's plain form (bf16_linear_reference under autograd) on the "
+        f"same x, w, b and cotangent: dx bit-equal {out['dx_equal']}; pred "
+        f"at most {pred_rel:.2e} of its row's sum |x w| + |b| (gate "
+        f"{out['pred_gate']:.2e}); dW bf16-valued {out['dw_bf16']}, at most "
+        f"{out['dw_over_bound']:.3f} of its bound (one bf16 spacing + "
+        f"2 sqrt(rows) 2^-24 sum |g x|); db {out['db']:.9e} (plain "
+        f"{out['db_plain']:.9e}) {db_gap:.2e} from float64, bound "
+        f"{db_bound:.2e} [{card}]")
+    if not (launches == {"fwd": 1, "bwd": 1} and out["dx_equal"]
+            and pred_rel <= out["pred_gate"] and out["dw_bf16"]
+            and out["dw_over_bound"] <= 1.0 and db_gap <= db_bound):
+        raise RuntimeError(f"[{tag}] head kernels vs plain form: {out}")
+    del rec, xs, ws, bs, y_p
+    return out
+
+
+def head_alone(dev, card) -> dict:
+    """csrc/head.cu's passes alone at config 3's bank step, [2^20, 512]
+    (bf16 x, a loss cotangent of +-2^-20 or 0), on CUDA events: the
+    forward, the backward with dx, dW and db (its reduction launch
+    included), the backward with dx alone; the plain form's forward
+    (x.float() and the GEMV) and its autograd backward (the K = 1 dgrad,
+    dW, db and the casts); each beside its bytes bound at PEAK_HBM_BYTES
+    (x read once, and dx written once where made; g and pred)."""
+    import torch
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import head as hd
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear \
+        import bf16_linear_reference
+    rows, cols = 1 << 20, 512
+    gen = torch.Generator(device=dev).manual_seed(26)
+    x = torch.randn(rows, cols, generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn(1, cols, generator=gen, device=dev) / cols ** 0.5
+    b = torch.randn(1, generator=gen, device=dev)
+    g = torch.sign(torch.round(torch.randn(rows, 1, generator=gen,
+                                           device=dev))) / rows
+    wb = w.to(torch.bfloat16)
+    every, dx_only = (True, True, True), (True, False, False)
+    xs, ws, bs = (t.clone().requires_grad_() for t in (x, w, b))
+    y_p = bf16_linear_reference(xs, ws, bs)
+    out = dict(
+        fwd_ms=time_ms(lambda: hd._forward(x, wb, b), 20),
+        bwd_ms=time_ms(lambda: hd._backward(g, x, wb, (1,), every), 20),
+        bwd_dx_ms=time_ms(lambda: hd._backward(g, x, wb, (1,), dx_only), 20),
+        plain_fwd_ms=time_ms(lambda: bf16_linear_reference(x, w, b), 20),
+        plain_bwd_ms=time_ms(lambda: torch.autograd.grad(
+            y_p, (xs, ws, bs), g, retain_graph=True), 10),
+        bound_fwd_ms=(x.nbytes + rows * 4) / PEAK_HBM_BYTES * 1e3,
+        bound_bwd_ms=(2 * x.nbytes + rows * 4) / PEAK_HBM_BYTES * 1e3,
+        bound_bwd_dx_ms=(x.nbytes + rows * 4) / PEAK_HBM_BYTES * 1e3)
+    log(f"[bank] the fp32 head's kernels alone at [{rows}, {cols}]: forward "
+        f"{out['fwd_ms']:.3f} ms (bound {out['bound_fwd_ms']:.3f}, plain "
+        f"form {out['plain_fwd_ms']:.3f}), backward with dx, dW and db "
+        f"{out['bwd_ms']:.3f} ms (bound {out['bound_bwd_ms']:.3f}, plain "
+        f"form's autograd backward {out['plain_bwd_ms']:.3f}), dx alone "
+        f"{out['bwd_dx_ms']:.3f} ms (bound {out['bound_bwd_dx_ms']:.3f}) "
+        f"[{card}]")
+    del x, xs, ws, bs, y_p, g
+    return out
+
+
 def check_bank(bank, sdf_fn_of, n: int, tag: str) -> dict:
     """A bank's contract: counts in (0, n], each side's first `count` rows
     of its sign where both sides hold rows (pos + neg == n), and labels
@@ -3340,7 +3487,7 @@ def bank_phase(dev, card, host_ms: float, k4_ms: float) -> dict:
     from latent_diffusion_models_for_shape_sdfs_torch.data import (
         analytic, analytic_device as adv)
     from latent_diffusion_models_for_shape_sdfs_torch.ops import (
-        bf16_linear as bl)
+        bf16_linear as bl, head as hd)
     from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear \
         import bf16_linear_reference
     from latent_diffusion_models_for_shape_sdfs_torch.train.auto_decoder \
@@ -3460,23 +3607,26 @@ def bank_phase(dev, card, host_ms: float, k4_ms: float) -> dict:
     la = train_launches()
     products = tc_products()
     padded = dict(bl.PADDED)
+    head = dict(hd.HEAD)
     ms_a = events[0].elapsed_time(events[-1]) / (len(events) - 1)
     l1a = [float(v) for v in l1a]
     n_hidden = len(st.decoder.layer_dims()) - 1
     out["autograd"] = dict(steps=10, ms_per_step=ms_a, loss_l1=l1a,
                            launches=la, tc_products=products,
-                           padded_products=padded)
+                           padded_products=padded, head_launches=head)
     out["launches"]["autograd"] = la
     log(f"[bank] autograd route (#3/#3b, hidden layers on the bf16 tensor "
         f"cores) from the bank: 10 steps, {ms_a:.1f} ms/step (steps 1-9), "
         f"step-0 loss_l1 {l1a[0]:.5f}, launches {la}, tensor-core products "
         f"{products}, of them on padded operands {padded} (lin0, lin3 and "
-        f"the skip layer); steps 2-4 without host sync [{card}]")
+        f"the skip layer); the fp32 head's kernels {head}; steps 2-4 "
+        f"without host sync [{card}]")
     if la["relu_dropout_fwd"] != 80 or la["relu_dropout_bwd"] != 80 \
             or la["fused_train"] or not l1a[0] < BANK_GATES["chair"] \
             or products != {k: 10 * n_hidden
                             for k in ("fwd", "dgrad", "wgrad")} \
-            or padded != {k: 30 for k in ("fwd", "dgrad", "wgrad")}:
+            or padded != {k: 30 for k in ("fwd", "dgrad", "wgrad")} \
+            or head != {"fwd": 10, "bwd": 10}:
         raise RuntimeError(f"[bank] autograd route: {out['autograd']}")
     # the composed form of the same route (bf16_linear, the cast,
     # relu_dropout: the bias add, casts and db sum as passes of their own),
@@ -3533,7 +3683,12 @@ def bank_phase(dev, card, host_ms: float, k4_ms: float) -> dict:
     out["layer_vs_parent"] = layer_vs_parent_step(
         st.decoder, auto, st.codes, ids[3], xyz_b, sdf_b, 0.0, 3004, "bank",
         card)
+    out["head"] = head_vs_plain_step(
+        st.decoder, auto, st.codes.roll(64, 0), ids[3], xyz_b, sdf_b, 0.0,
+        3005, "bank", card)
     del st, step, plain, parent, bank, ids, xyz_b, sdf_b
+    torch.cuda.empty_cache()
+    out["head"].update(head_alone(dev, card))
     torch.cuda.empty_cache()
 
     # ---- the CSG bank from the multicat pack
@@ -4076,7 +4231,7 @@ def main() -> int:
     # while the training data is generated (a fork pool, before CUDA)
     t0 = time.perf_counter()
     sources = ["fused_eval.cu", "relu_dropout.cu", "fused_train.cu",
-               "fused_eval_pairs.cu"]
+               "fused_eval_pairs.cu", "head.cu"]
     built: dict = {}
     errors: list = []
 
@@ -4825,6 +4980,32 @@ def main() -> int:
         "plain_ms": pr["plain_ms"],
         "bound_ms": pr["bound_ms"],
         "bound_by": pr["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "head_fwd",
+        "route": "cuda",
+        "source": SRC + "head.cu",
+        "replaces": None,
+        "launches": bk["autograd"]["head_launches"]["fwd"]
+        + bk["head"]["launches"]["fwd"],
+        "max_abs_err": bk["head"]["pred_max_abs"],
+        "ms": bk["head"]["fwd_ms"],
+        "plain_ms": bk["head"]["plain_fwd_ms"],
+        "bound_ms": bk["head"]["bound_fwd_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "head_bwd",
+        "route": "cuda",
+        "source": SRC + "head.cu",
+        "replaces": None,
+        "launches": bk["autograd"]["head_launches"]["bwd"]
+        + bk["head"]["launches"]["bwd"],
+        "max_abs_err": bk["head"]["dw_max_abs"],
+        "ms": bk["head"]["bwd_ms"],
+        "plain_ms": bk["head"]["plain_bwd_ms"],
+        "bound_ms": bk["head"]["bound_bwd_ms"],
+        "bound_by": "bytes",
         "library_ms": None,
     }]
     if not all(k["launches"] > 0 for k in kernels):

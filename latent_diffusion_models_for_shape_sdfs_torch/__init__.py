@@ -12,7 +12,8 @@ decoder-eval CUDA kernel, `csrc/fused_eval.cu`), `ops.grid_eval`,
 training: `losses`, `models.latent_table`, `data.analytic`,
 `data.sdf_dataset`, `utils.logging`, `ops.relu_dropout` (the relu+dropout
 kernel pair, `csrc/relu_dropout.cu`), `ops.fused_train` (the fused train
-kernel, `csrc/fused_train.cu`) and `train.auto_decoder`. Config 4's
+kernel, `csrc/fused_train.cu`), `ops.head` (the bf16 decoder's fp32 head
+on the card, `csrc/head.cu`) and `train.auto_decoder`. Config 4's
 generation: `diffusion.schedule`, `diffusion.sampler`, `models.denoiser`,
 `serve.generate_meshes`, and the flat batched decode in `ops.grid_eval`
 with the per-point-latent eval kernel

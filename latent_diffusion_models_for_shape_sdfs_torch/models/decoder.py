@@ -15,10 +15,13 @@ stores `v [in, out]`; `utils.checkpoint.params_from_jax` converts.
 Compute is fp32, or bf16 operands with fp32 accumulation when
 `compute_dtype="bfloat16"`: the hidden layers then go through
 `ops.bf16_linear` (bf16 tensor-core products on the card, forward and
-backward), the scalar head through the plain form `WNLinear` keeps (fp32
-products of bf16-valued tensors), whose cotangent need not be
-bf16-valued. In training mode (`decoder.train()`) the
-forward takes a `seed` and applies dropout after every hidden relu:
+backward). The scalar head, whose cotangent need not be bf16-valued,
+keeps the plain form's arithmetic (fp32 sums of exact products of bf16
+values) through `ops.head.bf16_head`: on the card as its two kernels
+(`csrc/head.cu`), on the CPU as torch's products bit for bit; an fp32
+decoder's head stays `WNLinear`'s fp32 product. In training mode
+(`decoder.train()`) the forward takes a `seed` and applies dropout after
+every hidden relu:
 `dropout_impl="pallas"` goes through the relu+dropout kernel
 (`ops.relu_dropout`, Philox mask keyed by seed + 7919 * layer, as the JAX
 decoder derives its per-layer seed), `dropout_impl="xla"` stays plain
@@ -55,6 +58,7 @@ from torch.nn import functional as F
 from latent_diffusion_models_for_shape_sdfs_torch.config import DecoderConfig
 from latent_diffusion_models_for_shape_sdfs_torch.ops import (
     bf16_linear as bf16_ops)
+from latent_diffusion_models_for_shape_sdfs_torch.ops import head as head_ops
 from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear import (
     bf16_linear, bf16_linear_reference, bf16_linear_relu_dropout)
 from latent_diffusion_models_for_shape_sdfs_torch.ops.relu_dropout import (
@@ -199,7 +203,8 @@ class SdfDecoder(nn.Module):
             else:
                 if pad:     # the head reads the logical columns
                     x = bf16_ops.logical_columns(x, runs)
-                x = lin(x)
+                x = (head_ops.bf16_head(x, lin.weight(), lin.b)
+                     if x.dtype == torch.bfloat16 else lin(x))
             runs = (out,)
             if layer < n_lin - 1:
                 if drop and c.dropout_impl == "pallas":

@@ -18,9 +18,10 @@ construction, and so is its cotangent g: the layer's output is cast to
 bf16 before it goes on (`models/decoder.py`), so g reaches the product as
 the image of a bf16 tensor (tests/test_torch_bf16_linear.py checks all
 three). Then both forms make the same products, exactly, and differ only
-in the order of their fp32 sums. The 512 -> 1 head keeps the plain form:
-its cotangent, +-1/n or 0, is bf16-valued only when n is a power of two
-and `use_tanh` is off.
+in the order of their fp32 sums. The 512 -> 1 head keeps the plain
+form's arithmetic, not this function's: its cotangent, +-1/n or 0, is
+bf16-valued only when n is a power of two and `use_tanh` is off. On the
+card it runs as `ops.head`'s two kernels, elsewhere as the plain form.
 
 On the card all three products run on the bf16 tensor cores through
 cuBLAS: the forward as `torch.mm(x, bf16(W)^T, out_dtype=float32)` and an

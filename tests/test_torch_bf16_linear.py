@@ -22,6 +22,7 @@ from latent_diffusion_models_for_shape_sdfs_torch.models import (
 from latent_diffusion_models_for_shape_sdfs_torch.models.decoder import (
     SdfDecoder)
 from latent_diffusion_models_for_shape_sdfs_torch.ops import bf16_linear as bl
+from latent_diffusion_models_for_shape_sdfs_torch.ops import head as hd
 from latent_diffusion_models_for_shape_sdfs_torch.train import auto_decoder as tad
 
 torch.set_num_threads(2)
@@ -82,8 +83,7 @@ def test_hidden_operands_are_bf16_valued(dropout, latent_in, xyz_in_all,
 
     monkeypatch.setattr(decoder_module, "bf16_linear",
                         recorder(bl.bf16_linear, "hidden"))
-    monkeypatch.setattr(decoder_module, "bf16_linear_reference",
-                        recorder(bl.bf16_linear_reference, "head"))
+    monkeypatch.setattr(hd, "bf16_head", recorder(hd.bf16_head, "head"))
     st = tad.init_ad_state(cfg, seed=1, device="cpu")
     step = tad.make_ad_train_step(st.decoder, cfg)
     step(st, *_batch(cfg), 0.0, 3)

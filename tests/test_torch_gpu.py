@@ -1652,6 +1652,168 @@ def test_padded_bank_step_matches_plain_form(cuda, monkeypatch):
     assert torch.equal((c1 != 0).any(1), (c2 != 0).any(1))
 
 
+# ------------------------ the bf16 decoder's fp32 head (csrc/head.cu)
+
+HEAD_SHAPES = [(1 << 20, 512), ((1 << 16) + 131, 512), (7, 512),
+               (1000, 264), (300, 8)]
+HEAD_WANTS = [("x", "w", "b"), ("x",), ("w", "b")]
+
+
+def _head_operands(rows, cols, cuda, kind):
+    """x [rows, cols] bf16, w [1, cols], b [1] fp32, g [rows, 1] fp32: the
+    loss's +-1/rows or 0, or normals; neither bf16-valued."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + cols)
+    x = torch.randn(rows, cols, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    w = torch.randn(1, cols, generator=gen, device=cuda) / cols ** 0.5
+    b = torch.randn(1, generator=gen, device=cuda)
+    g = torch.randn(rows, 1, generator=gen, device=cuda)
+    if kind == "loss":
+        g = torch.sign(torch.round(g)) / (rows + 3)
+    return x, w, b, g
+
+
+def _head_run(fn, x, w, b, g, wants=("x", "w", "b")):
+    xs = x.clone().requires_grad_("x" in wants)
+    ws = w.clone().requires_grad_("w" in wants)
+    bs = b.clone().requires_grad_("b" in wants)
+    y = fn(xs, ws, bs)
+    y.backward(g)
+    torch.cuda.synchronize()
+    return y.detach(), xs.grad, ws.grad, bs.grad
+
+
+def _bf16_ulp(t):
+    """The bf16 spacing at |t| (the smallest normal's where t is 0)."""
+    e = torch.floor(torch.log2(t.abs().clamp(min=2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+@pytest.mark.parametrize("rows,cols", HEAD_SHAPES)
+@pytest.mark.parametrize("kind", ["loss", "random"])
+@pytest.mark.parametrize("wants", HEAD_WANTS, ids="+".join)
+def test_head_kernels_match_plain_form(rows, cols, kind, wants, cuda):
+    """bf16_head on the card against autograd of bf16_linear_reference
+    (TF32 off): dx bit for bit; pred within 2 (cols + 1) 2^-24 of its sum
+    of |terms| (fp32 sums in another order); db within 2 sqrt(rows) 2^-24
+    sum |g| of g's float64 sum (a kernel that drops a share of the rows
+    is further off); dW within one bf16 spacing per element (the same
+    sums, rounded once to bf16); the outputs autograd does not ask for
+    None; one forward and one backward launch, on row counts that are not
+    multiples of either kernel's block."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import head as hd
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear import (
+        bf16_linear_reference)
+    x, w, b, g = _head_operands(rows, cols, cuda, kind)
+    n0 = dict(hd.HEAD)
+    y, dx, dw, db = _head_run(hd.bf16_head, x, w, b, g, wants)
+    assert {k: hd.HEAD[k] - n0[k] for k in n0} == {"fwd": 1, "bwd": 1}
+    y_r, dx_r, dw_r, _ = _head_run(bf16_linear_reference, x, w, b, g,
+                                   wants)
+    u = 2.0 ** -24
+    terms = x.float().abs() @ w.to(torch.bfloat16).float().abs().t()
+    assert y.dtype == torch.float32 and y.shape == (rows, 1)
+    assert bool(((y - y_r).abs() <= 2 * (cols + 1) * u
+                 * (terms + b.abs())).all())
+    if "x" in wants:
+        assert dx.dtype == torch.bfloat16 and torch.equal(dx, dx_r)
+    else:
+        assert dx is None
+    if "w" in wants:
+        assert dw.dtype == torch.float32 and dw.shape == w.shape
+        assert torch.equal(dw, dw.to(torch.bfloat16).float())
+        assert bool(((dw - dw_r).abs() <= _bf16_ulp(
+            torch.maximum(dw.abs(), dw_r.abs()))).all())
+    else:
+        assert dw is None
+    if "b" in wants:
+        g64 = g.double()
+        assert db.shape == (1,) and db.dtype == torch.float32
+        assert float((db.double() - g64.sum()).abs()) <= (
+            2 * rows ** 0.5 * u * float(g64.abs().sum()))
+    else:
+        assert db is None
+
+
+def test_head_launches_are_bit_identical(cuda):
+    """Two forward and backward passes at 2^20 + 131 rows x 512 give the
+    same bits in every output (a fixed grid, fixed orders, no atomics)."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import head as hd
+    ops = _head_operands((1 << 20) + 131, 512, cuda, "loss")
+    a = _head_run(hd.bf16_head, *ops)
+    c = _head_run(hd.bf16_head, *ops)
+    for p, q in zip(a, c):
+        assert torch.equal(p, q)
+
+
+def test_head_wrapper_checks_inputs(cuda):
+    """On the card: rows that are not whole 16 bytes or wider than the
+    kernels take, an fp32 x, and operands on two devices raise; takes()
+    says the same of each input."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import head as hd
+    x, w, b, _ = _head_operands(64, 512, cuda, "random")
+    assert hd.takes(x) and not hd.takes(x.float())
+    for cols in (509, hd.MAX_COLS + 8):
+        xo = torch.zeros(4, cols, dtype=torch.bfloat16, device=cuda)
+        assert not hd.takes(xo)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            hd.bf16_head(xo, torch.zeros(1, cols, device=cuda), b)
+    with pytest.raises(ValueError, match="bfloat16"):
+        hd.bf16_head(x.float(), w, b)
+    with pytest.raises(ValueError, match="w on cpu"):
+        hd.bf16_head(x, w.cpu(), b)
+
+
+def test_head_step_counts_its_kernels_and_matches_plain_head(cuda,
+                                                             monkeypatch):
+    """One config-3 bank step (8 x 512, 64 x 16,384 points, bf16, #3/#3b
+    dropout) from the committed chair pack with other chairs' codes: the
+    head runs one forward and one backward launch of csrc/head.cu; the
+    same step with the head in the plain form (bf16_linear_reference in
+    place of bf16_head) reads the loss within 1e-6 and every gradient
+    within 5e-3 of its norm (only the order of the head's fp32 sums
+    moves)."""
+    import dataclasses
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        ExperimentConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.data import (
+        analytic, analytic_device as adv)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import head as hd
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear import (
+        bf16_linear_reference)
+    from latent_diffusion_models_for_shape_sdfs_torch.train import (
+        auto_decoder as tad)
+    ad = ExperimentConfig.load(pathlib.Path(__file__).resolve().parents[1]
+                               / "configs" / "config3_chairs_joint").ad
+    S, P = ad.scenes_per_batch, ad.samples_per_scene
+    cfg = dataclasses.replace(ad, num_scenes=S, use_pallas=False)
+    sd, codes = load_stage1_pack(PACK)
+    codes = codes[S:2 * S]
+    bank = adv.bank_from_chairs(analytic.make_synthetic_split(
+        "chair", S, seed=11), 11, P, device=cuda)
+    ids = torch.arange(S, device=cuda)
+    out = []
+    for head in (hd.bf16_head, bf16_linear_reference):
+        monkeypatch.setattr(hd, "bf16_head", head)
+        st = tad.init_ad_state(cfg, params=sd, codes=codes, device=cuda)
+        step = tad.make_bank_step(st.decoder, cfg, bank, torch.Generator(
+            device=cuda).manual_seed(5))
+        n0 = dict(hd.HEAD)
+        loss = float(step(st, ids, 0.0, 17)["loss"])
+        grads = {k: p.grad.double() for k, p in
+                 st.decoder.named_parameters()}
+        grads["codes"] = st.codes.grad.double()
+        out.append((loss, grads, {k: hd.HEAD[k] - n0[k] for k in n0}))
+        del st, step
+    (l1, g1, n1), (l2, g2, n2) = out
+    assert n1 == {"fwd": 1, "bwd": 1} and n2 == {"fwd": 0, "bwd": 0}
+    assert abs(l1 - l2) <= 1e-6 * abs(l2)
+    for k, r in g2.items():
+        gap = float(torch.linalg.vector_norm(g1[k] - r)
+                    / torch.linalg.vector_norm(r))
+        assert gap <= 5e-3, (k, gap)
+
+
 def test_recon_capture_failure_raises(cuda):
     """A step that cannot be captured (a prior that reads a value on the
     host) raises; the run does not fall back to the eager loop. Last in
