@@ -87,8 +87,9 @@ before CUDA is), then:
      chairs' own codes (the optimum) every gradient's distance from the
      witness at most WITNESS_RATIO times the plain form's; holds one step
      through the fused layer (bf16_linear_relu_dropout, #3/#3b's layer
-     entries) against the composed form (bf16_linear_composed: the
-     cast and the standalone #3/#3b): the loss and every gradient but
+     entries) against its composition
+     (bf16_linear_relu_dropout_reference: the cast and the standalone
+     #3/#3b): the loss and every gradient but
      the hidden biases bit for bit, each hidden db within DB_TOL of the
      float64 sums of #3b's gb; then writes the trained pack, reloads it and serves chair 0 at 256^3; traces
      one step of each of config 3's routes;
@@ -1213,8 +1214,6 @@ def export_phase(dev, card, apply1, sd_m, codes_m, trained,
         DiffusionSchedule)
     from latent_diffusion_models_for_shape_sdfs_torch.models.denoiser import (
         CondDenoiser)
-    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
-        cuda_kernels as ck)
     from latent_diffusion_models_for_shape_sdfs_torch.ops.grid_eval import (
         decode_grid_hierarchical3_sparse2, hier3_int8_scale)
     from latent_diffusion_models_for_shape_sdfs_torch.serve import (
@@ -1267,10 +1266,10 @@ def export_phase(dev, card, apply1, sd_m, codes_m, trained,
         for i, z in enumerate(lat):
             arrs, st = decode_grid_hierarchical3_sparse2(
                 apply1, z, res, 16, 4, 2, *caps, check_overflow=True, **kw)
-            n0 = ck.LAUNCHES["fused_eval"]
+            n0 = launch_record()["fused_eval"]
             got = art.payload(z)
             torch.cuda.synchronize()
-            per_call.append(ck.LAUNCHES["fused_eval"] - n0)
+            per_call.append(launch_record()["fused_eval"] - n0)
             counts = [st["active_l1"], st["active_l2"], st["active_l3"]]
             same = (all(torch.equal(a, b) for a, b in zip(got[:5], arrs))
                     and [int(x) for x in got[5:]] == counts)
@@ -1728,11 +1727,11 @@ def unet_phase(dev, card) -> dict:
     torch.cuda.synchronize()
     ddim_ms = (time.perf_counter() - t0) * 1e3
     apply = ck.make_kernel_apply(SdfDecoder(DecoderConfig()), sd, device=dev)
-    ck.LAUNCHES["fused_eval"] = 0
+    n0 = launch_record()["fused_eval"]
     t0 = time.perf_counter()
     meshes = list(serve_meshes(apply, list(zs), res=sc.grid_res, device=dev))
     serve_s = time.perf_counter() - t0
-    launches = ck.LAUNCHES["fused_eval"]
+    launches = launch_record()["fused_eval"] - n0
     faces = [len(f) for _, f, _ in meshes]
     surfaced = sum(f > 0 for f in faces)
     log(f"[unet] DDIM-{sc.ddim_steps} of {UNET_SAMPLES} latents from the EMA: "
@@ -1854,7 +1853,7 @@ def recon_phase(dev, card, unet) -> dict:
              "b_restarts4": (dataclasses.replace(rcfg, num_inits=4), None),
              "c_sds": (rcfg, prior)}
     out: dict = {"modes": {}}
-    ck.LAUNCHES["fused_eval"] = 0
+    n_eval0 = launch_record()["fused_eval"]
 
     def run_targets(mode, fn):
         """fn(ox, od) -> (z, l1_last) on every target: ms (host clock, the
@@ -2018,7 +2017,7 @@ def recon_phase(dev, card, unet) -> dict:
                                       top=top[:12]),
         one_shot=run_targets("d_one_shot", one_shot),
         refined=run_targets(f"d_refined_{REFINE_STEPS}", refined))
-    out["fused_eval_launches"] = ck.LAUNCHES["fused_eval"]
+    out["fused_eval_launches"] = launch_record()["fused_eval"] - n_eval0
     m = out["modes"]
     meshes = [r["faces"] for v in m.values() for rows in (
         [v["rows"]] if "rows" in v else [v["one_shot"], v["refined"]])
@@ -2106,8 +2105,6 @@ def cli_phase(dev, card, store) -> dict:
     import io
     import torch
     from latent_diffusion_models_for_shape_sdfs_torch import cli, pipeline
-    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
-        bf16_linear as bl, cuda_kernels as ck, relu_dropout as rd)
 
     specs = json.loads((ROOT / "configs" / "config4_conditional"
                         / "specs.json").read_text())
@@ -2175,9 +2172,7 @@ def cli_phase(dev, card, store) -> dict:
         tb: dict = {}
         try:
             for name, argv in stages:
-                for d in (rd.LAUNCHES, ck.LAUNCHES, bl.CALLS):
-                    for k in d:
-                        d[k] = 0
+                reset_train_launches()
                 text = io.StringIO()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2185,12 +2180,11 @@ def cli_phase(dev, card, store) -> dict:
                     cli.main(["--device", str(dev), *argv])
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-                launches = {**rd.LAUNCHES,
-                            "fused_eval": ck.LAUNCHES["fused_eval"]}
+                launches = launched_since({}, (*RD, "fused_eval"))
                 out["stages"][name] = dict(s=wall, launches=launches,
-                                           tc_products=dict(bl.CALLS))
+                                           tc_products=tc_products())
                 log(f"[cli] {name}: {wall:.2f} s, launches {launches}, "
-                    f"hidden layers' tensor-core products {dict(bl.CALLS)} "
+                    f"hidden layers' tensor-core products {tc_products()} "
                     f"[{card}]")
                 if "--tensorboard" in argv:     # before a resume appends
                     stage = {"train-ad": "ad", "train-diff": "diff"}[name]
@@ -2350,7 +2344,7 @@ def realdata_phase(dev, card) -> dict:
     from latent_diffusion_models_for_shape_sdfs_torch.models.decoder import (
         SdfDecoder)
     from latent_diffusion_models_for_shape_sdfs_torch.ops import (
-        cuda_kernels as ck, relu_dropout as rd)
+        cuda_kernels as ck)
     from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
         fast_apply)
     from latent_diffusion_models_for_shape_sdfs_torch.ops.isosurface import (
@@ -2374,16 +2368,14 @@ def realdata_phase(dev, card) -> dict:
 
     def run_cli(name, argv):
         """cli.main in process: wall s and the launches of #1, #3, #3b."""
-        for d in (rd.LAUNCHES, ck.LAUNCHES):
-            for k in d:
-                d[k] = 0
+        reset_train_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             cli.main(["--device", str(dev), *argv])
         torch.cuda.synchronize()
-        rec = dict(s=time.perf_counter() - t0, launches={
-            **rd.LAUNCHES, "fused_eval": ck.LAUNCHES["fused_eval"]})
+        rec = dict(s=time.perf_counter() - t0,
+                   launches=launched_since({}, (*RD, "fused_eval")))
         out.setdefault("cli", {})[name] = rec
         log(f"[realdata] {name}: {rec['s']:.2f} s, launches "
             f"{rec['launches']}")
@@ -2885,11 +2877,11 @@ def profile_phase(dev, card, decoder, apply, z0, p20, ft_args,
         state = init_ad_state(ad_cfg, params=sd, codes=codes[:64],
                               device=dev)
         step = make_ad_train_step(state.decoder, ad_cfg)
-        n0 = dict(rd.LAUNCHES)
+        n0 = launch_record().copy()
         with prof.debug_nans(checked):
             m = step(state, *batch, 0.0, 4242)
             torch.cuda.synchronize()
-        launched = {k: rd.LAUNCHES[k] - n0[k] for k in n0}
+        launched = launched_since(n0, RD)
         steps.append(({k: v for k, v in m.items()
                        if isinstance(v, torch.Tensor)},
                       state.decoder.state_dict(), state.codes.detach()))
@@ -3008,73 +3000,87 @@ def profile_phase(dev, card, decoder, apply, z0, p20, ft_args,
     return out
 
 
+RD = ("relu_dropout_fwd", "relu_dropout_bwd")               # #3, #3b
+TRAIN_KERNELS = (*RD, "fused_train", "gemm_fwd", "gemm_dgrad", "gemm_wgrad",
+                 "layer0")                                  # and #4's roles
+ROLES = ("fwd", "dgrad", "wgrad")
+HEAD = ("head_fwd", "head_bwd")                             # csrc/head.cu
+
+
+def launch_record():
+    """The port's one launch record, utils.profiling.LAUNCHES: a Counter of
+    the launches of every kernel, and of the hidden layers' cuBLAS
+    products, by name."""
+    from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
+    return profiling.LAUNCHES
+
+
+def launched_since(before, names) -> dict:
+    """{name: the record's count of `name` since `before`}, `before` a copy
+    of the record ({} for the last reset_train_launches)."""
+    rec = launch_record()
+    return {k: rec[k] - before.get(k, 0) for k in names}
+
+
 def reset_train_launches() -> None:
-    """Zero the launch counts of kernels #3/#3b, #4 and the fp32 head's
-    and the count of bf16 tensor-core products of the decoder's hidden
-    layers."""
-    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
-        bf16_linear as bl, fused_train as ft, head as hd,
-        relu_dropout as rd)
-    for d in (ft.LAUNCHES, rd.LAUNCHES, bl.CALLS, bl.PADDED, hd.HEAD):
-        for k in d:
-            d[k] = 0
+    """Zero the launch record: every kernel's launches and the hidden
+    layers' products."""
+    launch_record().clear()
 
 
 def train_launches() -> dict:
-    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
-        fused_train as ft, relu_dropout as rd)
-    return {**rd.LAUNCHES, **ft.LAUNCHES}
+    """The launches of kernels #3/#3b, #4 and #4's roles (layer 0 among
+    them) since the last reset_train_launches."""
+    return launched_since({}, TRAIN_KERNELS)
 
 
-def tc_products() -> dict:
-    """The hidden layers' products made on the tensor cores
-    (ops.bf16_linear.CALLS) since the last reset_train_launches."""
-    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
-        bf16_linear as bl)
-    return dict(bl.CALLS)
+def tc_products(kind: str = "") -> dict:
+    """The hidden layers' products made on the tensor cores, by role,
+    since the last reset_train_launches; `kind` ".padded": those made on
+    padded operands."""
+    rec = launch_record()
+    return {k: rec[f"bf16_linear.{k}{kind}"] for k in ROLES}
 
 
 @contextlib.contextmanager
 def hidden_layers_through(fn, head=None):
-    """Inside the block the package's SdfDecoder.forward makes its hidden
-    layers' products through `fn` in place of ops.bf16_linear (the plain
-    version, the float64 witness), on the unpadded layout, and its bf16
-    head through `head` in place of ops.head.bf16_head where `head` is
-    given (else the head keeps csrc/head.cu). With dropout through the
-    kernels the decoder takes
-    ops.bf16_linear.bf16_linear_relu_dropout only while its product form
-    is ops.bf16_linear itself, and composes any other `fn` with the cast
-    to bf16 and relu_dropout. `bf16_linear_composed` takes the place of
-    the fused layer itself, on the layout the package's route runs."""
+    """Inside the block the package's SdfDecoder.forward makes its bf16
+    hidden layers' products through `fn` in place of ops.bf16_linear (the
+    plain version, the float64 witness), on the unpadded layout
+    (ops.bf16_linear.pads off): with dropout through the kernels each
+    layer is `fn`'s product composed with the cast to bf16 and
+    relu_dropout (ops.bf16_linear.bf16_linear_relu_dropout_reference) in
+    place of the fused layer. `fn` ops.bf16_linear.bf16_linear leaves the
+    package's route as it is; `fn`
+    ops.bf16_linear.bf16_linear_relu_dropout_reference takes the place of
+    the fused layer itself, on the layout the package's route runs. The
+    bf16 head goes through `head` in place of ops.head.bf16_head where
+    `head` is given (else the head keeps csrc/head.cu)."""
     from latent_diffusion_models_for_shape_sdfs_torch.models import (
         decoder as decoder_module)
-    from latent_diffusion_models_for_shape_sdfs_torch.ops import head as hd
-    name = ("bf16_linear_relu_dropout" if fn is bf16_linear_composed
-            else "bf16_linear")
-    saved, saved_head = getattr(decoder_module, name), hd.bf16_head
-    setattr(decoder_module, name, fn)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        bf16_linear as bl, head as hd)
+    swaps = []
+    if fn is bl.bf16_linear_relu_dropout_reference:
+        swaps.append((decoder_module, "bf16_linear_relu_dropout", fn))
+    elif fn is not bl.bf16_linear:
+        swaps += [
+            (bl, "pads", lambda t: False),
+            (decoder_module, "bf16_linear", fn),
+            (decoder_module, "bf16_linear_relu_dropout",
+             lambda x, w, b, seed, rate, runs:
+             bl.bf16_linear_relu_dropout_reference(x, w, b, seed, rate,
+                                                   linear=fn))]
     if head is not None:
-        hd.bf16_head = head
+        swaps.append((hd, "bf16_head", head))
+    saved = [(m, k, getattr(m, k)) for m, k, _ in swaps]
+    for m, k, v in swaps:
+        setattr(m, k, v)
     try:
         yield
     finally:
-        setattr(decoder_module, name, saved)
-        hd.bf16_head = saved_head
-
-
-def bf16_linear_composed(x, w, b, seed, rate, runs=None):
-    """The composed form of a bf16 hidden layer with relu+dropout: the
-    same tensor-core products as ops.bf16_linear, on the same layout,
-    then the cast and relu_dropout (#3/#3b's standalone entries: the bias
-    add, the casts and the db sum as passes of their own) in place of the
-    fused layer."""
-    import torch
-    from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear \
-        import bf16_linear
-    from latent_diffusion_models_for_shape_sdfs_torch.ops.relu_dropout \
-        import relu_dropout
-    return relu_dropout(bf16_linear(x, w, b, runs).to(torch.bfloat16), seed,
-                        rate)
+        for m, k, v in saved:
+            setattr(m, k, v)
 
 
 def col_sums64(t) -> tuple:
@@ -3258,8 +3264,9 @@ def layer_vs_parent_step(decoder, cfg, codes, ids, xyz, sdf, epoch: float,
     """One autograd step's loss and gradients from the same state, batch
     and masks through the package's route (the hidden layers as
     ops.bf16_linear.bf16_linear_relu_dropout: kernels #3/#3b's layer
-    entries) and through the composed form (bf16_linear_composed:
-    bf16_linear, the cast, relu_dropout). Gates: the loss and every
+    entries) and through its composition
+    (bf16_linear_relu_dropout_reference: bf16_linear, the cast,
+    relu_dropout) on the same layout. Gates: the loss and every
     gradient but the hidden biases bit for bit; each hidden layer's db
     (the bias gradient, #3b's column sums of its gb, recorded as it runs)
     within DB_TOL of its columns' sums of |gb| from their float64 sums,
@@ -3282,7 +3289,7 @@ def layer_vs_parent_step(decoder, cfg, codes, ids, xyz, sdf, epoch: float,
     finally:
         rd.relu_dropout_bwd_out = real
     loss_p, g_p = step_grads(decoder, cfg, codes, ids, xyz, sdf, epoch, seed,
-                             bf16_linear_composed)
+                             bl.bf16_linear_relu_dropout_reference)
     n_hidden = len(decoder.layer_dims()) - 1
     hidden_b = {f"lin{i}.b" for i in range(n_hidden)}
     same = {k: torch.equal(g_n[k], g_p[k]) for k in g_n if k not in hidden_b}
@@ -3352,10 +3359,10 @@ def head_vs_plain_step(decoder, cfg, codes, ids, xyz, sdf, epoch: float,
             t.register_hook(lambda gr, k=k: rec.__setitem__(k, gr.detach()))
         return y
 
-    n0 = dict(hd.HEAD)
+    n0 = launch_record().copy()
     loss, _ = step_grads(decoder, cfg, codes, ids, xyz, sdf, epoch, seed,
                          bl.bf16_linear, recorded)
-    launches = {k: hd.HEAD[k] - n0[k] for k in n0}
+    launches = launched_since(n0, HEAD)
     x, w, b, g = rec["x"], rec["w"], rec["b"], rec["g"]
     rows, cols = x.shape
     xs, ws, bs = (t.clone().requires_grad_() for t in (x, w, b))
@@ -3393,7 +3400,7 @@ def head_vs_plain_step(decoder, cfg, codes, ids, xyz, sdf, epoch: float,
         f"2 sqrt(rows) 2^-24 sum |g x|); db {out['db']:.9e} (plain "
         f"{out['db_plain']:.9e}) {db_gap:.2e} from float64, bound "
         f"{db_bound:.2e} [{card}]")
-    if not (launches == {"fwd": 1, "bwd": 1} and out["dx_equal"]
+    if not (launches == dict.fromkeys(HEAD, 1) and out["dx_equal"]
             and pred_rel <= out["pred_gate"] and out["dw_bf16"]
             and out["dw_over_bound"] <= 1.0 and db_gap <= db_bound):
         raise RuntimeError(f"[{tag}] head kernels vs plain form: {out}")
@@ -3487,7 +3494,7 @@ def bank_phase(dev, card, host_ms: float, k4_ms: float) -> dict:
     from latent_diffusion_models_for_shape_sdfs_torch.data import (
         analytic, analytic_device as adv)
     from latent_diffusion_models_for_shape_sdfs_torch.ops import (
-        bf16_linear as bl, head as hd)
+        bf16_linear as bl)
     from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear \
         import bf16_linear_reference
     from latent_diffusion_models_for_shape_sdfs_torch.train.auto_decoder \
@@ -3571,7 +3578,8 @@ def bank_phase(dev, card, host_ms: float, k4_ms: float) -> dict:
                 "fused route from the bank", twall, busy, top, card)
     want = {"fused_train": len(events), "gemm_fwd": 7 * len(events),
             "gemm_dgrad": 7 * len(events), "gemm_wgrad": 7 * len(events),
-            "relu_dropout_fwd": 0, "relu_dropout_bwd": 0}
+            "layer0": len(events), "relu_dropout_fwd": 0,
+            "relu_dropout_bwd": 0}
     if launches != want:
         raise RuntimeError(f"[bank] fused route launches {launches}, "
                            f"expected {want}")
@@ -3606,8 +3614,8 @@ def bank_phase(dev, card, host_ms: float, k4_ms: float) -> dict:
     torch.cuda.synchronize()
     la = train_launches()
     products = tc_products()
-    padded = dict(bl.PADDED)
-    head = dict(hd.HEAD)
+    padded = tc_products(".padded")
+    head = launched_since({}, HEAD)
     ms_a = events[0].elapsed_time(events[-1]) / (len(events) - 1)
     l1a = [float(v) for v in l1a]
     n_hidden = len(st.decoder.layer_dims()) - 1
@@ -3626,13 +3634,13 @@ def bank_phase(dev, card, host_ms: float, k4_ms: float) -> dict:
             or products != {k: 10 * n_hidden
                             for k in ("fwd", "dgrad", "wgrad")} \
             or padded != {k: 30 for k in ("fwd", "dgrad", "wgrad")} \
-            or head != {"fwd": 10, "bwd": 10}:
+            or head != dict.fromkeys(HEAD, 10):
         raise RuntimeError(f"[bank] autograd route: {out['autograd']}")
     # the composed form of the same route (bf16_linear, the cast,
     # relu_dropout: the bias add, casts and db sum as passes of their own),
     # 3 steps timed beside it; one step of each for its peak memory
     events = []
-    with hidden_layers_through(bf16_linear_composed):
+    with hidden_layers_through(bl.bf16_linear_relu_dropout_reference):
         parent = make_bank_step(st.decoder, auto, bank, gen)
         for i in range(3):
             parent(st, ids[i], 0.0, 1100 + i)
@@ -3850,7 +3858,7 @@ def _dp_decode_runs(dev, mesh) -> dict:
     from latent_diffusion_models_for_shape_sdfs_torch.utils.checkpoint \
         import load_stage1_pack
 
-    n0 = dict(ck.LAUNCHES)
+    n0 = launch_record().copy()
     sd, codes = load_stage1_pack(ROOT.joinpath(*PACK))
     apply = ck.make_kernel_apply(SdfDecoder(DecoderConfig()), sd, device=dev)
     sd_m, codes_m = load_stage1_pack(ROOT.joinpath(*MULTICAT))
@@ -3929,7 +3937,7 @@ def _dp_decode_runs(dev, mesh) -> dict:
                            steps=steps))
     out["ddim"] = z.cpu()
     torch.cuda.synchronize()
-    out["launches"] = {k: ck.LAUNCHES[k] - n0[k] for k in n0}
+    out["launches"] = launched_since(n0, ("fused_eval", "fused_eval_pairs"))
     return out
 
 
@@ -4761,11 +4769,12 @@ def main() -> int:
                                f"{products}, expected {want_products}")
         want = ({"relu_dropout_fwd": 32, "relu_dropout_bwd": 32,
                  "fused_train": 0, "gemm_fwd": 0, "gemm_dgrad": 0,
-                 "gemm_wgrad": 0}
+                 "gemm_wgrad": 0, "layer0": 0}
                 if route != "fused_train" else
                 {"relu_dropout_fwd": 0, "relu_dropout_bwd": 0,
                  "fused_train": 4, "gemm_fwd": 4 * n_gemm,
-                 "gemm_dgrad": 4 * n_gemm, "gemm_wgrad": 4 * n_gemm})
+                 "gemm_dgrad": 4 * n_gemm, "gemm_wgrad": 4 * n_gemm,
+                 "layer0": 4})
         if route_launches != want:
             raise RuntimeError(f"route {route}: launches {route_launches}, "
                                f"expected {want}")
@@ -4986,8 +4995,8 @@ def main() -> int:
         "route": "cuda",
         "source": SRC + "head.cu",
         "replaces": None,
-        "launches": bk["autograd"]["head_launches"]["fwd"]
-        + bk["head"]["launches"]["fwd"],
+        "launches": bk["autograd"]["head_launches"]["head_fwd"]
+        + bk["head"]["launches"]["head_fwd"],
         "max_abs_err": bk["head"]["pred_max_abs"],
         "ms": bk["head"]["fwd_ms"],
         "plain_ms": bk["head"]["plain_fwd_ms"],
@@ -4999,8 +5008,8 @@ def main() -> int:
         "route": "cuda",
         "source": SRC + "head.cu",
         "replaces": None,
-        "launches": bk["autograd"]["head_launches"]["bwd"]
-        + bk["head"]["launches"]["bwd"],
+        "launches": bk["autograd"]["head_launches"]["head_bwd"]
+        + bk["head"]["launches"]["head_bwd"],
         "max_abs_err": bk["head"]["dw_max_abs"],
         "ms": bk["head"]["bwd_ms"],
         "plain_ms": bk["head"]["plain_bwd_ms"],

@@ -28,22 +28,23 @@ decoder derives its per-layer seed), `dropout_impl="xla"` stays plain
 torch (an inverted-dropout mask drawn from a `torch.Generator` seeded the
 same way). In eval mode nothing is dropped.
 
-A bf16 hidden layer with `dropout_impl="pallas"` is one function,
-`ops.bf16_linear.bf16_linear_relu_dropout` (the product, then kernels
-#3/#3b on its fp32 output and bias: no fp32 activation or cotangent of
-its own), equal to `relu_dropout(bf16_linear(x, w, b).to(bfloat16))`.
-`bf16_linear` below is the hidden layers' product form: a caller that
-swaps it for another form (the plain version, a float64 witness) gets
-that form composed with the cast and `relu_dropout`.
+In training with `dropout_impl="pallas"`, every bf16 hidden layer is one
+function, `ops.bf16_linear.bf16_linear_relu_dropout` (the product, then
+kernels #3/#3b on its fp32 output and bias: no fp32 activation or
+cotangent of its own), equal to its composition
+`ops.bf16_linear.bf16_linear_relu_dropout_reference`. Every other bf16
+hidden layer is `bf16_linear`, then relu and the plain dropout where
+there is one; an fp32 one is `WNLinear`'s product, then the standalone
+`relu_dropout` or relu and the plain dropout.
 
-On the card the bf16 hidden layers run on `ops.bf16_linear`'s padded
-layout: the input cat writes [z, xyz, 0...] to a multiple of 8 columns,
-each hidden output is as wide as its width rounded up to 8 (zeros in the
-pad), and the skip cat joins the two padded pieces; the head reads the
-logical columns. Widths already multiples of 8 are left as they are. The
-CPU keeps the plain version's products bit for bit, and so does a
-swapped product form; the plain dropout (`dropout_impl="xla"`) draws its
-mask over the row as stored, so it keeps the unpadded layout too.
+Where `ops.bf16_linear.pads` says so (on the card), the bf16 hidden
+layers run on that module's padded layout: the input cat writes [z,
+xyz, 0...] to a multiple of 8 columns, each hidden output is as wide as
+its width rounded up to 8 (zeros in the pad), and the skip cat joins the
+two padded pieces; the head reads the logical columns. Widths already
+multiples of 8 are left as they are. The plain dropout
+(`dropout_impl="xla"`) draws its mask over the row as stored, so it
+keeps the unpadded layout.
 """
 
 from __future__ import annotations
@@ -111,13 +112,6 @@ class WNLinear(nn.Module):
         return F.linear(x, w.to(x.dtype), self.b.to(x.dtype))
 
 
-def _pads(t: torch.Tensor) -> bool:
-    """Whether the bf16 hidden layers on t's device take the padded
-    layout: on the card, where cuBLAS runs rows that are not 16 bytes long
-    on its sm75 kernels."""
-    return t.is_cuda
-
-
 class SdfDecoder(nn.Module):
     """f(z, xyz) -> sdf. See the module docstring for the layer plan."""
 
@@ -169,9 +163,9 @@ class SdfDecoder(nn.Module):
             # lineage option: dropout(0.2) on the latent half of the input,
             # drawn from the stream one past the last hidden layer's
             z = _plain_dropout(z, 0.2, layer_seed(seed, n_lin))
-        real = bf16_linear is bf16_ops.bf16_linear
-        pad = (dtype == torch.bfloat16 and _pads(z) and real
-               and not (drop and c.dropout_impl != "pallas"))
+        fused = drop and c.dropout_impl == "pallas"
+        pad = (dtype == torch.bfloat16 and bf16_ops.pads(z)
+               and (fused or not drop))
         if pad:
             inp = bf16_ops.pad_columns([z, xyz])
             if c.xyz_in_all:
@@ -190,7 +184,7 @@ class SdfDecoder(nn.Module):
             lin = getattr(self, f"lin{layer}")
             s = layer_seed(seed, layer) if drop else 0
             if x.dtype == torch.bfloat16 and layer < n_lin - 1:
-                if drop and c.dropout_impl == "pallas" and real:
+                if fused:
                     x = bf16_linear_relu_dropout(x, lin.weight(), lin.b, s,
                                                  c.dropout_prob,
                                                  runs if pad else None)
@@ -207,7 +201,7 @@ class SdfDecoder(nn.Module):
                      if x.dtype == torch.bfloat16 else lin(x))
             runs = (out,)
             if layer < n_lin - 1:
-                if drop and c.dropout_impl == "pallas":
+                if fused:
                     x = relu_dropout(x.to(dtype), s, c.dropout_prob)
                 else:
                     x = torch.relu(x).to(dtype)

@@ -35,7 +35,8 @@ back in a `finally` (autograd may run the backward on a thread of its
 own). No other flag is touched: every fp32 product sees TF32 as its
 caller set it. On the CPU the same autograd function makes fp32 products
 of the same bf16 values, the plain version's arithmetic bit for bit.
-`CALLS` counts the products made on the card, by role.
+The products made on the card count in `utils.profiling.LAUNCHES` as
+"bf16_linear.<role>" (fwd, dgrad, wgrad).
 
 `bf16_linear_relu_dropout` is a hidden layer with relu + dropout through
 kernels #3/#3b (`ops.relu_dropout`), as one autograd function: the
@@ -62,8 +63,9 @@ columns are exactly 0: a zero product plus a zero bias, which relu and
 row's width, so the logical columns keep theirs). Each added term is
 0 * 0: only the order of the fp32 sums may move. dW and db come back in
 the parameters' logical shapes. A layout whose widths are all multiples
-of 8 changes nothing. `PADDED` counts the products made on padded
-operands, by role, on either device.
+of 8 changes nothing. The decoder takes the layout where `pads` says so
+(on the card). The products on padded operands, on either device, count
+in `utils.profiling.LAUNCHES` as "bf16_linear.<role>.padded".
 """
 
 from __future__ import annotations
@@ -75,9 +77,14 @@ import torch
 from torch.nn import functional as F
 
 from latent_diffusion_models_for_shape_sdfs_torch.ops import relu_dropout as rd
+from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 
-CALLS = {"fwd": 0, "dgrad": 0, "wgrad": 0}
-PADDED = {"fwd": 0, "dgrad": 0, "wgrad": 0}
+
+def pads(t: torch.Tensor) -> bool:
+    """Whether the bf16 hidden layers on t's device take the padded
+    layout: on the card; the CPU keeps the plain version's products bit
+    for bit."""
+    return t.is_cuda
 
 
 def padded_width(n: int) -> int:
@@ -135,6 +142,19 @@ def bf16_linear_reference(x: torch.Tensor, w: torch.Tensor,
     return F.linear(x.float(), w.to(torch.bfloat16).float()) + b.float()
 
 
+def bf16_linear_relu_dropout_reference(x: torch.Tensor, w: torch.Tensor,
+                                       b: torch.Tensor, seed: int,
+                                       rate: float, runs: tuple | None = None,
+                                       linear=None) -> torch.Tensor:
+    """The composition `bf16_linear_relu_dropout` equals: the product with
+    its fp32 bias, the cast to bf16, then `relu_dropout` (kernels #3/#3b
+    on the card, their plain versions on the CPU). `linear`, when given,
+    is another product form (x, w, b) -> fp32 on the unpadded layout (the
+    plain version, a float64 witness) in place of `bf16_linear`."""
+    y = bf16_linear(x, w, b, runs) if linear is None else linear(x, w, b)
+    return rd.relu_dropout(y.to(torch.bfloat16), seed, rate)
+
+
 @contextlib.contextmanager
 def _tensor_core_flags() -> Iterator[None]:
     """cuBLAS keeps bf16 products' partial sums in fp32 inside the block;
@@ -152,9 +172,9 @@ def _tensor_core_flags() -> Iterator[None]:
 
 def _count(role: str, a: torch.Tensor, padded: bool) -> None:
     if a.is_cuda:
-        CALLS[role] += 1
+        profiling.launched(f"bf16_linear.{role}")
     if padded:
-        PADDED[role] += 1
+        profiling.launched(f"bf16_linear.{role}.padded")
 
 
 def _product(a: torch.Tensor, b: torch.Tensor, role: str,

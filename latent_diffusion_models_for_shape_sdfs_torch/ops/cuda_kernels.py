@@ -26,9 +26,9 @@ and an int32 shape id per point (`KernelApplyPairs.indexed`); the
 packs its slab stream. Its plain version is `fast_apply` in bf16 over
 codes[sids].
 
-Each launch reports its work and is NaN-checked through the hooks of
-`utils.profiling`; kernel #1 does so as the op `sdfldm::fused_eval`,
-kernel #2 in `KernelApplyPairs.launch` (`pairs_flops`).
+Each launch is recorded, NaN-checked and costed by `utils.profiling`:
+kernel #1 as the op `sdfldm::fused_eval`, kernel #2 through `launched`
+in `KernelApplyPairs.launch` (`pairs_flops`).
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ from latent_diffusion_models_for_shape_sdfs_torch.ops import _build
 from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
     EvalWeights, fast_apply, precompute_eval_weights)
 from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_eval_op import (  # noqa: F401
-    EVAL_LAYOUT, EVAL_WIDTHS, LAUNCHES, MAX_LATENT, MAX_LAYERS, MAX_WIDTH,
+    EVAL_LAYOUT, EVAL_WIDTHS, MAX_LATENT, MAX_LAYERS, MAX_WIDTH,
     PAIRS_LAYOUT, _fused_eval_lib, fused_eval)
 from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 from latent_diffusion_models_for_shape_sdfs_torch.utils.device import (
@@ -196,9 +196,9 @@ class KernelApply:
     """(z [L], xyz [N,3] f32) -> sdf [N] f32 through the fused kernel.
 
     `launches` counts the launches of this wrapper's calls (one per call
-    on a CUDA tensor, as the op counted them; an exported program's are
-    counted only in LAUNCHES); callers reset it to 0 before a run they
-    want to account for. `meta` is the layer table as a numpy array,
+    on a CUDA tensor, as the op recorded them; an exported program's only
+    in `utils.profiling.LAUNCHES`); callers reset it to 0 before a run
+    they want to account for. `meta` is the layer table as a numpy array,
     `meta_t` as the CPU tensor the op reads."""
 
     def __init__(self, ew: EvalWeights, device: torch.device):
@@ -227,9 +227,9 @@ class KernelApply:
         `sdfldm::fused_eval` (so `torch.export` traces it): xyz [N,3] f32
         and the rows of hoisted_rows(self.ew, self.meta, z) -> sdf [N]
         f32."""
-        n0 = LAUNCHES["fused_eval"]
+        n0 = profiling.LAUNCHES["fused_eval"]
         out = fused_eval(xyz, self.w, rows, self.meta_t, self.ew.use_tanh)
-        self.launches += LAUNCHES["fused_eval"] - n0
+        self.launches += profiling.LAUNCHES["fused_eval"] - n0
         return out
 
     def __call__(self, z: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
@@ -310,8 +310,8 @@ class KernelApplyPairs:
     `indexed(codes [S, L], sids [N], xyz)` evaluates point p with
     codes[sids[p]], the kernel reading the rows itself.
 
-    `launches` counts kernel launches (one per call on a CUDA tensor);
-    callers reset it to 0 before a run they want to account for."""
+    `launches` counts kernel launches (one per call on a CUDA tensor, as
+    recorded); callers reset it to 0 before a run they account for."""
 
     def __init__(self, ew: EvalWeights, device: torch.device):
         self.ew = ew
@@ -362,6 +362,7 @@ class KernelApplyPairs:
                 raise ValueError(f"fused pairs kernel: inputs on {t.device} "
                                  f"and {xyz.device}")
         out = torch.empty(n, dtype=torch.float32, device=xyz.device)
+        n0 = profiling.LAUNCHES["fused_eval_pairs"]
         rc = _fused_eval_pairs_lib().fused_eval_pairs_launch(
             xyz.data_ptr(), codes.data_ptr(), self.lt, codes.shape[0],
             sids.data_ptr(), out.data_ptr(), n, self.w.data_ptr(),
@@ -369,15 +370,12 @@ class KernelApplyPairs:
             self.meta.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
             len(self.meta), self.lzx, int(self.ew.use_tanh),
             torch.cuda.current_stream(xyz.device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"fused_eval_pairs_launch failed: cudaError {rc}")
-        self.launches += 1
-        LAUNCHES["fused_eval_pairs"] += 1
-        profiling.check_kernel("fused_eval_pairs", codes, xyz, out)
         # xyz in, sdf out, 4-byte ids, the table and the weights, once
-        profiling.count_kernel(
-            "fused_eval_pairs", pairs_flops(self.ew, n),
-            20 * n + codes.nbytes + self.w.nbytes + self.rows.nbytes)
+        profiling.launched(
+            "fused_eval_pairs", rc, codes, xyz, out,
+            flops=pairs_flops(self.ew, n),
+            nbytes=20 * n + codes.nbytes + self.w.nbytes + self.rows.nbytes)
+        self.launches += profiling.LAUNCHES["fused_eval_pairs"] - n0
         return out
 
     def table(self, codes: torch.Tensor) -> torch.Tensor:

@@ -16,11 +16,11 @@ that evaluates the decoder through `ops.cuda_kernels.KernelApply` traces
 to a graph holding this op, and the packed weights become the program's
 constants.
 
-The launch counter `LAUNCHES["fused_eval"]` is advanced here, where the
-kernel is launched, so launches from an exported program count too. The
-op's FLOPs (`eval_flops`) are registered with `torch.utils.flop_counter`,
-so `utils.profiling.cost_analysis` and a `FlopCounterMode` count them, and
-`utils.profiling.debug_nans` checks the op's inputs and outputs.
+Each launch is recorded here, where the kernel is launched, so launches
+from an exported program count too (`utils.profiling.launched`, which
+only counts it: the op's FLOPs, `eval_flops`, are registered with
+`torch.utils.flop_counter` for `cost_analysis` and a `FlopCounterMode`,
+and `debug_nans` checks the op's inputs and outputs).
 
 This module imports nothing of `models/`: importing it is all a process
 needs to run a `torch.export` program that calls the op (the serving
@@ -36,6 +36,7 @@ from torch.nn import functional as F
 from torch.utils.flop_counter import register_flop_formula
 
 from latent_diffusion_models_for_shape_sdfs_torch.ops import _build
+from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 
 MAX_WIDTH = 512    # both eval kernels' MAX_WIDTH (checked at load)
 MAX_LAYERS = 16    # both eval kernels' MAX_LAYERS
@@ -51,10 +52,6 @@ PAIRS_LAYOUT = dict(slot_bytes=16384, slab_lbo=128, slab_sbo=256,
 # csrc/fused_eval.cu's (checked at load): the same, and the width of its
 # xyz tile (bf16 x, y, z, then zeros), the inputs of an xyz slab
 EVAL_LAYOUT = dict(PAIRS_LAYOUT, xyz_cols=16)
-# launches of each kernel over every wrapper and program in the process:
-# what a caller that does not hold the wrapper, such as a CLI run or an
-# artifact, reads (each wrapper also counts its own in `launches`)
-LAUNCHES = {"fused_eval": 0, "fused_eval_pairs": 0}
 
 
 def _fused_eval_lib():
@@ -125,9 +122,7 @@ def fused_eval(xyz: torch.Tensor, w: torch.Tensor, rows: torch.Tensor,
         ctypes.cast(meta.data_ptr(), ctypes.POINTER(ctypes.c_longlong)),
         meta.shape[0], int(use_tanh),
         torch.cuda.current_stream(xyz.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_eval_launch failed: cudaError {rc}")
-    LAUNCHES["fused_eval"] += 1
+    profiling.launched("fused_eval", rc)
     return out
 
 

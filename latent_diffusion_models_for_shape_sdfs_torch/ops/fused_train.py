@@ -10,8 +10,8 @@ Counterpart of the JAX package's `ops/fused_train.py`
 and returns (loss_l1, dz [S, L], grads), grads being one dict per layer
 with the f32 gradients of the folded `w_h`, `w_z`, `w_x` and `b`. On CPU
 tensors it runs the plain version `fused_train_reference`; on CUDA tensors
-it launches the kernels or raises, and adds one to `LAUNCHES["fused_train"]`
-per pass.
+it launches the kernels or raises, and counts one "fused_train" per pass
+in `utils.profiling.LAUNCHES`.
 
 Rounding follows the TPU kernel: z and xyz rounded to bf16 (z stays f32 in
 dW_z), every hidden activation bf16 after relu and dropout, dpred and
@@ -42,11 +42,12 @@ package's `refold_loss` vjp), adds the code regulariser's gradient and
 scatters the dz rows into the dense code gradient with `index_add_`
 (scene ids repeat in a padded batch).
 
-The pass and the engine's roles report to `utils.profiling`'s hooks: a
-NaN check of what each launch reads and writes, and its work. The pass
-counts as one kernel (`train_flops`: its plain version's FLOPs; its
-inputs and outputs once); the roles it launches count only when called
-alone.
+Every launch reports to `utils.profiling.launched` under its name (the
+pass's own kernels under their launchers', "ft_reduce", ...), the roles
+("gemm_fwd", "gemm_dgrad", "gemm_wgrad", "layer0") with a NaN check of
+what each reads and writes and their work. The pass counts as one kernel,
+"fused_train" (`train_flops`: its plain version's FLOPs; its inputs and
+outputs once); the roles it launches count their work only when alone.
 """
 
 from __future__ import annotations
@@ -73,8 +74,6 @@ from latent_diffusion_models_for_shape_sdfs_torch.ops.relu_dropout import (
     dropout_keep_mask, keep_threshold, layer_seed)
 from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 
-LAUNCHES = {"fused_train": 0, "gemm_fwd": 0, "gemm_dgrad": 0,
-            "gemm_wgrad": 0}
 FINAL_ROWS = 64     # points per tile of the final layer's kernel
 _PAD = 128          # hidden widths are padded to the GEMMs' tile rows
 _KEYS = ("w_h", "w_z", "w_x", "b")
@@ -223,9 +222,8 @@ def _lib():
 
 
 def _call(name: str, *args) -> None:
-    rc = getattr(_lib(), name)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name} failed: cudaError {rc}")
+    """One launch of the pass's kernel `name`, reported to the record."""
+    profiling.launched(name, getattr(_lib(), name)(*args))
 
 
 def _ptr(t):
@@ -326,17 +324,16 @@ def gemm_fwd(h: torch.Tensor, w: torch.Tensor, rows: torch.Tensor, p: int,
     bits = (torch.empty(m * n // 32, dtype=torch.int32, device=h.device)
             if keep_bits else None)
     drop = int(rate > 0)
-    _call("ft_gemm_fwd", h.data_ptr(), w.data_ptr(), m, n, h.shape[1], bn,
-          rows.data_ptr(), 0 if rows.shape[0] == 1 else n, p, _ptr(xyz),
-          _ptr(wx), seed & 0xFFFFFFFF, keep_threshold(rate),
-          1.0 / (1.0 - rate) if drop else 1.0, drop, out.data_ptr(),
-          _ptr(bits), torch.cuda.current_stream(h.device).cuda_stream)
-    LAUNCHES["gemm_fwd"] += 1
+    rc = _lib().ft_gemm_fwd(
+        h.data_ptr(), w.data_ptr(), m, n, h.shape[1], bn, rows.data_ptr(),
+        0 if rows.shape[0] == 1 else n, p, _ptr(xyz), _ptr(wx),
+        seed & 0xFFFFFFFF, keep_threshold(rate),
+        1.0 / (1.0 - rate) if drop else 1.0, drop, out.data_ptr(),
+        _ptr(bits), torch.cuda.current_stream(h.device).cuda_stream)
     ins = (h, w, rows) if xyz is None else (h, w, rows, xyz, wx)
     outs = (out,) if bits is None else (out, bits)
-    profiling.check_kernel("gemm_fwd", *ins, out)
-    profiling.count_kernel("gemm_fwd", 2 * m * n * (h.shape[1] + (
-        0 if xyz is None else 3)), _nbytes(*ins, *outs))
+    profiling.launched("gemm_fwd", rc, *ins, out, flops=2 * m * n * (
+        h.shape[1] + (0 if xyz is None else 3)), nbytes=_nbytes(*ins, *outs))
     return outs if keep_bits else out
 
 
@@ -375,14 +372,14 @@ def gemm_dgrad(g: torch.Tensor, wt: torch.Tensor, keep_bits: torch.Tensor,
     out = torch.empty(m, n, dtype=torch.bfloat16, device=g.device)
     part = torch.empty(m // TN_LAYOUT["bm"], (1 if xyz is None else 4) * n,
                        dtype=torch.float32, device=g.device)
-    _call("ft_gemm_dgrad", g.data_ptr(), wt.data_ptr(), m, n, g.shape[1],
-          bn, keep_bits.data_ptr(), _ptr(xyz), scale, out.data_ptr(),
-          part.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream)
-    LAUNCHES["gemm_dgrad"] += 1
+    rc = _lib().ft_gemm_dgrad(
+        g.data_ptr(), wt.data_ptr(), m, n, g.shape[1], bn,
+        keep_bits.data_ptr(), _ptr(xyz), scale, out.data_ptr(),
+        part.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream)
     ins = (g, wt, keep_bits) if xyz is None else (g, wt, keep_bits, xyz)
-    profiling.check_kernel("gemm_dgrad", *ins, out, part)
-    profiling.count_kernel("gemm_dgrad", 2 * m * n * g.shape[1],
-                           _nbytes(*ins, out, part))
+    profiling.launched("gemm_dgrad", rc, *ins, out, part,
+                       flops=2 * m * n * g.shape[1],
+                       nbytes=_nbytes(*ins, out, part))
     return out, part
 
 
@@ -427,13 +424,14 @@ def layer0(xyz: torch.Tensor, rows: torch.Tensor, wx: torch.Tensor, p: int,
     out = torch.empty(m, n, dtype=torch.bfloat16, device=xyz.device)
     bits = torch.empty(m * n // 32, dtype=torch.int32, device=xyz.device)
     drop = int(rate > 0)
-    _call("ft_layer0", xyz.data_ptr(), rows.data_ptr(), wx.data_ptr(),
-          out.data_ptr(), bits.data_ptr(), m, p, n, bn, seed & 0xFFFFFFFF,
-          keep_threshold(rate), 1.0 / (1.0 - rate) if drop else 1.0, drop,
-          torch.cuda.current_stream(xyz.device).cuda_stream)
-    profiling.check_kernel("layer0", xyz, rows, wx, out)
-    profiling.count_kernel("layer0", 2 * m * n * 3,
-                           _nbytes(xyz, rows, wx, out, bits))
+    rc = _lib().ft_layer0(
+        xyz.data_ptr(), rows.data_ptr(), wx.data_ptr(), out.data_ptr(),
+        bits.data_ptr(), m, p, n, bn, seed & 0xFFFFFFFF,
+        keep_threshold(rate), 1.0 / (1.0 - rate) if drop else 1.0, drop,
+        torch.cuda.current_stream(xyz.device).cuda_stream)
+    profiling.launched("layer0", rc, xyz, rows, wx, out,
+                       flops=2 * m * n * 3,
+                       nbytes=_nbytes(xyz, rows, wx, out, bits))
     return out, bits
 
 
@@ -473,11 +471,11 @@ def gemm_wgrad(g: torch.Tensor, h: torch.Tensor, k_split: int
         return gemm_wgrad_reference(g, h, k_split)
     part = torch.empty(k // k_split, m, n, dtype=torch.float32,
                        device=g.device)
-    _call("ft_gemm_wgrad", g.data_ptr(), h.data_ptr(), m, n, k, k_split, bn,
-          part.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream)
-    LAUNCHES["gemm_wgrad"] += 1
-    profiling.check_kernel("gemm_wgrad", g, h, part)
-    profiling.count_kernel("gemm_wgrad", 2 * m * n * k, _nbytes(g, h, part))
+    rc = _lib().ft_gemm_wgrad(
+        g.data_ptr(), h.data_ptr(), m, n, k, k_split, bn, part.data_ptr(),
+        torch.cuda.current_stream(g.device).cuda_stream)
+    profiling.launched("gemm_wgrad", rc, g, h, part, flops=2 * m * n * k,
+                       nbytes=_nbytes(g, h, part))
     return part
 
 
@@ -652,8 +650,7 @@ def fused_train_loss_grads(ew: EvalWeights, z: torch.Tensor,
                                nbytes):
         out = _fused_train_cuda(ew, z, xyz, sdf, num_sdf_samples,
                                 clamp_dist, dropout_rate, seed)
-    LAUNCHES["fused_train"] += 1
-    profiling.check_kernel("fused_train", out[0], out[1],
+    profiling.launched("fused_train", 0, out[0], out[1],
                            *(t for gr in out[2] for t in gr.values()))
     return out
 

@@ -23,10 +23,10 @@ either device. On a CPU tensor `bf16_head` runs the plain form's
 arithmetic bit for bit (the same torch products, sums and casts autograd
 runs for it). On a CUDA tensor it launches the kernels, which take rows
 of whole 16 bytes (C % 8 == 0) of at most `MAX_COLS` columns (`takes`),
-and raises on any other. `HEAD` counts the launches on the card, by pass.
-Each launch reports to `utils.profiling`'s hooks: the plain form's FLOPs
-(`torch.utils.flop_counter`'s for its products) and the bytes its bound
-counts.
+and raises on any other. Each launch reports to `utils.profiling`'s
+record (`launched`) as "head_fwd" or "head_bwd": the plain form's FLOPs
+(`torch.utils.flop_counter`'s for its products), the bytes its bound
+counts, and the NaN check of what it reads and writes.
 """
 
 from __future__ import annotations
@@ -38,8 +38,6 @@ from torch.nn import functional as F
 
 from latent_diffusion_models_for_shape_sdfs_torch.ops import _build
 from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
-
-HEAD = {"fwd": 0, "bwd": 0}
 
 # csrc/head.cu's constants (checked against the kernels at load)
 _BWD_ROWS = 64          # backward: rows a tile
@@ -98,12 +96,9 @@ def _forward(x2: torch.Tensor, wb: torch.Tensor,
     rc = _lib().head_fwd_launch(
         x2.data_ptr(), wb.data_ptr(), b.data_ptr(), pred.data_ptr(), rows,
         cols, torch.cuda.current_stream(x2.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"head_fwd_launch failed: cudaError {rc}")
-    HEAD["fwd"] += 1
-    profiling.check_kernel("head_fwd", x2, wb, b, pred)
-    profiling.count_kernel("head_fwd", 2 * rows * cols,
-                           x2.nbytes + wb.nbytes + b.nbytes + pred.nbytes)
+    profiling.launched("head_fwd", rc, x2, wb, b, pred,
+                       flops=2 * rows * cols,
+                       nbytes=x2.nbytes + wb.nbytes + b.nbytes + pred.nbytes)
     return pred
 
 
@@ -137,14 +132,11 @@ def _backward(g: torch.Tensor, x2: torch.Tensor, wb: torch.Tensor,
         g1.data_ptr(), x2.data_ptr() if needs[1] else None, wb.data_ptr(),
         _ptr(dx), partials.data_ptr(), _ptr(dw), _ptr(db), rows, cols, ctas,
         torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"head_bwd_launch failed: cudaError {rc}")
-    HEAD["bwd"] += 1
     outs = [t for t in (dx, dw, db) if t is not None]
-    profiling.check_kernel("head_bwd", g1, x2, wb, *outs)
-    profiling.count_kernel(
-        "head_bwd", 2 * rows * cols * (int(needs[0]) + int(needs[1])),
-        g1.nbytes + (x2.nbytes if needs[1] else 0) + wb.nbytes
+    profiling.launched(
+        "head_bwd", rc, g1, x2, wb, *outs,
+        flops=2 * rows * cols * (int(needs[0]) + int(needs[1])),
+        nbytes=g1.nbytes + (x2.nbytes if needs[1] else 0) + wb.nbytes
         + sum(t.nbytes for t in outs))
     return dx, dw, db
 

@@ -30,10 +30,11 @@ db in a fixed order (`bwd_plan`, `db_kernel_order`); the plain version
 with torch's `sum`.
 
 On a CPU tensor each wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises. `LAUNCHES` counts kernel launches (the
-layer entries under the same two names). Each launch reports to
-`utils.profiling`'s hooks: no FLOPs (its plain version's elementwise ops
-count none), its input and output bytes, and the NaN check of both.
+launches the kernel or raises. Each launch reports to `utils.profiling`'s
+record (`launched`) as "relu_dropout_fwd" or "relu_dropout_bwd" (the
+layer entries under the same two names): no FLOPs (its plain version's
+elementwise ops count none), its input and output bytes, and the NaN
+check of both.
 """
 
 from __future__ import annotations
@@ -45,8 +46,6 @@ import torch
 
 from latent_diffusion_models_for_shape_sdfs_torch.ops import _build
 from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
-
-LAUNCHES = {"relu_dropout_fwd": 0, "relu_dropout_bwd": 0}
 
 _MASK32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -312,11 +311,7 @@ def relu_dropout_fwd(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
         _DTYPES[x.dtype], int(seed) & 0xFFFFFFFF, keep_threshold(rate),
         float(_scale(rate, x.dtype)),
         torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"relu_dropout_fwd_launch failed: cudaError {rc}")
-    LAUNCHES["relu_dropout_fwd"] += 1
-    profiling.check_kernel("relu_dropout_fwd", x, out)
-    profiling.count_kernel("relu_dropout_fwd", 0, 2 * x.nbytes)
+    profiling.launched("relu_dropout_fwd", rc, x, out, nbytes=2 * x.nbytes)
     return out
 
 
@@ -338,11 +333,7 @@ def relu_dropout_bwd(x: torch.Tensor, g: torch.Tensor, seed: int,
         x.shape[-1], _DTYPES[x.dtype], int(seed) & 0xFFFFFFFF,
         keep_threshold(rate), float(_scale(rate, x.dtype)),
         torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"relu_dropout_bwd_launch failed: cudaError {rc}")
-    LAUNCHES["relu_dropout_bwd"] += 1
-    profiling.check_kernel("relu_dropout_bwd", x, g, dx)
-    profiling.count_kernel("relu_dropout_bwd", 0, 3 * x.nbytes)
+    profiling.launched("relu_dropout_bwd", rc, x, g, dx, nbytes=3 * x.nbytes)
     return dx
 
 
@@ -382,13 +373,8 @@ def bias_relu_dropout_fwd(yf: torch.Tensor, b: torch.Tensor, seed: int,
         yf.numel() // yf.shape[-1], yf.shape[-1], int(seed) & 0xFFFFFFFF,
         keep_threshold(rate), float(_scale(rate, torch.bfloat16)),
         torch.cuda.current_stream(yf.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"bias_relu_dropout_fwd_launch failed: "
-                           f"cudaError {rc}")
-    LAUNCHES["relu_dropout_fwd"] += 1
-    profiling.check_kernel("relu_dropout_fwd", yf, b, out)
-    profiling.count_kernel("relu_dropout_fwd", 0,
-                           yf.nbytes + b.nbytes + out.nbytes)
+    profiling.launched("relu_dropout_fwd", rc, yf, b, out,
+                       nbytes=yf.nbytes + b.nbytes + out.nbytes)
     return out
 
 
@@ -420,13 +406,8 @@ def relu_dropout_bwd_out(out: torch.Tensor, g: torch.Tensor,
         db.data_ptr(), rows, cols, float(_scale(rate, torch.bfloat16)),
         int(plan.vec), plan.tile_rows, plan.lanes, plan.ctas,
         torch.cuda.current_stream(out.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"relu_dropout_bwd_out_launch failed: "
-                           f"cudaError {rc}")
-    LAUNCHES["relu_dropout_bwd"] += 1
-    profiling.check_kernel("relu_dropout_bwd", out, g, gb, db)
-    profiling.count_kernel("relu_dropout_bwd", 0,
-                           out.nbytes + g.nbytes + gb.nbytes + db.nbytes)
+    profiling.launched("relu_dropout_bwd", rc, out, g, gb, db,
+                       nbytes=out.nbytes + g.nbytes + gb.nbytes + db.nbytes)
     return gb, db
 
 

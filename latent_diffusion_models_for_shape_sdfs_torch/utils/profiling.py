@@ -1,4 +1,4 @@
-"""Tracing, spans, cost analysis and the NaN checker.
+"""Tracing, spans, cost analysis, the NaN checker and the launch record.
 
 Counterpart of the JAX package's `utils/profiling.py`:
 
@@ -12,17 +12,21 @@ Counterpart of the JAX package's `utils/profiling.py`:
   under the key names of XLA's cost analysis ("flops", "bytes accessed").
 - ``debug_nans()``: the first op that writes a NaN raises
   FloatingPointError naming the op, as `jax_debug_nans` does.
+- ``LAUNCHES``: the port's one launch record, a per-process
+  `collections.Counter` by launch name (`ops.bf16_linear` counts its
+  cuBLAS products there too, as "bf16_linear.<role>[.padded]").
 
 Both modes see every aten op (a `TorchDispatchMode` sits below autograd,
 so ops under `no_grad` and in backward are seen too) and the op
-`sdfldm::fused_eval` (kernel #1). The port's other kernels are ctypes
-launches that never reach the dispatcher; their wrappers report each
-launch through two hooks that do nothing outside the modes:
-`check_kernel(name, *tensors)` (the NaN check of its inputs and outputs)
-and `count_kernel(name, flops, nbytes)` (its work); `kernel_pass` counts
-a pass of several launches once. A kernel reports the FLOPs its plain
-version's aten ops count (`torch.utils.flop_counter`'s formulas) and the
-bytes its bound counts: each input read once, each output written once.
+`sdfldm::fused_eval` (kernel #1). The port's kernels are ctypes launches
+that never reach the dispatcher; each wrapper reports each launch in one
+call, `launched(name, rc, *tensors, flops=, nbytes=)`, which checks the
+return code, counts the launch and, inside the modes, NaN-checks
+`tensors` and adds the launch's work (kernel #1's wrapper only counts);
+`kernel_pass` counts a pass of several launches once. A kernel reports
+the FLOPs its plain version's aten ops count (`torch.utils.flop_counter`'s
+formulas) and the bytes its bound counts: each input read once, each
+output written once.
 """
 
 from __future__ import annotations
@@ -121,7 +125,7 @@ def nans_checked() -> bool:
 
 
 def check_kernel(name: str, *tensors: Any) -> None:
-    """Hook of a kernel launched outside the dispatcher: under
+    """NaN hook of a kernel launched outside the dispatcher: under
     `debug_nans`, raise FloatingPointError naming the kernel if a floating
     tensor among `tensors` holds a NaN; elsewhere nothing."""
     if _active(_NanMode) is not None:
@@ -160,15 +164,6 @@ class _CostMode(TorchDispatchMode):
         return out
 
 
-def count_kernel(name: str, flops: float, nbytes: float) -> None:
-    """Hook of a kernel launched outside the dispatcher: under
-    `cost_analysis`, add the launch's FLOPs and bytes (`name` says whose);
-    elsewhere nothing."""
-    mode = _active(_CostMode)
-    if mode is not None:
-        mode.add(flops, nbytes)
-
-
 @contextlib.contextmanager
 def kernel_pass(name: str, flops: float, nbytes: float) -> Iterator[None]:
     """A pass of several launches (kernel #4) counted once as one kernel:
@@ -202,6 +197,30 @@ def cost_analysis(fn: Callable, *args: Any, **kwargs: Any) -> dict:
     with mode:
         fn(*args, **kwargs)
     return {"flops": float(mode.flops), "bytes accessed": float(mode.bytes)}
+
+
+# ------------------------------------------------------------- launches
+
+LAUNCHES: collections.Counter = collections.Counter()
+_LAUNCHES_LOCK = threading.Lock()     # autograd may launch on its own thread
+
+
+def launched(name: str, rc: int = 0, *tensors: Any, flops: float = 0,
+             nbytes: float = 0) -> None:
+    """The record of one launch outside the dispatcher, made by its
+    wrapper right after it with the launcher's return code: a non-zero
+    `rc` raises RuntimeError naming the launch and counts nothing; else
+    LAUNCHES[name] gains one, `tensors` (what the launch read and wrote)
+    are NaN-checked (`check_kernel`) and, under `cost_analysis`, `flops`
+    and `nbytes` added unless a `kernel_pass` counted them already."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: launch failed, cudaError {rc}")
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
+    check_kernel(name, *tensors)
+    mode = _active(_CostMode)
+    if mode is not None:
+        mode.add(flops, nbytes)
 
 
 # ------------------------------------------------------------------ trace

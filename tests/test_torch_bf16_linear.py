@@ -65,7 +65,12 @@ def test_hidden_operands_are_bf16_valued(dropout, latent_in, xyz_in_all,
                                          use_tanh, n, monkeypatch):
     """One autograd training step of the bf16 decoder: every hidden layer's
     x, bf16(W) and cotangent g equal their bf16 round trips; the head's
-    g does so only when n = S * P is a power of two and use_tanh is off."""
+    g does so only when n = S * P is a power of two and use_tanh is off.
+    With kernel dropout the hidden layers take the route configs 3-5
+    take, bf16_linear_relu_dropout; it is substituted by its composition
+    (bf16_linear_relu_dropout_reference) so that the product's operands
+    can be recorded, and the two are equal bit for bit
+    (tests/test_torch_relu_dropout_layer.py)."""
     cfg = _ad_cfg(1, n, latent_in=latent_in, xyz_in_all=xyz_in_all,
                   use_tanh=use_tanh, use_dropout=dropout != "off",
                   dropout_prob=0.2,
@@ -81,8 +86,15 @@ def test_hidden_operands_are_bf16_valued(dropout, latent_in, xyz_in_all,
             return y
         return wrapped
 
-    monkeypatch.setattr(decoder_module, "bf16_linear",
-                        recorder(bl.bf16_linear, "hidden"))
+    hidden = recorder(bl.bf16_linear, "hidden")
+    if dropout == "pallas":
+        monkeypatch.setattr(
+            decoder_module, "bf16_linear_relu_dropout",
+            lambda x, w, b, seed, rate, layout:
+            bl.bf16_linear_relu_dropout_reference(x, w, b, seed, rate,
+                                                  linear=hidden))
+    else:
+        monkeypatch.setattr(decoder_module, "bf16_linear", hidden)
     monkeypatch.setattr(hd, "bf16_head", recorder(hd.bf16_head, "head"))
     st = tad.init_ad_state(cfg, seed=1, device="cpu")
     step = tad.make_ad_train_step(st.decoder, cfg)
@@ -135,13 +147,23 @@ def test_cpu_route_is_the_plain_version_bit_for_bit(shape, grads):
 def test_cpu_training_steps_equal_the_plain_form(dropout, monkeypatch):
     """Three autograd steps of the bf16 decoder (skip layer, dropout)
     through bf16_linear equal, bit for bit, the same steps with every
-    hidden layer through the plain version: loss, every parameter and
-    the codes."""
+    hidden layer's product through the plain version: loss, every
+    parameter and the codes. With kernel dropout the route is
+    bf16_linear_relu_dropout against its composition with the plain
+    product (bf16_linear_relu_dropout_reference); without, bf16_linear
+    against the plain product."""
     cfg = _ad_cfg(2, 64, latent_in=(2,), use_dropout=dropout != "off",
                   dropout_impl="pallas")
     runs = []
     for hidden in (bl.bf16_linear, bl.bf16_linear_reference):
-        monkeypatch.setattr(decoder_module, "bf16_linear", hidden)
+        if dropout == "off":
+            monkeypatch.setattr(decoder_module, "bf16_linear", hidden)
+        elif hidden is bl.bf16_linear_reference:
+            monkeypatch.setattr(
+                decoder_module, "bf16_linear_relu_dropout",
+                lambda x, w, b, seed, rate, layout:
+                bl.bf16_linear_relu_dropout_reference(
+                    x, w, b, seed, rate, linear=bl.bf16_linear_reference))
         st = tad.init_ad_state(cfg, seed=2, device="cpu")
         step = tad.make_ad_train_step(st.decoder, cfg)
         losses = [float(step(st, *_batch(cfg, i), float(i), i)["loss"])

@@ -12,7 +12,7 @@ output and cotangent exactly 0; (c) whole training steps on the padded
 layout agree with the unpadded ones, their gradients in the parameters'
 shapes; (d) widths already multiples of 8 are left as they are. The CPU
 route itself stays unpadded (tests/test_torch_bf16_linear.py); these
-tests ask for the layout explicitly."""
+tests ask for the layout explicitly (`ops.bf16_linear.pads`)."""
 
 import numpy as np
 import pytest
@@ -20,11 +20,10 @@ import torch
 from torch.nn import functional as F
 
 from latent_diffusion_models_for_shape_sdfs_torch import config as tcfg
-from latent_diffusion_models_for_shape_sdfs_torch.models import (
-    decoder as decoder_module)
 from latent_diffusion_models_for_shape_sdfs_torch.ops import bf16_linear as bl
 from latent_diffusion_models_for_shape_sdfs_torch.ops import relu_dropout as rd
 from latent_diffusion_models_for_shape_sdfs_torch.train import auto_decoder as tad
+from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -32,6 +31,14 @@ BF = torch.bfloat16
 U32 = 2.0 ** -24          # fp32 unit roundoff
 ULP_BF16 = 2.0 ** -7      # bf16 spacing relative to the value, at most
 RATE = 0.2
+ROLES = ("fwd", "dgrad", "wgrad")
+
+
+def _padded(before) -> dict:
+    """The padded products counted since `before` (a copy of the launch
+    record), by role."""
+    new = profiling.LAUNCHES - before
+    return {k: new[f"bf16_linear.{k}.padded"] for k in ROLES}
 
 
 def _pad_rows(t: torch.Tensor, runs: tuple) -> torch.Tensor:
@@ -115,7 +122,7 @@ def test_padded_layout_agrees_with_the_plain_version(layer, form):
     g = torch.from_numpy(rng.normal(size=(N, out)).astype(np.float32)).to(BF)
     xp = _pad_rows(x, runs).requires_grad_()
     gp = bl.pad_columns([g])
-    n0 = dict(bl.PADDED)
+    n0 = profiling.LAUNCHES.copy()
     if form == "linear":
         y = bl.bf16_linear(xp, w, b, runs)
         y.backward(gp.float())
@@ -125,8 +132,7 @@ def test_padded_layout_agrees_with_the_plain_version(layer, form):
         y.backward(gp)
         gb = rd.relu_dropout_bwd_out(y.detach(), gp, RATE)[0]
         assert not gb[:, out:].any()
-    assert {k: bl.PADDED[k] - n0[k] for k in n0} == {"fwd": 1, "dgrad": 1,
-                                                     "wgrad": 1}
+    assert _padded(n0) == {"fwd": 1, "dgrad": 1, "wgrad": 1}
     assert y.shape == (N, bl.padded_width(out))
     assert not y[:, out:].detach().any()
     assert not xp.grad[:, _pad_mask(runs)].any()
@@ -174,17 +180,17 @@ def _batch(cfg, seed=0):
 def _steps(cfg, padded: bool, monkeypatch, n=2):
     """n training steps from one state, with the hidden layers on the
     padded layout or not: (losses, the last step's gradients, the state
-    after, PADDED's counts over the steps)."""
-    monkeypatch.setattr(decoder_module, "_pads", lambda t: padded)
+    after, the padded products counted over the steps)."""
+    monkeypatch.setattr(bl, "pads", lambda t: padded)
     st = tad.init_ad_state(cfg, seed=2, device="cpu")
     step = tad.make_ad_train_step(st.decoder, cfg)
-    n0 = dict(bl.PADDED)
+    n0 = profiling.LAUNCHES.copy()
     losses = [float(step(st, *_batch(cfg, i), 0.0, i)["loss"])
               for i in range(n)]
     grads = {k: p.grad for k, p in st.decoder.named_parameters()}
     grads["codes"] = st.codes.grad
     after = dict(st.decoder.state_dict(), codes=st.codes.detach())
-    return losses, grads, after, {k: bl.PADDED[k] - n0[k] for k in n0}
+    return losses, grads, after, _padded(n0)
 
 
 # (decoder plan, padded layers a step): latent 8 + xyz 3 = 11 inputs
@@ -203,8 +209,8 @@ def test_padded_training_steps_agree_with_unpadded(plan, monkeypatch):
     layout against the same steps unpadded: the losses within 1e-5, the
     second step's gradients within 1e-2 of each one's max (a bf16
     rounding of an activation may flip with the fp32 sum's order), every
-    gradient in its parameter's shape; PADDED counts each padded layer's
-    three products a step, and nothing unpadded."""
+    gradient in its parameter's shape; the launch record counts each
+    padded layer's three products a step, and nothing unpadded."""
     kw, layers = STEP_PLANS[plan]
     cfg = _ad_cfg(**kw)
     l1, g1, _, n1 = _steps(cfg, True, monkeypatch)
@@ -229,13 +235,13 @@ def test_padded_eval_forward_and_code_gradient(monkeypatch):
     xyz = torch.from_numpy(rng.uniform(-1, 1, (3, 40, 3)).astype(np.float32))
     out = []
     for padded in (True, False):
-        monkeypatch.setattr(decoder_module, "_pads", lambda t: padded)
-        n0 = dict(bl.PADDED)
+        monkeypatch.setattr(bl, "pads", lambda t: padded)
+        n0 = profiling.LAUNCHES.copy()
         z = z0.clone().requires_grad_()
         pred = dec(z, xyz)
         pred.abs().sum().backward()
         out.append((pred.detach(), z.grad,
-                    {k: bl.PADDED[k] - n0[k] for k in n0}))
+                    _padded(n0)))
     (p1, gz1, n1), (p2, gz2, n2) = out
     assert n1 == {"fwd": 3, "dgrad": 3, "wgrad": 0} and not any(n2.values())
     assert p1.shape == p2.shape and gz1.shape == gz2.shape
@@ -255,7 +261,7 @@ def test_aligned_layout_is_the_unpadded_layer(form):
         np.float32))
     b0 = torch.from_numpy(rng.normal(size=512).astype(np.float32))
     g = torch.from_numpy(rng.normal(size=(96, 512)).astype(np.float32)).to(BF)
-    n0 = dict(bl.PADDED)
+    n0 = profiling.LAUNCHES.copy()
     out = []
     for runs in ((256, 256), None):
         xi = x.clone().requires_grad_()
@@ -269,7 +275,7 @@ def test_aligned_layout_is_the_unpadded_layer(form):
         out.append([y.detach(), xi.grad, w.grad, b.grad])
     for a, r in zip(*out):
         assert torch.equal(a, r)
-    assert dict(bl.PADDED) == n0
+    assert not any(_padded(n0).values())
 
 
 def test_aligned_decoder_steps_are_unpadded(monkeypatch):

@@ -30,6 +30,7 @@ from latent_diffusion_models_for_shape_sdfs_torch.ops.cuda_kernels import (
     EVAL_LAYOUT, hoisted_rows, make_kernel_apply, pack_weights, slab_order)
 from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
     fast_apply, precompute_eval_weights)
+from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 from latent_diffusion_models_for_shape_sdfs_torch.utils.checkpoint import (
     load_stage1_pack, params_from_jax)
 
@@ -67,10 +68,12 @@ def test_kernel_apply_cpu_matches_pallas_interpret(name):
     want = np.asarray(make_pallas_apply(jdec, params, tile=1024,
                                         interpret=True)(
         jnp.asarray(z), jnp.asarray(xyz)))
+    n0 = profiling.LAUNCHES.copy()
     apply = make_kernel_apply(dec, sd, device="cpu")
     got = apply(torch.from_numpy(z), torch.from_numpy(xyz)).numpy()
     np.testing.assert_allclose(got, want, atol=5e-3)
     assert apply.launches == 0          # the CPU path launches nothing
+    assert profiling.LAUNCHES == n0
 
 
 def _core_offsets(rows, k, lbo, sbo):

@@ -22,6 +22,7 @@ from latent_diffusion_models_for_shape_sdfs_torch.ops.cuda_kernels import (
 from latent_diffusion_models_for_shape_sdfs_torch.ops.fused_decoder import (
     fast_apply)
 from latent_diffusion_models_for_shape_sdfs_torch.serve import serve_meshes
+from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 from latent_diffusion_models_for_shape_sdfs_torch.utils.checkpoint import (
     load_stage1_pack)
 
@@ -38,6 +39,16 @@ PLANS = {
                  use_tanh=True, use_dropout=False),
     "canonical": dict(use_dropout=False),
 }
+RD = ("relu_dropout_fwd", "relu_dropout_bwd")
+BF16_ROLES = ("bf16_linear.fwd", "bf16_linear.dgrad", "bf16_linear.wgrad")
+PADDED_ROLES = tuple(f"{k}.padded" for k in BF16_ROLES)
+HEAD = ("head_fwd", "head_bwd")
+
+
+def _since(before, names) -> dict:
+    """{name: the launches of `name` counted since `before`, a copy of the
+    launch record utils.profiling.LAUNCHES}."""
+    return {k: profiling.LAUNCHES[k] - before[k] for k in names}
 
 
 @pytest.fixture
@@ -142,8 +153,8 @@ def test_fused_eval_op_exports_and_counts_launches(cuda):
     """Kernel #1 as the op sdfldm::fused_eval under torch.export: a program
     around KernelApply.launch holds the op and equals the live launch bit
     for bit; a decode artifact equals the live decode bit for bit, and
-    its launches are counted by the op (LAUNCHES), not by the wrapper it
-    was traced from."""
+    its launches are counted by the op (utils.profiling.LAUNCHES), not by
+    the wrapper it was traced from."""
     from latent_diffusion_models_for_shape_sdfs_torch.export_artifact import (
         _Program, export_decode_program, load_decode_program)
     from latent_diffusion_models_for_shape_sdfs_torch.ops import (
@@ -158,19 +169,19 @@ def test_fused_eval_op_exports_and_counts_launches(cuda):
     ep = torch.export.export(_Program(lambda x: apply.launch(x, rows)),
                              (xyz,), strict=False)
     assert any("sdfldm.fused_eval" in str(n.target) for n in ep.graph.nodes)
-    n0 = ck.LAUNCHES["fused_eval"]
+    n0 = profiling.LAUNCHES["fused_eval"]
     got = ep.module()(xyz)
-    assert ck.LAUNCHES["fused_eval"] == n0 + 1
+    assert profiling.LAUNCHES["fused_eval"] == n0 + 1
     assert torch.equal(got, apply.launch(xyz, rows))
 
     caps = (64, 1024, 4096)
     art = load_decode_program(export_decode_program(
         apply, dec.cfg.latent_size, 64, caps, device=cuda))
     assert art.meta["platforms"] == ["cuda"]
-    n0, l0 = ck.LAUNCHES["fused_eval"], apply.launches
+    n0, l0 = profiling.LAUNCHES["fused_eval"], apply.launches
     got = art.payload(zt)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES["fused_eval"] - n0 == 4 and apply.launches == l0
+    assert profiling.LAUNCHES["fused_eval"] - n0 == 4 and apply.launches == l0
     live, *counts = _decode_grid_hier3_impl(
         apply, zt, 64, 16, 4, 2, *caps, safety=1.2, safety3=2.0,
         out_dtype="int8")
@@ -187,7 +198,7 @@ def test_fused_eval_op_raises_on_malformed_operands(cuda):
     apply = make_kernel_apply(dec, sd, device=cuda)
     rows = ck.hoisted_rows(apply.ew, apply.meta, torch.from_numpy(z).to(cuda))
     xyz = torch.rand(100, 3, device=cuda)
-    n0 = ck.LAUNCHES["fused_eval"]
+    n0 = profiling.LAUNCHES["fused_eval"]
     op = torch.ops.sdfldm.fused_eval
     with pytest.raises(ValueError, match="rows must be"):
         op(xyz, apply.w, rows[:-1], apply.meta_t, True)
@@ -195,7 +206,7 @@ def test_fused_eval_op_raises_on_malformed_operands(cuda):
         op(xyz, apply.w, rows, apply.meta_t.to(cuda), True)
     with pytest.raises(ValueError, match="w must be"):
         op(xyz, apply.w.float(), rows, apply.meta_t, True)
-    assert ck.LAUNCHES["fused_eval"] == n0
+    assert profiling.LAUNCHES["fused_eval"] == n0
     assert torch.equal(op(xyz, apply.w, rows, apply.meta_t, True),
                        apply.launch(xyz, rows))
 
@@ -256,12 +267,12 @@ def test_relu_dropout_kernels_match_plain_version(dtype, shape, rate, cuda):
     gen = torch.Generator(device=cuda).manual_seed(shape[0])
     x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
     g = torch.randn(shape, generator=gen, device=cuda).to(dtype)
-    n0 = dict(rd.LAUNCHES)
+    n0 = profiling.LAUNCHES.copy()
     y = rd.relu_dropout_fwd(x, 12345, rate)
     dx = rd.relu_dropout_bwd(x, g, 12345, rate)
     torch.cuda.synchronize()
-    assert rd.LAUNCHES["relu_dropout_fwd"] == n0["relu_dropout_fwd"] + 1
-    assert rd.LAUNCHES["relu_dropout_bwd"] == n0["relu_dropout_bwd"] + 1
+    assert profiling.LAUNCHES["relu_dropout_fwd"] == n0["relu_dropout_fwd"] + 1
+    assert profiling.LAUNCHES["relu_dropout_bwd"] == n0["relu_dropout_bwd"] + 1
     assert torch.equal(y, rd.relu_dropout_reference(x, 12345, rate))
     assert torch.equal(dx, rd.relu_dropout_bwd_reference(x, g, 12345, rate))
 
@@ -322,11 +333,11 @@ def test_relu_dropout_layer_kernels_match_plain_version(rows, cols, offset,
     launch of each."""
     from latent_diffusion_models_for_shape_sdfs_torch.ops import relu_dropout as rd
     yf, b, g = _layer_operands(rows, cols, cuda, offset)
-    n0 = dict(rd.LAUNCHES)
+    n0 = profiling.LAUNCHES.copy()
     out = rd.bias_relu_dropout_fwd(yf, b, 777, rate)
     gb, db = rd.relu_dropout_bwd_out(out, g, rate)
     torch.cuda.synchronize()
-    assert {k: rd.LAUNCHES[k] - n0[k] for k in n0} == {
+    assert _since(n0, RD) == {
         "relu_dropout_fwd": 1, "relu_dropout_bwd": 1}
     h = (yf + b).to(torch.bfloat16)
     assert torch.equal(out, rd.relu_dropout_reference(h, 777, rate))
@@ -375,9 +386,10 @@ def test_relu_dropout_layer_wrappers_check_inputs(cuda):
 def test_relu_dropout_layer_step_matches_parent_composition(cuda,
                                                             monkeypatch):
     """One config-3 autograd step (the committed 8x512 pack, bf16, dropout
-    0.2, 16 scenes x 16,384 points) through bf16_linear_relu_dropout
-    against the same step through bf16_linear, the cast and relu_dropout,
-    on the same (padded) layout:
+    0.2, 16 scenes x 16,384 points) through bf16_linear_relu_dropout (the
+    route configs 3-5 take) against the same step with that layer
+    substituted by its composition, bf16_linear_relu_dropout_reference
+    (bf16_linear, the cast and relu_dropout), on the same (padded) layout:
     the loss and every gradient but the 8 hidden biases bit for bit, each
     hidden db within DB_TOL of its sum of |terms| apart; #3/#3b launched
     8 times each."""
@@ -410,23 +422,20 @@ def test_relu_dropout_layer_step_matches_parent_composition(cuda,
         seen.append((gb, db))
         return gb, db
 
-    def composed(x, w, b, seed, rate, runs=None):
-        return rd.relu_dropout(bl.bf16_linear(x, w, b, runs).to(
-            torch.bfloat16), seed, rate)
-
     monkeypatch.setattr(rd, "relu_dropout_bwd_out", recorded)
     runs = []
-    for layer in (bl.bf16_linear_relu_dropout, composed):
+    for layer in (bl.bf16_linear_relu_dropout,
+                  bl.bf16_linear_relu_dropout_reference):
         monkeypatch.setattr(decoder_module, "bf16_linear_relu_dropout", layer)
         dec.zero_grad(set_to_none=True)
         zz = z.clone().requires_grad_()
-        n0 = dict(rd.LAUNCHES)
+        n0 = profiling.LAUNCHES.copy()
         loss = losses.clamped_l1(dec(zz, xyz, seed=5), sdf, ad.clamp_dist)
         loss.backward()
         torch.cuda.synchronize()
         runs.append((loss.detach(), {"z": zz.grad, **{
             k: p.grad for k, p in dec.named_parameters()}},
-            {k: rd.LAUNCHES[k] - n0[k] for k in n0}))
+            _since(n0, RD)))
     (l1, g1, n1), (l2, g2, n2) = runs
     assert n1 == n2 == {"relu_dropout_fwd": 8, "relu_dropout_bwd": 8}
     assert len(seen) == 8                 # the new layer's, lin7 .. lin0
@@ -496,11 +505,11 @@ def test_fused_train_kernel_matches_plain_version(name, S, P, rate, cuda):
     from latent_diffusion_models_for_shape_sdfs_torch.ops import fused_train as ft
     ew, z, xyz, sdf = _train_inputs(name, S, P, cuda)
     args = (ew, z, xyz, sdf, S * P, 0.1, rate, 77)
-    n0 = ft.LAUNCHES["fused_train"]
+    n0 = profiling.LAUNCHES["fused_train"]
     got = ft.fused_train_loss_grads(*args)
     again = ft.fused_train_loss_grads(*args)
     torch.cuda.synchronize()
-    assert ft.LAUNCHES["fused_train"] == n0 + 2
+    assert profiling.LAUNCHES["fused_train"] == n0 + 2
     want = ft.fused_train_reference(*args)
     rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
     errs = _grad_errors(got, want)
@@ -523,8 +532,6 @@ def test_training_step_on_card(use_pallas, impl, cuda):
     from latent_diffusion_models_for_shape_sdfs_torch.data import analytic
     from latent_diffusion_models_for_shape_sdfs_torch.data.sdf_dataset import (
         SdfDataset)
-    from latent_diffusion_models_for_shape_sdfs_torch.ops import fused_train as ft
-    from latent_diffusion_models_for_shape_sdfs_torch.ops import relu_dropout as rd
     from latent_diffusion_models_for_shape_sdfs_torch.train.auto_decoder import (
         train_auto_decoder)
     cfg = AdConfig(decoder=DecoderConfig(**dict(
@@ -534,15 +541,15 @@ def test_training_step_on_card(use_pallas, impl, cuda):
         clamp_dist=0.2)
     ds = SdfDataset.from_analytic(analytic.make_synthetic_split(
         "chair", 3, seed=1), 2000, workers=1)
-    n_rd, n_ft = rd.LAUNCHES["relu_dropout_fwd"], ft.LAUNCHES["fused_train"]
+    n_rd, n_ft = profiling.LAUNCHES["relu_dropout_fwd"], profiling.LAUNCHES["fused_train"]
     losses = []
     train_auto_decoder(cfg, ds, device=cuda, on_step=lambda i, e, m:
                        losses.append(float(m["loss_l1"])))
     assert len(losses) == 4 and np.isfinite(losses).all()
     if use_pallas:
-        assert ft.LAUNCHES["fused_train"] == n_ft + 4
+        assert profiling.LAUNCHES["fused_train"] == n_ft + 4
     else:
-        assert rd.LAUNCHES["relu_dropout_fwd"] == n_rd + 4 * 3
+        assert profiling.LAUNCHES["relu_dropout_fwd"] == n_rd + 4 * 3
 
 
 # ---------------------- kernel #4's forward/dgrad GEMM engine (wgmma, TMA)
@@ -573,11 +580,11 @@ def test_train_gemm_fwd_matches_plain_version(k, n, rate, skip, cuda):
                             .astype(np.float32)).to(cuda)
     xyz = _bf16(rng, (m, 3), cuda=cuda) if skip else None
     wx = _bf16(rng, (n, 3), cuda=cuda) if skip else None
-    n0 = ft.LAUNCHES["gemm_fwd"]
+    n0 = profiling.LAUNCHES["gemm_fwd"]
     got = ft.gemm_fwd(h, w, rows, p, xyz, wx, seed, rate)
     again = ft.gemm_fwd(h, w, rows, p, xyz, wx, seed, rate)
     torch.cuda.synchronize()
-    assert ft.LAUNCHES["gemm_fwd"] == n0 + 2
+    assert profiling.LAUNCHES["gemm_fwd"] == n0 + 2
     pre = h.float() @ w.float().T + rows.repeat_interleave(
         m // rows.shape[0], 0)
     if skip:
@@ -607,11 +614,11 @@ def test_train_gemm_dgrad_matches_plain_version(k, n, cuda):
     wt = _bf16(rng, (n, k), 1 / np.sqrt(k), cuda)
     hprev = torch.relu(_bf16(rng, (m, n), cuda=cuda))
     bits = tg.pack_keep_bits(hprev > 0)
-    n0 = ft.LAUNCHES["gemm_dgrad"]
+    n0 = profiling.LAUNCHES["gemm_dgrad"]
     got, _ = ft.gemm_dgrad(g, wt, bits, scale)
     again, _ = ft.gemm_dgrad(g, wt, bits, scale)
     torch.cuda.synchronize()
-    assert ft.LAUNCHES["gemm_dgrad"] == n0 + 2
+    assert profiling.LAUNCHES["gemm_dgrad"] == n0 + 2
     want = torch.where(hprev > 0, (g.float() @ wt.float().T) * scale, 0.0)
     err = float((got.float() - want).abs().max())
     assert err <= 1e-2 * float(want.abs().max()), err
@@ -766,10 +773,10 @@ def test_train_gemm_wgrad_matches_plain_version(m, n, k_split, cuda):
     rng = np.random.default_rng(m + n + k_split)
     g, h = (torch.from_numpy(rng.integers(-3, 4, (k, w)).astype(np.float32))
             .to(torch.bfloat16).to(cuda) for w in (m, n))
-    n0 = ft.LAUNCHES["gemm_wgrad"]
+    n0 = profiling.LAUNCHES["gemm_wgrad"]
     got = ft.gemm_wgrad(g, h, k_split)
     torch.cuda.synchronize()
-    assert ft.LAUNCHES["gemm_wgrad"] == n0 + 1
+    assert profiling.LAUNCHES["gemm_wgrad"] == n0 + 1
     assert got.shape == (k // k_split, m, n)
     assert torch.equal(got, ft.gemm_wgrad_reference(g, h, k_split))
     g = _bf16(rng, (k, m), 1e-3, cuda)
@@ -1440,15 +1447,13 @@ def test_bank_step_waits_on_nothing(route, cuda):
     """A bank step (the draw on the card, then either kernel route and
     Adam) under set_sync_debug_mode("error"): no host sync; the kernels
     launch (#4 on the fused route, #3/#3b on the autograd one)."""
-    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
-        fused_train as ft, relu_dropout as rd)
     from latent_diffusion_models_for_shape_sdfs_torch.train import (
         auto_decoder as tad)
     _, bank, cfg, st, gen = _bank_setup(cuda, route)
     step = tad.make_bank_step(st.decoder, cfg, bank, gen)
     ids = torch.tensor([[1, 5, 2, 6], [0, 3, 7, 4]], device=cuda)
     step(st, ids[0], 0.0, 1)
-    before = (ft.LAUNCHES["fused_train"], rd.LAUNCHES["relu_dropout_fwd"])
+    before = (profiling.LAUNCHES["fused_train"], profiling.LAUNCHES["relu_dropout_fwd"])
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1456,7 +1461,7 @@ def test_bank_step_waits_on_nothing(route, cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.isfinite(float(m["loss"]))
-    after = (ft.LAUNCHES["fused_train"], rd.LAUNCHES["relu_dropout_fwd"])
+    after = (profiling.LAUNCHES["fused_train"], profiling.LAUNCHES["relu_dropout_fwd"])
     assert (after[0] > before[0]) == (route == "fused")
     assert (after[1] > before[1]) == (route == "autograd")
 
@@ -1507,10 +1512,9 @@ def test_bf16_linear_matches_plain_version(d_in, d_out, integer, cuda):
     from latent_diffusion_models_for_shape_sdfs_torch.ops import (
         bf16_linear as bl)
     ops = _bf16_linear_operands(d_in, d_out, cuda, integer)
-    n0 = dict(bl.CALLS)
+    n0 = profiling.LAUNCHES.copy()
     got = _bf16_linear_run(bl.bf16_linear, *ops)
-    assert {k: bl.CALLS[k] - n0[k] for k in n0} == {"fwd": 1, "dgrad": 1,
-                                                    "wgrad": 1}
+    assert _since(n0, BF16_ROLES) == dict.fromkeys(BF16_ROLES, 1)
     want = _bf16_linear_run(bl.bf16_linear_reference, *ops)
     for a, r in zip(got, want):
         assert a.dtype == r.dtype and a.shape == r.shape
@@ -1555,16 +1559,34 @@ def test_bf16_linear_puts_the_flags_back(cuda):
         m.allow_bf16_reduced_precision_reduction = saved[1:]
 
 
-def test_bf16_training_step_matches_plain_form(cuda, monkeypatch):
-    """One autograd step's loss and gradients of a small bf16 decoder
-    (skip layer, relu+dropout kernels) with its hidden layers on the
-    tensor cores against the same step with them through the plain
-    version: loss 1e-4 relative, each gradient 1e-2 of its max."""
-    from latent_diffusion_models_for_shape_sdfs_torch import losses
+def _plain_hidden_layers(monkeypatch) -> None:
+    """Every bf16 hidden layer with kernel dropout in the plain form: the
+    layer substituted by its composition with the plain product
+    (bf16_linear_relu_dropout_reference with bf16_linear_reference: fp32
+    products of the same bf16 values, the cast, relu_dropout), and the
+    padded layout turned off (ops.bf16_linear.pads)."""
     from latent_diffusion_models_for_shape_sdfs_torch.models import (
         decoder as decoder_module)
     from latent_diffusion_models_for_shape_sdfs_torch.ops import (
         bf16_linear as bl)
+    monkeypatch.setattr(bl, "pads", lambda t: False)
+    monkeypatch.setattr(
+        decoder_module, "bf16_linear_relu_dropout",
+        lambda x, w, b, seed, rate, layout:
+        bl.bf16_linear_relu_dropout_reference(
+            x, w, b, seed, rate, linear=bl.bf16_linear_reference))
+
+
+def test_bf16_training_step_matches_plain_form(cuda, monkeypatch):
+    """One autograd step's loss and gradients of a small bf16 decoder
+    (skip layer, relu+dropout kernels) with its hidden layers on the
+    route configs 3-5 take (bf16_linear_relu_dropout: the tensor cores,
+    the padded layout, #3/#3b's layer entries) against the same step with
+    that layer substituted by its composition with the plain product
+    (bf16_linear_relu_dropout_reference with bf16_linear_reference) and
+    the layout turned off: loss 1e-4 relative, each gradient 1e-2 of its
+    max."""
+    from latent_diffusion_models_for_shape_sdfs_torch import losses
     torch.manual_seed(0)
     dec = SdfDecoder(DecoderConfig(**{
         **PLANS["small"], "use_dropout": True, "dropout_impl": "pallas",
@@ -1578,8 +1600,9 @@ def test_bf16_training_step_matches_plain_form(cuda, monkeypatch):
     sdf = torch.from_numpy((0.1 * rng.normal(size=n)).astype(
         np.float32)).to(cuda)
     out = []
-    for hidden in (bl.bf16_linear, bl.bf16_linear_reference):
-        monkeypatch.setattr(decoder_module, "bf16_linear", hidden)
+    for plain in (False, True):
+        if plain:
+            _plain_hidden_layers(monkeypatch)
         dec.zero_grad(set_to_none=True)
         z.grad = None
         loss = losses.clamped_l1(dec(z, xyz, seed=7), sdf, 0.1)
@@ -1599,8 +1622,9 @@ def test_padded_bank_step_matches_plain_form(cuda, monkeypatch):
     batch gradient does not cancel). The hidden layers run on the padded
     layout: 3 padded products of each role (lin0's 259 inputs, lin3's 253
     outputs, the skip layer's cat), none on the 512-wide layers. Against
-    the same step with the hidden layers in the plain form (fp32 products
-    of the same bf16 values, unpadded): the loss within 6e-6, each
+    the same step with the hidden layers in the plain form (their layer
+    substituted by its composition with fp32 products of the same bf16
+    values, the layout turned off): the loss within 6e-6, each
     gradient's distance within 0.02 of its norm, the codes' change within
     0.05 of its norm and the same rows moved, the limits of
     benchmark/limits/c3.train.bank.json."""
@@ -1609,10 +1633,6 @@ def test_padded_bank_step_matches_plain_form(cuda, monkeypatch):
         ExperimentConfig)
     from latent_diffusion_models_for_shape_sdfs_torch.data import (
         analytic, analytic_device as adv)
-    from latent_diffusion_models_for_shape_sdfs_torch.models import (
-        decoder as decoder_module)
-    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
-        bf16_linear as bl)
     from latent_diffusion_models_for_shape_sdfs_torch.train import (
         auto_decoder as tad)
     ad = ExperimentConfig.load(pathlib.Path(__file__).resolve().parents[1]
@@ -1625,22 +1645,22 @@ def test_padded_bank_step_matches_plain_form(cuda, monkeypatch):
         "chair", S, seed=11), 11, P, device=cuda)
     ids = torch.arange(S, device=cuda)
     out = []
-    for hidden in (bl.bf16_linear, bl.bf16_linear_reference):
-        monkeypatch.setattr(decoder_module, "bf16_linear", hidden)
+    for plain in (False, True):
+        if plain:
+            _plain_hidden_layers(monkeypatch)
         st = tad.init_ad_state(cfg, params=sd, codes=codes, device=cuda)
         step = tad.make_bank_step(st.decoder, cfg, bank, torch.Generator(
             device=cuda).manual_seed(5))
-        n0 = dict(bl.PADDED)
+        n0 = profiling.LAUNCHES.copy()
         loss = float(step(st, ids, 0.0, 17)["loss"])
         grads = {k: p.grad.double() for k, p in
                  st.decoder.named_parameters()}
         grads["codes"] = st.codes.grad.double()
         change = st.codes.detach().double().cpu() - torch.from_numpy(codes)
-        out.append((loss, grads, change,
-                    {k: bl.PADDED[k] - n0[k] for k in n0}))
+        out.append((loss, grads, change, _since(n0, PADDED_ROLES)))
         del st, step
     (l1, g1, c1, n1), (l2, g2, c2, n2) = out
-    assert n1 == {"fwd": 3, "dgrad": 3, "wgrad": 3}
+    assert n1 == dict.fromkeys(PADDED_ROLES, 3)
     assert not any(n2.values())
     assert abs(l1 - l2) <= 6e-6 * abs(l2)
     for k, r in g2.items():
@@ -1705,9 +1725,9 @@ def test_head_kernels_match_plain_form(rows, cols, kind, wants, cuda):
     from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear import (
         bf16_linear_reference)
     x, w, b, g = _head_operands(rows, cols, cuda, kind)
-    n0 = dict(hd.HEAD)
+    n0 = profiling.LAUNCHES.copy()
     y, dx, dw, db = _head_run(hd.bf16_head, x, w, b, g, wants)
-    assert {k: hd.HEAD[k] - n0[k] for k in n0} == {"fwd": 1, "bwd": 1}
+    assert _since(n0, HEAD) == {"head_fwd": 1, "head_bwd": 1}
     y_r, dx_r, dw_r, _ = _head_run(bf16_linear_reference, x, w, b, g,
                                    wants)
     u = 2.0 ** -24
@@ -1798,15 +1818,16 @@ def test_head_step_counts_its_kernels_and_matches_plain_head(cuda,
         st = tad.init_ad_state(cfg, params=sd, codes=codes, device=cuda)
         step = tad.make_bank_step(st.decoder, cfg, bank, torch.Generator(
             device=cuda).manual_seed(5))
-        n0 = dict(hd.HEAD)
+        n0 = profiling.LAUNCHES.copy()
         loss = float(step(st, ids, 0.0, 17)["loss"])
         grads = {k: p.grad.double() for k, p in
                  st.decoder.named_parameters()}
         grads["codes"] = st.codes.grad.double()
-        out.append((loss, grads, {k: hd.HEAD[k] - n0[k] for k in n0}))
+        out.append((loss, grads, _since(n0, HEAD)))
         del st, step
     (l1, g1, n1), (l2, g2, n2) = out
-    assert n1 == {"fwd": 1, "bwd": 1} and n2 == {"fwd": 0, "bwd": 0}
+    assert n1 == {"head_fwd": 1, "head_bwd": 1}
+    assert n2 == {"head_fwd": 0, "head_bwd": 0}
     assert abs(l1 - l2) <= 1e-6 * abs(l2)
     for k, r in g2.items():
         gap = float(torch.linalg.vector_norm(g1[k] - r)

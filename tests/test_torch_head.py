@@ -27,6 +27,7 @@ from latent_diffusion_models_for_shape_sdfs_torch.ops import head as hd
 from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear import (
     bf16_linear_reference)
 from latent_diffusion_models_for_shape_sdfs_torch.train import auto_decoder as tad
+from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -146,9 +147,9 @@ def test_decoder_through_the_function_equals_the_former_composition(
     """Three autograd steps with the head through bf16_head equal, bit for
     bit, the same steps with the head through bf16_linear_reference (the
     former composition, WNLinear's bf16 form): losses, every parameter,
-    the codes; the function ran once a step, and HEAD counted nothing."""
+    the codes; the function ran once a step, and nothing was launched."""
     cfg = _ad_cfg(**plan)
-    before = dict(hd.HEAD)
+    before = profiling.LAUNCHES.copy()
     runs, calls = [], []
     real = hd.bf16_head
 
@@ -168,7 +169,7 @@ def test_decoder_through_the_function_equals_the_former_composition(
     assert l1 == l2
     assert all(torch.equal(sd1[k], sd2[k]) for k in sd1)
     assert torch.equal(c1, c2)
-    assert hd.HEAD == before
+    assert profiling.LAUNCHES == before
 
 
 def test_decoder_forward_alone_and_dx_alone(monkeypatch):
@@ -225,7 +226,7 @@ def test_cpu_decoder_launches_nothing_and_keeps_the_plain_form(
         dtype, monkeypatch):
     """A CPU training step: a bf16 head goes through bf16_head (the plain
     form's arithmetic) and not WNLinear.forward, an fp32 head through
-    WNLinear.forward and not bf16_head; HEAD does not move."""
+    WNLinear.forward and not bf16_head; nothing is launched."""
     heads, seen = [], []
     real_head = hd.bf16_head
     real = decoder_module.WNLinear.forward
@@ -244,7 +245,7 @@ def test_cpu_decoder_launches_nothing_and_keeps_the_plain_form(
         latent_size=8, hidden_dim=64, num_layers=4, compute_dtype=dtype,
         use_dropout=False), num_scenes=3, scenes_per_batch=2,
         samples_per_scene=48, clamp_dist=1.0)
-    before = dict(hd.HEAD)
+    before = profiling.LAUNCHES.copy()
     st = tad.init_ad_state(cfg, seed=4, device="cpu")
     step = tad.make_ad_train_step(st.decoder, cfg)
     ids, xyz, sdf = _batch(cfg, 0)
@@ -253,4 +254,4 @@ def test_cpu_decoder_launches_nothing_and_keeps_the_plain_form(
         assert heads == [BF] and seen == []
     else:
         assert heads == [] and seen and set(seen) == {torch.float32}
-    assert hd.HEAD == before
+    assert profiling.LAUNCHES == before

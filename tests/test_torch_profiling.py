@@ -42,7 +42,7 @@ from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 from latent_diffusion_models_for_shape_sdfs_torch.utils.checkpoint import (
     params_from_jax)
 from latent_diffusion_models_for_shape_sdfs_torch.utils.profiling import (
-    check_kernel, cost_analysis, count_kernel, debug_nans, kernel_pass,
+    LAUNCHES, check_kernel, cost_analysis, debug_nans, kernel_pass, launched,
     trace)
 
 torch.set_num_threads(2)
@@ -328,18 +328,19 @@ def test_train_kernel_count_is_its_plain_versions(plan, S, P, rate):
 
 
 def test_kernel_hooks_report_only_inside_the_modes():
-    """count_kernel adds a launch's work, a kernel_pass counts once what
-    is launched and dispatched inside it; check_kernel raises naming the
-    kernel; outside the modes both do nothing."""
+    """The launch record adds a launch's work, a kernel_pass counts once
+    what is launched and dispatched inside it; the record and the NaN
+    hook raise naming the kernel; outside the modes they count the launch
+    and nothing else."""
     a, b = torch.ones(2, 3), torch.ones(3, 5)
     bad = torch.tensor([1.0, float("nan")])
-    count_kernel("k", 10, 20)
+    launched("k", 0, bad, flops=10, nbytes=20)
     check_kernel("k", bad)
 
     def fn():
-        count_kernel("k", 10, 20)
+        launched("k", 0, flops=10, nbytes=20)
         with kernel_pass("pass", 100, 200):
-            count_kernel("inner", 1, 1)
+            launched("inner", 0, flops=1, nbytes=1)
             a @ b
         a @ b
 
@@ -347,9 +348,60 @@ def test_kernel_hooks_report_only_inside_the_modes():
                                  "bytes accessed": 20 + 200
                                  + 4 * (6 + 15 + 10)}
     with debug_nans():
+        launched("k", 0, torch.ones(2), torch.tensor([1, 2]))
         check_kernel("k", torch.ones(2), torch.tensor([1, 2]))
         with pytest.raises(FloatingPointError, match="encountered in k$"):
+            launched("k", 0, torch.ones(2), bad)
+        with pytest.raises(FloatingPointError, match="encountered in k$"):
             check_kernel("k", torch.ones(2), bad)
+
+
+@pytest.mark.parametrize("rc", [0, 2, -1])
+def test_launch_record_counts_a_launch_or_raises(rc):
+    """A zero return code counts one launch under its name; any other
+    raises RuntimeError naming the launch and its code, and counts
+    nothing."""
+    before = LAUNCHES.copy()
+    if rc:
+        with pytest.raises(RuntimeError,
+                           match=rf"^test\.launch: .*cudaError {rc}$"):
+            launched("test.launch", rc, torch.ones(2), flops=1, nbytes=1)
+        assert LAUNCHES == before
+    else:
+        launched("test.launch", rc)
+        assert LAUNCHES - before == {"test.launch": 1}
+
+
+@pytest.mark.parametrize("where", [0, 1])
+def test_launch_record_nan_check_names_the_launch(where):
+    """Under debug_nans a NaN in any tensor the launch reports, an input
+    or an output, raises naming the launch; integer tensors and healthy
+    floats pass; the launch is counted before the check."""
+    ts = [torch.ones(4), torch.arange(3), torch.zeros(2, 2)]
+    ts[2 * where][-1] = float("nan")
+    before = LAUNCHES.copy()
+    with debug_nans():
+        launched("test.nan_ok", 0, torch.ones(4), torch.arange(3))
+        with pytest.raises(FloatingPointError,
+                           match=r"invalid value \(nan\) encountered in "
+                                 r"test\.nan$"):
+            launched("test.nan", 0, *ts)
+    assert LAUNCHES - before == {"test.nan_ok": 1, "test.nan": 1}
+
+
+@pytest.mark.parametrize("in_pass", [False, True])
+def test_launch_record_adds_its_cost_once(in_pass):
+    """Under cost_analysis a launch's FLOPs and bytes are added once; a
+    launch inside a kernel_pass adds nothing beyond the pass's own."""
+    def fn():
+        launched("test.cost", 0, flops=7, nbytes=11)
+        if in_pass:
+            with kernel_pass("test.pass", 100, 200):
+                launched("test.cost", 0, flops=7, nbytes=11)
+
+    want = {"flops": 7 + (100 if in_pass else 0),
+            "bytes accessed": 11 + (200 if in_pass else 0)}
+    assert cost_analysis(fn) == want
 
 
 # ------------------------------------------------------------------ trace

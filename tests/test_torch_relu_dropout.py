@@ -18,6 +18,7 @@ import torch
 from latent_diffusion_models_for_shape_sdfs_tpu.ops.pallas_kernels import (
     _dropout_keep_mask_xla, relu_dropout as jax_relu_dropout)
 from latent_diffusion_models_for_shape_sdfs_torch.ops import relu_dropout as rd
+from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -129,8 +130,8 @@ def test_grad_matches_mask(dtype):
 
 
 def test_cpu_wrapper_counts_no_launch_and_refuses_other_devices():
-    n0 = dict(rd.LAUNCHES)
+    n0 = profiling.LAUNCHES.copy()
     rd.relu_dropout_fwd(torch.ones(4, 4), 0, 0.2)
-    assert rd.LAUNCHES == n0
+    assert profiling.LAUNCHES == n0
     with pytest.raises(ValueError, match="CUDA tensors"):
         rd.relu_dropout_fwd(torch.ones(4, 4, device="meta"), 0, 0.2)

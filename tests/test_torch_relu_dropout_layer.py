@@ -32,6 +32,7 @@ from latent_diffusion_models_for_shape_sdfs_torch.models import (
 from latent_diffusion_models_for_shape_sdfs_torch.ops import bf16_linear as bl
 from latent_diffusion_models_for_shape_sdfs_torch.ops import relu_dropout as rd
 from latent_diffusion_models_for_shape_sdfs_torch.train import auto_decoder as tad
+from latent_diffusion_models_for_shape_sdfs_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -52,11 +53,6 @@ def _layer_operands(rows, cols, seed=0):
     return yf, b, g
 
 
-def _composition(x, w, b, seed, rate):
-    """the composed form: the product with its bias in fp32, the cast, #3."""
-    return rd.relu_dropout(bl.bf16_linear(x, w, b).to(BF), seed, rate)
-
-
 # ------------------------------------------------------------ (a) forward
 
 @pytest.mark.parametrize("cols", WIDTHS)
@@ -75,7 +71,8 @@ def test_forward_is_relu_dropout_of_the_rounded_sum(cols, rows, rate):
         BF)
     w = torch.from_numpy(rng.normal(size=(cols, 48)).astype(np.float32) / 7)
     assert torch.equal(bl.bf16_linear_relu_dropout(x, w, b, 11, rate),
-                       _composition(x, w, b, 11, rate))
+                       bl.bf16_linear_relu_dropout_reference(x, w, b, 11,
+                                                             rate))
 
 
 # ----------------------------------------------------------- (b) backward
@@ -138,9 +135,9 @@ def test_layer_entries_check_their_inputs():
     with pytest.raises(ValueError, match="bfloat16"):
         bl.bf16_linear_relu_dropout(yf, torch.zeros(4, 16), torch.zeros(4),
                                     1, 0.2)
-    n0 = dict(rd.LAUNCHES)
+    n0 = profiling.LAUNCHES.copy()
     rd.relu_dropout_bwd_out(out, g, 0.2)
-    assert rd.LAUNCHES == n0
+    assert profiling.LAUNCHES == n0
 
 
 # ----------------------------------------------------------------- (c) db
@@ -286,29 +283,58 @@ def _batch(cfg, seed):
          xyz_in_all=True)])
 def test_training_steps_equal_the_composition(plan, monkeypatch):
     """Three autograd steps of a bf16 decoder with a skip layer and
-    dropout, its hidden layers through bf16_linear_relu_dropout, equal
-    the same steps through bf16_linear, the cast and relu_dropout (the
-    form before the layer): loss, every parameter and the codes."""
+    dropout, its hidden layers through bf16_linear_relu_dropout (the route
+    configs 3-5 take), equal the same steps with that layer substituted
+    by its composition, bf16_linear_relu_dropout_reference (bf16_linear,
+    the cast and relu_dropout: the form before the layer): loss, every
+    parameter and the codes."""
     cfg = _ad_cfg(**plan)
     calls = []
-    fused = decoder_module.bf16_linear_relu_dropout
-    monkeypatch.setattr(decoder_module, "bf16_linear_relu_dropout",
-                        lambda *a: calls.append(1) or fused(*a))
     runs = []
-    for hidden in (bl.bf16_linear, lambda x, w, b: bl.bf16_linear(x, w, b)):
-        monkeypatch.setattr(decoder_module, "bf16_linear", hidden)
-        calls.clear()
+    for layer in (bl.bf16_linear_relu_dropout,
+                  bl.bf16_linear_relu_dropout_reference):
+        monkeypatch.setattr(
+            decoder_module, "bf16_linear_relu_dropout",
+            lambda *a, layer=layer: calls.append(layer) or layer(*a))
         st = tad.init_ad_state(cfg, seed=2, device="cpu")
         step = tad.make_ad_train_step(st.decoder, cfg)
         losses = [float(step(st, *_batch(cfg, i), float(i), i)["loss"])
                   for i in range(3)]
-        runs.append((losses, st.decoder.state_dict(), st.codes.detach(),
-                     len(calls)))
-    (l1, sd1, c1, n1), (l2, sd2, c2, n2) = runs
-    assert (n1, n2) == (3 * cfg.decoder.num_layers, 0)
+        runs.append((losses, st.decoder.state_dict(), st.codes.detach()))
+    (l1, sd1, c1), (l2, sd2, c2) = runs
+    n = 3 * cfg.decoder.num_layers
+    assert calls == [bl.bf16_linear_relu_dropout] * n + [
+        bl.bf16_linear_relu_dropout_reference] * n
     assert l1 == l2
     assert all(torch.equal(sd1[k], sd2[k]) for k in sd1)
     assert torch.equal(c1, c2)
+
+
+@pytest.mark.parametrize("xyz_in_all", [False, True])
+def test_kernel_dropout_route_reads_no_product_seam(xyz_in_all, monkeypatch):
+    """A bf16 training step with kernel dropout sends every hidden layer
+    through bf16_linear_relu_dropout, with no layout on the CPU, even
+    with the decoder's bf16_linear replaced: the route depends on the
+    configuration alone."""
+    cfg = _ad_cfg(latent_size=8, hidden_dim=32, num_layers=4,
+                  latent_in=(2,), xyz_in_all=xyz_in_all)
+    layers = []
+    fused = decoder_module.bf16_linear_relu_dropout
+
+    def refuse(*a):
+        raise AssertionError("the kernel-dropout route reached bf16_linear")
+
+    def seen(x, w, b, seed, rate, runs):
+        layers.append((tuple(w.shape), runs))
+        return fused(x, w, b, seed, rate, runs)
+
+    monkeypatch.setattr(decoder_module, "bf16_linear", refuse)
+    monkeypatch.setattr(decoder_module, "bf16_linear_relu_dropout", seen)
+    st = tad.init_ad_state(cfg, seed=2, device="cpu")
+    step = tad.make_ad_train_step(st.decoder, cfg)
+    step(st, *_batch(cfg, 0), 0.0, 1)
+    hidden = st.decoder.layer_dims()[:-1]
+    assert layers == [((out, d_in), None) for d_in, out, _ in hidden]
 
 
 def test_layer_saves_its_output_not_the_pre_activation():
