@@ -3005,6 +3005,8 @@ TRAIN_KERNELS = (*RD, "fused_train", "gemm_fwd", "gemm_dgrad", "gemm_wgrad",
                  "layer0")                                  # and #4's roles
 ROLES = ("fwd", "dgrad", "wgrad")
 HEAD = ("head_fwd", "head_bwd")                             # csrc/head.cu
+DECODER_INPUT = ("decoder_input.fwd", "decoder_input.bwd", "skip_input.fwd",
+                 "skip_input.bwd")                  # csrc/decoder_input.cu
 
 
 def launch_record():
@@ -3452,6 +3454,103 @@ def head_alone(dev, card) -> dict:
     return out
 
 
+def decoder_input_alone(dev, card) -> dict:
+    """csrc/decoder_input.cu's four passes alone at config 3's bank step
+    (64 scenes x 16,384 points, L 256, the skip layer's x 256 wide), on
+    CUDA events, beside the plain passes each replaces and its bytes bound
+    at PEAK_HBM_BYTES (each row read and written once, z and xyz once;
+    not the partials). The plain passes: lin0's input from the expanded
+    codes (expand, cast, pad_columns); the skip cat; the add of the two
+    cotangents, the cast and the per-scene sum; gx's dense copy. Gates:
+    one launch of each pass in the checked call; both forwards bit for bit the cast + pad_columns (+ torch.cat), gx
+    bit for bit; each dz within its fp32 sums' error (the summation's
+    depth x 2^-24 x sum |d|) of the float64 per-scene sum."""
+    import torch
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        decoder_input as di)
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear \
+        import pad_columns
+    S, P, L, W = 64, 16384, 256, 256
+    N, T, bf = S * P, 264, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(28)
+    z = torch.randn(S, L, generator=gen, device=dev) * 0.3
+    xyz = torch.rand(S, P, 3, generator=gen, device=dev) * 2 - 1
+    x = torch.randn(N, W, generator=gen, device=dev).to(bf)
+    d0 = (torch.randn(N, T, generator=gen, device=dev) / P).to(bf)
+    d4 = (torch.randn(N, W + T, generator=gen, device=dev) / P).to(bf)
+
+    def plain_inp():
+        zf = z[:, None, :].expand(S, P, L).reshape(N, L)
+        return pad_columns([zf.to(bf), xyz.reshape(-1, 3).to(bf)])
+
+    inp = plain_inp()
+    n0 = launch_record().copy()
+    got_inp, got_skip = di._rows("decoder_input.fwd", None, z, xyz), \
+        di._rows("skip_input.fwd", x, z, xyz)
+    gx, dz4 = di._colsum("skip_input.bwd", d4, W, S, P, L)
+    _, dz0 = di._colsum("decoder_input.bwd", d0, 0, S, P, L)
+    out = dict(inp_equal=bool(torch.equal(got_inp, inp)),
+               skip_equal=bool(torch.equal(got_skip,
+                                           torch.cat([x, inp], -1))),
+               gx_equal=bool(torch.equal(gx, d4[:, :W])),
+               launches=launched_since(n0, DECODER_INPUT))
+    del got_inp, got_skip, gx
+    for tag, dz, part, chunks in (("decoder_input", dz0, d0[:, :L], L // 8),
+                                  ("skip_input", dz4, d4[:, W:W + L],
+                                   (W + L) // 8)):
+        # the most fp32 additions on a path: a lane's rows of a work item,
+        # the lanes, the work items
+        lanes = 256 // chunks
+        depth = -(-di._ITEM_ROWS // lanes) + lanes + -(-P // di._ITEM_ROWS)
+        p64 = part.double().reshape(S, P, L)
+        gap = (dz.double() - p64.sum(1)).abs()
+        bound = depth * 2.0 ** -24 * p64.abs().sum(1)
+        out[f"{tag}_dz_gap"] = float((gap / bound).max())
+        out[f"{tag}_dz_max_abs"] = float(gap.max())
+        del p64
+    fp32, bf2, mb = 4, 2, PEAK_HBM_BYTES / 1e3
+    by = dict(
+        decoder_input_fwd=N * T * bf2 + (S * L + N * 3) * fp32,
+        decoder_input_bwd=N * L * bf2 + S * L * fp32,
+        skip_input_fwd=N * W * bf2 + N * (W + T) * bf2 + (S * L + N * 3)
+        * fp32,
+        skip_input_bwd=N * (W + L) * bf2 + N * W * bf2 + S * L * fp32)
+    out.update(
+        decoder_input_fwd_ms=time_ms(
+            lambda: di._rows("decoder_input.fwd", None, z, xyz), 20),
+        decoder_input_bwd_ms=time_ms(
+            lambda: di._colsum("decoder_input.bwd", d0, 0, S, P, L), 20),
+        skip_input_fwd_ms=time_ms(
+            lambda: di._rows("skip_input.fwd", x, z, xyz), 20),
+        skip_input_bwd_ms=time_ms(
+            lambda: di._colsum("skip_input.bwd", d4, W, S, P, L), 20),
+        decoder_input_fwd_plain_ms=time_ms(plain_inp, 10),
+        decoder_input_bwd_plain_ms=time_ms(
+            lambda: (d0 + d4[:, W:])[:, :L].float().reshape(S, P, L).sum(1),
+            10),
+        skip_input_fwd_plain_ms=time_ms(lambda: torch.cat([x, inp], -1), 10),
+        skip_input_bwd_plain_ms=time_ms(
+            lambda: d4[:, :W].contiguous(), 10),
+        **{f"{k}_bound_ms": v / mb for k, v in by.items()})
+    log(f"[bank] csrc/decoder_input.cu alone at {S} x {P} points, L {L}, "
+        f"x {W}: " + "; ".join(
+            f"{k} {out[k + '_ms']:.3f} ms (bound {out[k + '_bound_ms']:.3f}"
+            f", {100 * out[k + '_bound_ms'] / out[k + '_ms']:.1f}%; plain "
+            f"{out[k + '_plain_ms']:.3f})" for k in by)
+        + f"; forwards bit-equal {out['inp_equal']} / {out['skip_equal']}, "
+        f"gx bit-equal {out['gx_equal']}, dz at most "
+        f"{out['decoder_input_dz_gap']:.3f} / {out['skip_input_dz_gap']:.3f}"
+        f" of its sums' error bound [{card}]")
+    if not (out["launches"] == dict.fromkeys(DECODER_INPUT, 1)
+            and out["inp_equal"] and out["skip_equal"] and out["gx_equal"]
+            and out["decoder_input_dz_gap"] <= 1.0
+            and out["skip_input_dz_gap"] <= 1.0):
+        raise RuntimeError(f"[bank] csrc/decoder_input.cu vs the plain "
+                           f"passes: {out}")
+    del z, xyz, x, d0, d4, inp
+    return out
+
+
 def check_bank(bank, sdf_fn_of, n: int, tag: str) -> dict:
     """A bank's contract: counts in (0, n], each side's first `count` rows
     of its sign where both sides hold rows (pos + neg == n), and labels
@@ -3616,25 +3715,29 @@ def bank_phase(dev, card, host_ms: float, k4_ms: float) -> dict:
     products = tc_products()
     padded = tc_products(".padded")
     head = launched_since({}, HEAD)
+    inputs = launched_since({}, DECODER_INPUT)
     ms_a = events[0].elapsed_time(events[-1]) / (len(events) - 1)
     l1a = [float(v) for v in l1a]
     n_hidden = len(st.decoder.layer_dims()) - 1
     out["autograd"] = dict(steps=10, ms_per_step=ms_a, loss_l1=l1a,
                            launches=la, tc_products=products,
-                           padded_products=padded, head_launches=head)
+                           padded_products=padded, head_launches=head,
+                           input_launches=inputs)
     out["launches"]["autograd"] = la
     log(f"[bank] autograd route (#3/#3b, hidden layers on the bf16 tensor "
         f"cores) from the bank: 10 steps, {ms_a:.1f} ms/step (steps 1-9), "
         f"step-0 loss_l1 {l1a[0]:.5f}, launches {la}, tensor-core products "
         f"{products}, of them on padded operands {padded} (lin0, lin3 and "
-        f"the skip layer); the fp32 head's kernels {head}; steps 2-4 "
-        f"without host sync [{card}]")
+        f"the skip layer); the fp32 head's kernels {head}; the input and "
+        f"skip rows from the codes {inputs}; steps 2-4 without host sync "
+        f"[{card}]")
     if la["relu_dropout_fwd"] != 80 or la["relu_dropout_bwd"] != 80 \
             or la["fused_train"] or not l1a[0] < BANK_GATES["chair"] \
             or products != {k: 10 * n_hidden
                             for k in ("fwd", "dgrad", "wgrad")} \
             or padded != {k: 30 for k in ("fwd", "dgrad", "wgrad")} \
-            or head != dict.fromkeys(HEAD, 10):
+            or head != dict.fromkeys(HEAD, 10) \
+            or inputs != dict.fromkeys(DECODER_INPUT, 10):
         raise RuntimeError(f"[bank] autograd route: {out['autograd']}")
     # the composed form of the same route (bf16_linear, the cast,
     # relu_dropout: the bias add, casts and db sum as passes of their own),
@@ -3697,6 +3800,8 @@ def bank_phase(dev, card, host_ms: float, k4_ms: float) -> dict:
     del st, step, plain, parent, bank, ids, xyz_b, sdf_b
     torch.cuda.empty_cache()
     out["head"].update(head_alone(dev, card))
+    torch.cuda.empty_cache()
+    out["decoder_input"] = decoder_input_alone(dev, card)
     torch.cuda.empty_cache()
 
     # ---- the CSG bank from the multicat pack
@@ -4995,8 +5100,7 @@ def main() -> int:
         "route": "cuda",
         "source": SRC + "head.cu",
         "replaces": None,
-        "launches": bk["autograd"]["head_launches"]["head_fwd"]
-        + bk["head"]["launches"]["head_fwd"],
+        "launches": bk["autograd"]["head_launches"]["head_fwd"],
         "max_abs_err": bk["head"]["pred_max_abs"],
         "ms": bk["head"]["fwd_ms"],
         "plain_ms": bk["head"]["plain_fwd_ms"],
@@ -5008,15 +5112,27 @@ def main() -> int:
         "route": "cuda",
         "source": SRC + "head.cu",
         "replaces": None,
-        "launches": bk["autograd"]["head_launches"]["head_bwd"]
-        + bk["head"]["launches"]["head_bwd"],
+        "launches": bk["autograd"]["head_launches"]["head_bwd"],
         "max_abs_err": bk["head"]["dw_max_abs"],
         "ms": bk["head"]["bwd_ms"],
         "plain_ms": bk["head"]["plain_bwd_ms"],
         "bound_ms": bk["head"]["bound_bwd_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-    }]
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": SRC + "decoder_input.cu",
+        "replaces": None,
+        "launches": bk["autograd"]["input_launches"][name],
+        "max_abs_err": (0.0 if name.endswith("fwd") else
+                        bk["decoder_input"][name[:-4] + "_dz_max_abs"]),
+        "ms": bk["decoder_input"][key + "_ms"],
+        "plain_ms": bk["decoder_input"][key + "_plain_ms"],
+        "bound_ms": bk["decoder_input"][key + "_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    } for name in DECODER_INPUT for key in [name.replace(".", "_")]]
     if not all(k["launches"] > 0 for k in kernels):
         raise RuntimeError(f"a kernel was not launched on its main path: "
                            f"{[(k['name'], k['launches']) for k in kernels]}")

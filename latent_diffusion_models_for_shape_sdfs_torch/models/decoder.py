@@ -45,6 +45,18 @@ two padded pieces; the head reads the logical columns. Widths already
 multiples of 8 are left as they are. The plain dropout
 (`dropout_impl="xla"`) draws its mask over the row as stored, so it
 keeps the unpadded layout.
+
+The forward also takes a training step's inputs per scene, one code z
+[S, L] for the P points xyz [S, P, 3] of each scene, and returns [S, P]:
+the flat form of z expanded over each scene's points. On the padded
+layout on the card, with kernel dropout or none and neither
+`latent_dropout` nor `xyz_in_all`, lin0's input and the skip layer's are
+written straight from z and xyz (`ops.decoder_input`, the kernels of
+`csrc/decoder_input.cu`, which raise on what they cannot take), so no
+flat copy of the codes exists; the forward and every weight gradient are
+the flat form's bit for bit, and z's gradient drops the bf16 rounding of
+its two cotangents' add. Anywhere else the forward expands z itself and
+runs the flat form.
 """
 
 from __future__ import annotations
@@ -59,6 +71,8 @@ from torch.nn import functional as F
 from latent_diffusion_models_for_shape_sdfs_torch.config import DecoderConfig
 from latent_diffusion_models_for_shape_sdfs_torch.ops import (
     bf16_linear as bf16_ops)
+from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+    decoder_input as di_ops)
 from latent_diffusion_models_for_shape_sdfs_torch.ops import head as head_ops
 from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear import (
     bf16_linear, bf16_linear_reference, bf16_linear_relu_dropout)
@@ -145,38 +159,54 @@ class SdfDecoder(nn.Module):
 
     def forward(self, z: torch.Tensor, xyz: torch.Tensor,
                 seed: int | None = None) -> torch.Tensor:
-        """z [..., L], xyz [..., 3] -> sdf [...] (fp32). In training mode
+        """z [..., L], xyz [..., 3] -> sdf [...] (fp32); or per scene, z
+        [S, L] and xyz [S, P, 3] -> sdf [S, P], the flat form of z expanded
+        over each scene's P points (rows scene-major). In training mode
         with dropout configured, `seed` (an int) fixes every dropout mask;
         the relu+dropout kernel keys its mask by the row of the flattened
-        [..., H] activation, so pass flat [N, L] / [N, 3] inputs to get the
-        fused train kernel's masks."""
+        [..., H] activation, so pass flat [N, L] / [N, 3] inputs, or the
+        per-scene form, to get the fused train kernel's masks."""
         c = self.cfg
         drop = self.training and c.use_dropout and c.dropout_prob > 0
         if (drop or (self.training and c.latent_dropout)) and seed is None:
             raise ValueError("training-mode dropout needs a seed")
         dtype = getattr(torch, c.compute_dtype)
-        z = z.to(dtype)
-        xyz = xyz.to(dtype)
         plan = self.layer_dims()
         n_lin = len(plan)
-        if c.latent_dropout and self.training:
-            # lineage option: dropout(0.2) on the latent half of the input,
-            # drawn from the stream one past the last hidden layer's
-            z = _plain_dropout(z, 0.2, layer_seed(seed, n_lin))
         fused = drop and c.dropout_impl == "pallas"
         pad = (dtype == torch.bfloat16 and bf16_ops.pads(z)
                and (fused or not drop))
-        if pad:
-            inp = bf16_ops.pad_columns([z, xyz])
-            if c.xyz_in_all:
-                xyz = bf16_ops.pad_columns([xyz])
+        scenes = z.dim() == 2 and xyz.dim() == 3
+        # the kernels' route; the padded layout asked for on the CPU (the
+        # layout's tests) expands z, as the kernels run on the card alone
+        if scenes and not (pad and z.is_cuda and not c.xyz_in_all
+                           and not (c.latent_dropout and self.training)):
+            S, P, L = *xyz.shape[:2], z.shape[-1]
+            flat = z[:, None, :].expand(S, P, L).reshape(-1, L)
+            return self.forward(flat, xyz.reshape(-1, 3),
+                                seed).reshape(S, P)
+        if scenes:      # the rows written from z and xyz (ops.decoder_input)
+            inp = di_ops.decoder_input(z, xyz)
         else:
-            inp = torch.cat([z, xyz], dim=-1)
+            z = z.to(dtype)
+            xyz = xyz.to(dtype)
+            if c.latent_dropout and self.training:
+                # lineage option: dropout(0.2) on the latent half of the
+                # input, drawn from the stream one past the last hidden
+                # layer's
+                z = _plain_dropout(z, 0.2, layer_seed(seed, n_lin))
+            if pad:
+                inp = bf16_ops.pad_columns([z, xyz])
+                if c.xyz_in_all:
+                    xyz = bf16_ops.pad_columns([xyz])
+            else:
+                inp = torch.cat([z, xyz], dim=-1)
         x = inp
         runs = (plan[0][0],)    # x's columns: logical widths of its pieces
         for layer, (_, out, takes_skip) in enumerate(plan):
             if takes_skip:
-                x = torch.cat([x, inp], dim=-1)
+                x = (di_ops.skip_input(x, z, xyz) if scenes
+                     else torch.cat([x, inp], dim=-1))
                 runs += (plan[0][0],)
             elif c.xyz_in_all and layer != 0:
                 x = torch.cat([x, xyz], dim=-1)
@@ -209,7 +239,8 @@ class SdfDecoder(nn.Module):
                         x = _plain_dropout(x, c.dropout_prob, s)
         if c.use_tanh:
             x = torch.tanh(x)
-        return x[..., 0].float()
+        x = x[..., 0].float()
+        return x.reshape(xyz.shape[:2]) if scenes else x
 
 
 def _plain_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:

@@ -133,12 +133,11 @@ def make_ad_train_step(decoder: SdfDecoder, cfg: AdConfig,
     def autograd_value_and_grads(codes, scene_ids, xyz, sdf, epoch, seed):
         with profiling.span("ad.forward"):
             z = gather_codes(codes, scene_ids, cfg.code_bound)
-            L = z.shape[-1]
-            flat_z = z[:, None, :].expand(z.shape[0], xyz.shape[1], L)
-            pred = decoder(flat_z.reshape(-1, L), xyz.reshape(-1, 3),
-                           seed=seed)
-            l1 = losses.clamped_l1(pred, sdf.reshape(-1), cfg.clamp_dist,
-                                   num_sdf_samples)
+            # per scene: on the card's bf16 route the decoder writes its
+            # input rows from z, else it expands z over the points itself
+            pred = decoder(z, xyz, seed=seed)
+            l1 = losses.clamped_l1(pred.reshape(-1), sdf.reshape(-1),
+                                   cfg.clamp_dist, num_sdf_samples)
             # lineage sums ||z|| over per-sample rows / num_sdf_samples;
             # with equal samples per scene that is the sum over scenes / S
             reg = losses.code_reg(z, epoch, cfg.code_reg_lambda,

@@ -1835,6 +1835,293 @@ def test_head_step_counts_its_kernels_and_matches_plain_head(cuda,
         assert gap <= 5e-3, (k, gap)
 
 
+# ------- the decoder's input and skip operands from per-scene codes
+#                                              (csrc/decoder_input.cu)
+
+DI = ("decoder_input.fwd", "decoder_input.bwd", "skip_input.fwd",
+      "skip_input.bwd")
+# (S, P, L, W): config 3's step, odd scene counts, P off the work item's
+# 128 rows, a latent width off 8 and 4
+DI_SHAPES = [(64, 16384, 256, 256), (1, 1000, 256, 256), (3, 16384 + 131,
+             256, 256), (3, 77, 13, 24), (2, 333, 37, 16), (5, 129, 8, 8)]
+
+
+def _di_operands(S, P, L, W, cuda):
+    """z [S, L] and xyz [S, P, 3] fp32, x [S P, W] bf16, and cotangents
+    d0 [S P, T] (lin0's input) and d4 [S P, W + T] (the skip layer's)
+    bf16, T = L + 3 rounded up to 8."""
+    gen = torch.Generator(device=cuda).manual_seed(S * P + L)
+    T = -(-(L + 3) // 8) * 8
+    z = torch.randn(S, L, generator=gen, device=cuda) * 0.3
+    xyz = torch.rand(S, P, 3, generator=gen, device=cuda) * 2 - 1
+    x = torch.randn(S * P, W, generator=gen, device=cuda).to(torch.bfloat16)
+    d0 = (torch.randn(S * P, T, generator=gen, device=cuda) / P).to(
+        torch.bfloat16)
+    d4 = (torch.randn(S * P, W + T, generator=gen, device=cuda) / P).to(
+        torch.bfloat16)
+    return z, xyz, x, d0, d4
+
+
+def _di_composition(z, xyz):
+    from latent_diffusion_models_for_shape_sdfs_torch.ops.bf16_linear import (
+        pad_columns)
+    S, P, L = *xyz.shape[:2], z.shape[1]
+    zf = z[:, None, :].expand(S, P, L).reshape(S * P, L)
+    return pad_columns([zf.to(torch.bfloat16),
+                        xyz.reshape(-1, 3).to(torch.bfloat16)])
+
+
+def _di_depth(P, chunks):
+    """The most fp32 additions on any path of csrc/decoder_input.cu's
+    column sums: a lane's rows of a work item, the lanes, the items."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        decoder_input as di)
+    lanes = 256 // chunks
+    return (-(-di._ITEM_ROWS // lanes) + lanes + -(-P // di._ITEM_ROWS))
+
+
+@pytest.mark.parametrize("S,P,L,W", DI_SHAPES)
+def test_decoder_input_kernels_match_composition(S, P, L, W, cuda):
+    """decoder_input and skip_input on the card: both outputs bit for bit
+    the cast + pad_columns (+ torch.cat after x); skip_input's x gradient
+    bit for bit the cotangent's first W columns, dense; each dz within its
+    fp32 sums' error (the summation's depth x 2^-24 x sum |d|) of the
+    float64 per-scene sum; one launch of each pass."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        decoder_input as di)
+    z0, xyz, x0, d0, d4 = _di_operands(S, P, L, W, cuda)
+    ref = _di_composition(z0, xyz)
+    for fn, d, xw in (("decoder_input", d0, 0), ("skip_input", d4, W)):
+        z = z0.clone().requires_grad_()
+        x = x0.clone().requires_grad_()
+        n0 = profiling.LAUNCHES.copy()
+        out = (di.decoder_input(z, xyz) if fn == "decoder_input"
+               else di.skip_input(x, z, xyz))
+        want = ref if fn == "decoder_input" else torch.cat([x0, ref], -1)
+        assert out.dtype == torch.bfloat16 and torch.equal(out, want)
+        out.backward(d)
+        torch.cuda.synchronize()
+        assert _since(n0, (f"{fn}.fwd", f"{fn}.bwd")) == {
+            f"{fn}.fwd": 1, f"{fn}.bwd": 1}
+        if fn == "skip_input":
+            assert x.grad.is_contiguous() and torch.equal(x.grad, d4[:, :W])
+        part = d[:, xw:xw + L].double().reshape(S, P, L)
+        depth = _di_depth(P, xw // 8 + -(-L // 8))
+        bound = depth * 2.0 ** -24 * part.abs().sum(1)
+        assert z.grad.dtype == torch.float32 and z.grad.shape == (S, L)
+        assert bool(((z.grad.double() - part.sum(1)).abs() <= bound).all())
+
+
+def test_decoder_input_dz_is_the_old_sum_without_its_rounding(cuda):
+    """At config 3's step: the two functions' dz added against the flat
+    route's, sum_p fp32(bf16(d0 + d4)) over each scene's rows: within one
+    bf16 rounding of the add (2^-8 sum |d0 + d4|) and the sums' error;
+    against the float64 sum of d0 + d4 closer than the flat route."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        decoder_input as di)
+    S, P, L, W = DI_SHAPES[0]
+    z0, xyz, x, d0, d4 = _di_operands(S, P, L, W, cuda)
+    z = z0.clone().requires_grad_()
+    torch.autograd.backward([di.decoder_input(z, xyz),
+                             di.skip_input(x, z, xyz)], [d0, d4])
+    zc = z0.clone().requires_grad_()     # lin0's input, two consumers
+    _di_composition(zc, xyz).backward(d0 + d4[:, W:])
+    a = d0[:, :L].double().reshape(S, P, L)
+    b = d4[:, W:W + L].double().reshape(S, P, L)
+    exact = (a + b).sum(1)
+    bound = (2.0 ** -8 * (a + b).abs().sum(1)
+             + 2 * P * 2.0 ** -24 * (a.abs() + b.abs()).sum(1))
+    assert bool(((z.grad.double() - zc.grad.double()).abs() <= bound).all())
+    assert float((z.grad.double() - exact).norm()) < float(
+        (zc.grad.double() - exact).norm())
+
+
+def test_decoder_input_launches_are_bit_identical(cuda):
+    """Two passes of each function at 3 x (16,384 + 131) points give the
+    same bits in every output (fixed work items, fixed orders, no
+    atomics)."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        decoder_input as di)
+    z0, xyz, x0, d0, d4 = _di_operands(*DI_SHAPES[2], cuda)
+    runs = []
+    for _ in range(2):
+        z, x = z0.clone().requires_grad_(), x0.clone().requires_grad_()
+        a, b = di.decoder_input(z, xyz), di.skip_input(x, z, xyz)
+        torch.autograd.backward([a, b], [d0, d4])
+        runs.append((a, b, z.grad, x.grad))
+    for p, q in zip(*runs):
+        assert torch.equal(p, q)
+
+
+def test_decoder_input_wrappers_refuse(cuda):
+    """On the card: xyz with a gradient, fp64 codes, an x of another width
+    than multiples of 8 and operands on two devices raise ValueError
+    before a launch; a skip row wider than the backward's 256 chunks of 8
+    columns fails at the backward's launch. bf16 xyz is taken: its rows
+    are bit for bit those of its fp32 value."""
+    from latent_diffusion_models_for_shape_sdfs_torch.ops import (
+        decoder_input as di)
+    z, xyz, x, _, _ = _di_operands(2, 40, 16, 8, cuda)
+    xg = xyz.clone().requires_grad_()
+    n0 = profiling.LAUNCHES.copy()
+    with pytest.raises(ValueError, match="xyz asks for a gradient"):
+        di.decoder_input(z, xg)
+    with pytest.raises(ValueError, match="xyz asks for a gradient"):
+        di.skip_input(x, z, xg)
+    with pytest.raises(ValueError, match="kernels take"):
+        di.decoder_input(z.double(), xyz)
+    with pytest.raises(ValueError, match="kernels take"):
+        di.decoder_input(z, xyz.cpu())
+    with pytest.raises(ValueError, match="skip_input"):
+        di.skip_input(torch.zeros(80, 12, dtype=torch.bfloat16,
+                                  device=cuda), z, xyz)
+    assert _since(n0, DI) == dict.fromkeys(DI, 0)
+    xb = xyz.to(torch.bfloat16)
+    assert torch.equal(di.decoder_input(z, xb),
+                       di.decoder_input(z, xb.float()))
+    wide = torch.zeros(80, 8 * 256, dtype=torch.bfloat16, device=cuda,
+                       requires_grad=True)
+    zg = z.clone().requires_grad_()
+    out = di.skip_input(wide, zg, xyz)
+    with pytest.raises(RuntimeError, match="skip_input.bwd: launch failed"):
+        out.backward(torch.ones_like(out))
+
+
+DI_ROUTES = {          # decoder plans (latent 13 + xyz 3; hidden 40)
+    "bf16_kernel_dropout": dict(compute_dtype="bfloat16",
+                                dropout_impl="pallas"),
+    "bf16_eval": dict(compute_dtype="bfloat16", dropout_impl="pallas"),
+    "fp32": dict(dropout_impl="pallas"),
+    "xla_dropout": dict(compute_dtype="bfloat16", dropout_impl="xla"),
+    "latent_dropout": dict(compute_dtype="bfloat16", dropout_impl="pallas",
+                           latent_dropout=True),
+    "xyz_in_all": dict(compute_dtype="bfloat16", dropout_impl="pallas",
+                       latent_in=(), xyz_in_all=True),
+}
+
+
+@pytest.mark.parametrize("route", sorted(DI_ROUTES))
+def test_decoder_per_scene_routes_on_the_card(route, cuda):
+    """The decoder given z [S, L] and xyz [S, P, 3] on the card against
+    the same decoder given the flat inputs (z expanded over the points):
+    the padded bf16 routes with kernel dropout or none go through
+    decoder_input and skip_input (one launch of each pass), pred and every
+    weight gradient bit for bit, z's gradient within one bf16 rounding of
+    the cotangents' add (2^-8 of its norm); every other route expands z
+    itself, bit for bit the flat form, launching neither."""
+    from latent_diffusion_models_for_shape_sdfs_torch.models.decoder import (
+        SdfDecoder)
+    torch.manual_seed(3)
+    dec = SdfDecoder(DecoderConfig(**{
+        **dict(latent_size=13, hidden_dim=40, num_layers=4, latent_in=(2,),
+               dropout_prob=0.2), **DI_ROUTES[route]})).to(cuda)
+    dec.train(route != "bf16_eval")
+    S, P = 3, 16384 + 131
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    z0 = torch.randn(S, 13, generator=gen, device=cuda) * 0.3
+    xyz = torch.rand(S, P, 3, generator=gen, device=cuda) * 2 - 1
+    g = torch.randn(S, P, generator=gen, device=cuda) / P
+    out = []
+    for flat in (False, True):
+        dec.zero_grad(set_to_none=True)
+        z = z0.clone().requires_grad_()
+        n0 = profiling.LAUNCHES.copy()
+        pred = (dec(z[:, None, :].expand(S, P, 13).reshape(-1, 13),
+                    xyz.reshape(-1, 3), seed=21).reshape(S, P) if flat
+                else dec(z, xyz, seed=21))
+        (pred * g).sum().backward()
+        torch.cuda.synchronize()
+        grads = {k: p.grad for k, p in dec.named_parameters()}
+        out.append((pred.detach(), grads, z.grad, _since(n0, DI)))
+    (p1, g1, z1, n1), (p2, g2, z2, n2) = out
+    kernels = route in ("bf16_kernel_dropout", "bf16_eval")
+    assert n1 == dict.fromkeys(DI, int(kernels))
+    assert n2 == dict.fromkeys(DI, 0)
+    assert p1.shape == (S, P) and torch.equal(p1, p2)
+    for k, r in g2.items():
+        assert torch.equal(g1[k], r), k
+    if kernels:
+        gap = float(torch.linalg.vector_norm(z1 - z2)
+                    / torch.linalg.vector_norm(z2))
+        assert gap <= 2.0 ** -8, gap
+    else:
+        assert torch.equal(z1, z2)
+
+
+def test_bank_step_per_scene_matches_flat_entry(cuda):
+    """One config-3 bank step (8 x 512, 64 x 16,384 points, bf16, #3/#3b
+    dropout) from the committed chair pack with other chairs' codes, per
+    scene (the package's route: one launch of each of decoder_input's and
+    skip_input's passes) against the same draw and loss with the decoder
+    given the flat inputs (z expanded over the points, no launch of
+    theirs): the loss and every decoder gradient bit for bit; the codes'
+    gradient within 2^-8 of its norm (one bf16 rounding of the
+    cotangents' add fewer)."""
+    import dataclasses
+    from latent_diffusion_models_for_shape_sdfs_torch import losses
+    from latent_diffusion_models_for_shape_sdfs_torch.config import (
+        ExperimentConfig)
+    from latent_diffusion_models_for_shape_sdfs_torch.data import (
+        analytic, analytic_device as adv)
+    from latent_diffusion_models_for_shape_sdfs_torch.models.latent_table \
+        import gather_codes
+    from latent_diffusion_models_for_shape_sdfs_torch.train import (
+        auto_decoder as tad)
+    ad = ExperimentConfig.load(pathlib.Path(__file__).resolve().parents[1]
+                               / "configs" / "config3_chairs_joint").ad
+    S, P = ad.scenes_per_batch, ad.samples_per_scene
+    cfg = dataclasses.replace(ad, num_scenes=S, use_pallas=False)
+    sd, codes = load_stage1_pack(PACK)
+    codes = codes[S:2 * S]
+    bank = adv.bank_from_chairs(analytic.make_synthetic_split(
+        "chair", S, seed=11), 11, P, device=cuda)
+    ids = torch.arange(S, device=cuda)
+
+    def flat_entry(st):
+        """make_bank_step's draw and autograd loss, the decoder given z
+        expanded over the points as [S P, L]."""
+        xyz, sdf = bank.sample_batch(torch.Generator(
+            device=cuda).manual_seed(5), ids, P)
+        st.decoder.train()
+        st.optimizer.zero_grad(set_to_none=True)
+        z = gather_codes(st.codes, ids, cfg.code_bound)
+        L = z.shape[-1]
+        pred = st.decoder(z[:, None, :].expand(S, P, L).reshape(-1, L),
+                          xyz.reshape(-1, 3), seed=17)
+        l1 = losses.clamped_l1(pred, sdf.reshape(-1), cfg.clamp_dist, S * P)
+        reg = losses.code_reg(z, 0.0, cfg.code_reg_lambda,
+                              cfg.code_reg_warmup_epochs,
+                              num_sdf_samples=S,
+                              squared=cfg.code_reg_squared)
+        (l1 + reg).backward()
+        return float(l1.detach() + reg.detach())
+
+    out = []
+    for flat in (False, True):
+        st = tad.init_ad_state(cfg, params=sd, codes=codes, device=cuda)
+        n0 = profiling.LAUNCHES.copy()
+        if flat:
+            loss = flat_entry(st)
+        else:
+            step = tad.make_bank_step(st.decoder, cfg, bank, torch.Generator(
+                device=cuda).manual_seed(5))
+            loss = float(step(st, ids, 0.0, 17)["loss"])
+        grads = {k: p.grad.clone() for k, p in
+                 st.decoder.named_parameters()}
+        grads["codes"] = st.codes.grad.clone()
+        out.append((loss, grads, _since(n0, DI)))
+        del st
+    (l1, g1, n1), (l2, g2, n2) = out
+    assert n1 == dict.fromkeys(DI, 1) and n2 == dict.fromkeys(DI, 0)
+    assert l1 == l2
+    for k, r in g2.items():
+        if k != "codes":
+            assert torch.equal(g1[k], r), k
+    gap = float(torch.linalg.vector_norm(g1["codes"] - g2["codes"])
+                / torch.linalg.vector_norm(g2["codes"]))
+    assert gap <= 2.0 ** -8, gap
+
+
 def test_recon_capture_failure_raises(cuda):
     """A step that cannot be captured (a prior that reads a value on the
     host) raises; the run does not fall back to the eager loop. Last in
